@@ -1,0 +1,184 @@
+"""SAM image encoder: ViTDet-style ViT with 14x14 window attention, global
+layers, and decomposed relative position bias (NHWC, as the JAX package).
+
+Port of pope_tpu/models/sam/encoder.py. The cast points are the JAX
+package's: LayerNorms run in f32, the normed activations are cast to the
+compute dtype before the window partition, the output is f32. Windowed
+layers call the windowed-attention kernel on the un-reshaped qkv output;
+global layers call the streaming rel-pos kernel on strided q/k/v views. The
+rel-table einsums stay outside both kernels, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from pope_tpu_torch.config import SamEncoderConfig
+from pope_tpu_torch.ops.flash_attention import flash_attention_relpos
+from pope_tpu_torch.ops.window_attention import windowed_attention_relpos
+
+
+def dense(layer: nn.Linear, x, dtype):
+    """flax nn.Dense(dtype=dtype): inputs, kernel and bias cast to dtype."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def layer_norm_f32(layer: nn.LayerNorm, x):
+    """flax nn.LayerNorm(dtype=float32): computed and returned in f32."""
+    return F.layer_norm(
+        x.float(), layer.normalized_shape, layer.weight.float(), layer.bias.float(), layer.eps
+    )
+
+
+def conv_nhwc(layer: nn.Conv2d, x, dtype):
+    """flax nn.Conv(dtype=dtype) on an NHWC tensor."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    y = F.conv2d(
+        x.permute(0, 3, 1, 2).to(dtype), layer.weight.to(dtype), bias,
+        stride=layer.stride, padding=layer.padding,
+    )
+    return y.permute(0, 2, 3, 1)
+
+
+class LayerNorm2d(nn.Module):
+    """Channel LayerNorm with biased variance; in NHWC a LayerNorm over the
+    trailing axis, computed in f32 and returned in the input dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.eps = eps
+
+    def forward(self, x):
+        xf = x.float()
+        u = xf.mean(dim=-1, keepdim=True)
+        s = ((xf - u) ** 2).mean(dim=-1, keepdim=True)
+        xf = (xf - u) / torch.sqrt(s + self.eps)
+        return (self.weight.float() * xf + self.bias.float()).to(x.dtype)
+
+
+def _rel_pos_table(rel_pos, size: int):
+    """(size, size, d) table of rel_pos rows at relative coords. The table's
+    centre entry is zero displacement, so a sub-grid (size <= T, the
+    rect-encode grid) slices the exact entries the square frame would use."""
+    center = (rel_pos.shape[0] - 1) // 2
+    ar = torch.arange(size, device=rel_pos.device)
+    return rel_pos[ar[:, None] - ar[None, :] + center]
+
+
+def _rel_tables(q, rel_pos_h, rel_pos_w, hw, dtype):
+    """q-projected bias tables: q (B, H*W, nh, d) -> ((B, nh, N, H), (B, nh, N, W))."""
+    B, N, nh, d = q.shape
+    H, W = hw
+    r_q = q.reshape(B, H, W, nh, d)
+    Rh = _rel_pos_table(rel_pos_h, H).to(dtype)
+    Rw = _rel_pos_table(rel_pos_w, W).to(dtype)
+    rel_h = torch.einsum("bhwnc,hkc->bnhwk", r_q, Rh).reshape(B, nh, N, H).contiguous()
+    rel_w = torch.einsum("bhwnc,wkc->bnhwk", r_q, Rw).reshape(B, nh, N, W).contiguous()
+    return rel_h, rel_w
+
+
+class EncoderBlock(nn.Module):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float, window_size: int,
+                 grid: int, dtype: torch.dtype, gelu: str = "erf"):
+        super().__init__()
+        self.num_heads = num_heads
+        self.window_size = window_size  # 0 = global
+        self.dtype = dtype
+        self.gelu = gelu
+        d = dim // num_heads
+        side = window_size if window_size > 0 else grid
+        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.rel_pos_h = nn.Parameter(torch.zeros(2 * side - 1, d))
+        self.rel_pos_w = nn.Parameter(torch.zeros(2 * side - 1, d))
+        self.proj = nn.Linear(dim, dim)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.mlp_lin1 = nn.Linear(dim, int(dim * mlp_ratio))
+        self.mlp_lin2 = nn.Linear(int(dim * mlp_ratio), dim)
+
+    def forward(self, x):
+        B, H, W, C = x.shape
+        nh = self.num_heads
+        d = C // nh
+        dt = self.dtype
+        shortcut = x
+        h = layer_norm_f32(self.norm1, x).to(dt)
+
+        ws = self.window_size
+        if ws > 0:
+            pad_h = (ws - H % ws) % ws
+            pad_w = (ws - W % ws) % ws
+            Hp, Wp = H + pad_h, W + pad_w
+            hp = F.pad(h, (0, 0, 0, pad_w, 0, pad_h))
+            hp = hp.reshape(B, Hp // ws, ws, Wp // ws, ws, C).permute(0, 1, 3, 2, 4, 5)
+            tokens = hp.reshape(-1, ws * ws, C)
+            qkv = dense(self.qkv, tokens, dt)  # (BW, ws*ws, 3C)
+            q = qkv[..., :C].unflatten(-1, (nh, d))
+            rel_h, rel_w = _rel_tables(q, self.rel_pos_h, self.rel_pos_w, (ws, ws), dt)
+            attn = windowed_attention_relpos(qkv, rel_h, rel_w, nh, d, ws, ws)
+            attn = dense(self.proj, attn, dt)
+            attn = attn.reshape(B, Hp // ws, Wp // ws, ws, ws, C).permute(0, 1, 3, 2, 4, 5)
+            attn_sp = attn.reshape(B, Hp, Wp, C)[:, :H, :W]
+        else:
+            qkv = dense(self.qkv, h.reshape(B, H * W, C), dt).view(B, H * W, 3, nh, d)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            rel_h, rel_w = _rel_tables(q, self.rel_pos_h, self.rel_pos_w, (H, W), dt)
+            attn = flash_attention_relpos(q, k, v, rel_h, rel_w, H, W)
+            attn_sp = dense(self.proj, attn, dt).reshape(B, H, W, C)
+
+        x = shortcut + attn_sp
+        h = layer_norm_f32(self.norm2, x)
+        h = dense(self.mlp_lin1, h, dt)
+        h = F.gelu(h, approximate="tanh" if self.gelu == "tanh" else "none")
+        h = dense(self.mlp_lin2, h, dt)
+        return x + h
+
+
+class ImageEncoderViT(nn.Module):
+    """(B, fh, fw, 3) preprocessed frames -> (B, fh/16, fw/16, out_chans) f32.
+
+    Rect frames (fh, fw multiples of the patch size, <= img_size) encode a
+    rect token grid; the abs pos embed and the global rel-pos tables are
+    sliced, not interpolated."""
+
+    def __init__(self, config: SamEncoderConfig = SamEncoderConfig()):
+        super().__init__()
+        cfg = config
+        if cfg.quantize != "none":
+            raise NotImplementedError(f"quantize={cfg.quantize!r}: the port has no int8 path yet")
+        if not cfg.use_rel_pos:
+            raise NotImplementedError("the port's encoder implements rel-pos attention only")
+        self.config = cfg
+        self.dtype = getattr(torch, cfg.dtype)
+        grid = cfg.img_size // cfg.patch_size
+        self.patch_embed = nn.Conv2d(3, cfg.embed_dim, cfg.patch_size, stride=cfg.patch_size)
+        self.pos_embed = nn.Parameter(torch.zeros(1, grid, grid, cfg.embed_dim))
+        self.block_names = []
+        for i in range(cfg.depth):
+            name = f"block_{i}"
+            self.add_module(name, EncoderBlock(
+                cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio,
+                0 if i in cfg.global_attn_indexes else cfg.window_size,
+                grid, self.dtype, cfg.gelu,
+            ))
+            self.block_names.append(name)
+        self.neck_conv1 = nn.Conv2d(cfg.embed_dim, cfg.out_chans, 1, bias=False)
+        self.neck_ln1 = LayerNorm2d(cfg.out_chans)
+        self.neck_conv2 = nn.Conv2d(cfg.out_chans, cfg.out_chans, 3, padding=1, bias=False)
+        self.neck_ln2 = LayerNorm2d(cfg.out_chans)
+
+    def forward(self, x):
+        dt = self.dtype
+        x = conv_nhwc(self.patch_embed, x, dt)
+        gh, gw = x.shape[1:3]
+        x = x + self.pos_embed[:, :gh, :gw].to(dt)
+        for name in self.block_names:
+            x = getattr(self, name)(x)
+        x = self.neck_ln1(conv_nhwc(self.neck_conv1, x, dt))
+        x = self.neck_ln2(conv_nhwc(self.neck_conv2, x, dt))
+        return x.float()

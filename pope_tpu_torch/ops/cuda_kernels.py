@@ -1,0 +1,117 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+The sources under `pope_tpu_torch/csrc/` have a plain C interface. On first
+use `nvcc` compiles them for Hopper (`sm_90a`) into one shared library under
+`build/kernels/` at the root of the checkout, named by a hash of the sources
+so that an edit rebuilds it, and `ctypes` loads it. Nothing here runs at
+import time: the CPU test suite imports every module and has no `nvcc`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+_SOURCES = ("attention_relpos.cu",)
+_BF16_HEAD_DIMS = (32, 64, 80)  # the tensor-core body's instantiations (launch_bf16)
+
+_lib = None  # the loaded library, once built
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built from source on first use")
+
+
+def build() -> tuple[Path, str | None]:
+    """Compile the kernels if the library for these sources is not built yet.
+    Return its path and the compiler's output (ptxas's registers, shared
+    memory and spills per kernel), or None when the library was already
+    built."""
+    srcs = [_CSRC / s for s in _SOURCES]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in srcs)).hexdigest()[:16]
+    out = _BUILD_DIR / f"libpope_kernels_{digest}.so"
+    if out.exists():
+        return out, None
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xptxas", "-v",
+        "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), *map(str, srcs),
+    ]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out, proc.stdout + proc.stderr
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()[0]))
+        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        lib.pope_attention_relpos.argtypes = [ptr] * 6 + [i64] * 9 + [i32] * 6 + [ctypes.c_float, i32, ptr]
+        lib.pope_attention_relpos.restype = i32
+        lib.pope_cuda_error_string.argtypes = [i32]
+        lib.pope_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def launch_attention_relpos(q, k, v, rel_h, rel_w, hk: int, wk: int):
+    """Run csrc/attention_relpos.cu's kernel for the windowed and the global
+    layers.
+
+    q, k, v: (B, N, nh, d) CUDA views with a unit last stride (slices of the
+    qkv Dense output are fine); rel_h (B, nh, N, hk) and rel_w (B, nh, N, wk)
+    contiguous, all of one dtype (float32 or bfloat16). In bfloat16 the
+    tensor-core body also needs d in _BF16_HEAD_DIMS and q/k/v rows that start
+    on 16 bytes. Returns a new contiguous (B, N, nh * d) tensor."""
+    B, N, nh, d = q.shape
+    tensors = (q, k, v, rel_h, rel_w)
+    if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
+        raise ValueError("attention kernel: all operands must lie on one CUDA device")
+    if q.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != q.dtype for t in tensors):
+        raise TypeError(f"attention kernel takes float32 or bfloat16 operands of one dtype, got "
+                        f"{[t.dtype for t in tensors]}")
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
+    if N != hk * wk or rel_h.shape != (B, nh, N, hk) or rel_w.shape != (B, nh, N, wk):
+        raise ValueError(f"rel tables {tuple(rel_h.shape)} {tuple(rel_w.shape)} do not fit "
+                         f"q {tuple(q.shape)} on a {hk}x{wk} key grid")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("q/k/v need a unit last stride")
+    if not (rel_h.is_contiguous() and rel_w.is_contiguous()):
+        raise ValueError("rel tables must be contiguous")
+    if d > 128:
+        raise ValueError(f"head dim {d} > 128")
+    misaligned = any(t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]) for t in (q, k, v))
+    if q.dtype == torch.bfloat16 and (d not in _BF16_HEAD_DIMS or misaligned):
+        raise ValueError(f"bfloat16 attention kernel: head dim must be one of {_BF16_HEAD_DIMS} "
+                         "and q/k/v rows must start on 16 bytes")
+    out = torch.empty((B, N, nh * d), dtype=q.dtype, device=q.device)
+    lib = library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.pope_attention_relpos(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
+            out.data_ptr(),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            B, N, nh, d, hk, wk, float(d ** -0.5), int(q.dtype == torch.bfloat16), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"pope_attention_relpos failed: {lib.pope_cuda_error_string(err).decode()}")
+    return out

@@ -1,0 +1,55 @@
+"""Streaming attention with decomposed rel-pos bias for SAM's global layers:
+the CUDA kernel's wrapper and its plain PyTorch version.
+
+Port of pope_tpu/ops/flash_attention.py::flash_attention_relpos. The kernel
+(csrc/attention_relpos.cu, shared with the windowed layers) streams key/value
+tiles through an f32 online softmax and gathers the bias
+rel_h[q, k // wk] + rel_w[q, k % wk] per tile, so the (N, N) logits never
+reach device memory. Logits, softmax statistics and sums are f32; the scale
+is d^-1/2. In bf16 the kernel rounds the softmax weights to bf16 for the
+p . v product on the tensor cores, where the plain version keeps them f32.
+
+Unlike the JAX entry, which takes (B*nh, N, d) copies, q, k and v are
+(B, N, nh, d) views: the encoder passes slices of its qkv Dense output as
+they are, and the output comes back in the `proj` input layout.
+`flash_attention` (the bias-free variant, off the main path) is not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pope_tpu_torch.ops.cuda_kernels import launch_attention_relpos
+
+
+def flash_attention_relpos_plain(q, k, v, rel_h, rel_w, hk: int, wk: int):
+    """The kernel's arithmetic in plain PyTorch (same shapes as the wrapper)."""
+    B, N, nh, d = q.shape
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * d ** -0.5, k.float())
+    bias = (rel_h.float()[..., :, None] + rel_w.float()[..., None, :]).reshape(B, nh, N, N)
+    p = torch.softmax(s + bias, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return out.reshape(B, N, nh * d).to(q.dtype)
+
+
+def flash_attention_relpos(q, k, v, rel_h, rel_w, hk: int, wk: int):
+    """Fused attention + decomposed rel-pos bias.
+
+    q, k, v: (B, N, nh, d), N = hk * wk keys in row-major (kh, kw) order; on
+             CUDA any views with a unit last stride.
+    rel_h:   (B, nh, N, hk) bias against the key row.
+    rel_w:   (B, nh, N, wk) bias against the key column.
+    Returns (B, N, nh*d) in q.dtype.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    """
+    if q.shape[1] != hk * wk:
+        raise ValueError(f"q {tuple(q.shape)} does not fit a {hk}x{wk} key grid")
+    if q.device.type == "cpu":
+        return flash_attention_relpos_plain(q, k, v, rel_h, rel_w, hk, wk)
+    out = launch_attention_relpos(q, k, v, rel_h, rel_w, hk, wk)
+    flash_attention_relpos.launches += 1
+    return out
+
+
+flash_attention_relpos.launches = 0

@@ -1,0 +1,115 @@
+"""The port's attention kernels (pope_tpu_torch/ops/window_attention.py,
+flash_attention.py) against the Pallas kernels they replace.
+
+On the CPU the wrappers run their plain PyTorch versions, which repeat the
+CUDA kernels' arithmetic; those are held against the Pallas kernels in
+interpret mode, as tests/test_window_attention.py and
+tests/test_flash_attention.py run them. The CUDA kernels themselves are held
+against the plain versions on the card by tests/test_torch_cuda.py and
+chip_smoke.py."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pope_tpu.ops.flash_attention import flash_attention_relpos as pallas_flash
+from pope_tpu.ops.window_attention import windowed_attention_relpos as pallas_window
+from pope_tpu_torch.ops.flash_attention import flash_attention_relpos, flash_attention_relpos_plain
+from pope_tpu_torch.ops.window_attention import (
+    windowed_attention_relpos,
+    windowed_attention_relpos_plain,
+)
+
+# f32: the same math reassociated (max abs error; outputs are softmax averages
+# of v ~ N(0, 1), max |out| about 1 at these shapes). bf16: both keep logits
+# and softmax in f32 from the same bf16 inputs, so they differ by the bf16
+# rounding of the output and, in the windowed kernel, of the softmax weights:
+# a few ulps of the largest output (seen: 2e-3 on max |out| 0.95)
+TOL_F32, TOL_BF16_REL = 2e-5, 1e-2
+
+
+def _assert_close(out, ref, dtype):
+    ref = np.asarray(ref, np.float32)
+    err = np.abs(out.float().numpy() - ref).max()
+    tol = TOL_F32 if dtype == "float32" else TOL_BF16_REL * np.abs(ref).max()
+    assert err < tol, (err, tol)
+
+
+def _window_inputs(seed, BW, nh, d, hk, wk):
+    rng = np.random.default_rng(seed)
+    N = hk * wk
+    qkv = rng.standard_normal((BW, N, 3 * nh * d)).astype(np.float32)
+    rel_h = (rng.standard_normal((BW, nh, N, hk)) * 0.5).astype(np.float32)
+    rel_w = (rng.standard_normal((BW, nh, N, wk)) * 0.5).astype(np.float32)
+    return qkv, rel_h, rel_w
+
+
+def _t(a, dtype):
+    return torch.from_numpy(a).to(getattr(torch, dtype))
+
+
+def _j(a, dtype):
+    return jnp.asarray(a, getattr(jnp, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_window_plain_matches_pallas(dtype):
+    """SAM's window shape: 14x14 windows, d = 80."""
+    BW, nh, d, hk, wk = 3, 2, 80, 14, 14
+    qkv, rel_h, rel_w = _window_inputs(0, BW, nh, d, hk, wk)
+    ref = pallas_window(
+        _j(qkv, dtype), _j(rel_h, dtype), _j(rel_w, dtype), nh, d, hk, wk, interpret=True
+    )
+    out = windowed_attention_relpos(_t(qkv, dtype), _t(rel_h, dtype), _t(rel_w, dtype), nh, d, hk, wk)
+    assert out.shape == (BW, hk * wk, nh * d) and out.dtype == getattr(torch, dtype)
+    _assert_close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hk,wk", [(8, 16), (14, 14)])
+def test_flash_plain_matches_pallas(dtype, hk, wk):
+    """A rect global grid (8x16) and the window grid, d = 80. The Pallas entry
+    takes (B*nh, N, d); the port's takes (B, N, nh, d), here with nh = 1."""
+    BH, d = 2, 80
+    N = hk * wk
+    rng = np.random.default_rng(1)
+    q, k, v = (rng.standard_normal((BH, N, d)).astype(np.float32) for _ in range(3))
+    rel_h = (rng.standard_normal((BH, N, hk)) * 0.5).astype(np.float32)
+    rel_w = (rng.standard_normal((BH, N, wk)) * 0.5).astype(np.float32)
+    ref = pallas_flash(
+        _j(q, dtype), _j(k, dtype), _j(v, dtype), _j(rel_h, dtype), _j(rel_w, dtype),
+        hk, wk, q_tile=64, k_tile=N, interpret=True,
+    )
+    out = flash_attention_relpos(
+        *(_t(a, dtype)[:, :, None] for a in (q, k, v)),
+        _t(rel_h, dtype)[:, None], _t(rel_w, dtype)[:, None], hk, wk,
+    )
+    assert out.shape == (BH, N, d)
+    _assert_close(out, ref, dtype)
+
+
+def test_wrappers_take_plain_version_on_cpu():
+    """A CPU tensor takes the plain version and launches nothing."""
+    BW, nh, d, hk, wk = 2, 2, 16, 4, 4
+    qkv, rel_h, rel_w = (torch.from_numpy(a) for a in _window_inputs(2, BW, nh, d, hk, wk))
+    before = (windowed_attention_relpos.launches, flash_attention_relpos.launches)
+    out = windowed_attention_relpos(qkv, rel_h, rel_w, nh, d, hk, wk)
+    torch.testing.assert_close(out, windowed_attention_relpos_plain(qkv, rel_h, rel_w, nh, d, hk, wk))
+    q, k, v = qkv.view(BW, hk * wk, 3, nh, d).unbind(2)
+    out = flash_attention_relpos(q, k, v, rel_h, rel_w, hk, wk)
+    torch.testing.assert_close(out, flash_attention_relpos_plain(q, k, v, rel_h, rel_w, hk, wk))
+    assert (windowed_attention_relpos.launches, flash_attention_relpos.launches) == before
+
+
+def test_window_and_flash_plain_agree_in_f32():
+    """In f32 the two plain versions compute one function (the windowed one
+    reads q/k/v from the qkv layout, the global one from views of it)."""
+    BW, nh, d, hk, wk = 2, 3, 24, 5, 7
+    qkv, rel_h, rel_w = (torch.from_numpy(a) for a in _window_inputs(3, BW, nh, d, hk, wk))
+    q, k, v = qkv.view(BW, hk * wk, 3, nh, d).unbind(2)
+    torch.testing.assert_close(
+        windowed_attention_relpos_plain(qkv, rel_h, rel_w, nh, d, hk, wk),
+        flash_attention_relpos_plain(q, k, v, rel_h, rel_w, hk, wk),
+        atol=1e-5, rtol=1e-5,
+    )
