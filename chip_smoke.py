@@ -6,19 +6,32 @@
 Phases, each of which raises on failure (exit code != 0):
   1. device: print the card's name and power limit (nvidia-smi);
   2. build: compile the CUDA kernels from pope_tpu_torch/csrc with nvcc;
-  3. kernels: each ported kernel at the shapes SAM ViT-H's AMG program gives
-     it (B=4 640x480 frames, rect 48x64 token grid), held against its plain
-     PyTorch version, and timed beside the plain version, the bound of the
-     card and one library call (SDPA with a materialised bias mask);
+  3. kernels: each ported kernel at the shape the main path gives it (SAM
+     ViT-H's AMG program on B=4 640x480 frames, rect 48x64 token grid, for
+     the two rel-pos kernels; DINOv2 ViT-S/14's retrieval forward over 4
+     pairs x 65 crops for the bias-free one), held against its plain PyTorch
+     version, and timed beside the plain version, the bound of the card and
+     one library call (SDPA, with a materialised bias mask where the kernel
+     has a bias);
   4. reference: a small SAM (ViT-H width, 2 blocks, f32) encodes and decodes
      on the card and on the CPU, where the port runs its plain versions
      (which the CPU test suite holds against pope_tpu); the two must agree;
-  5. main path: load_models(sam_type="h") with seeded weights and
-     AutomaticMaskGenerator.generate_boxes_batch on four 640x480 frames,
-     with the kernels' launch counts read around the first run; then once
-     more with the filters open.
+  5. stage-2 reference: a small DINOv2 (ViT-S width, 2 blocks), a small
+     matcher (full widths, 2 coarse layers) and the solver, f32, on the card
+     and on the CPU, the solver's noise drawn once on the CPU;
+  6. solver: 4 synthetic pairs of 1024 correspondences from known poses
+     (1 px noise, 30% outliers) in one batched RANSAC call on the card,
+     which must recover each rotation within a few degrees;
+  7. main path: load_models(sam_type="h") with seeded weights for SAM,
+     DINOv2 and the matcher; stage 1,
+     AutomaticMaskGenerator.generate_boxes_batch on four 640x480 target
+     frames, then stage 2, PipelineExecutor.batched() (retrieve -> match ->
+     solve) on four prompt frames and the stage-1 boxes. Each stage runs with
+     the kernels' launch counts set to 0 just before it and read just after;
+     then both are timed and profiled, and stage 1 and 2 run once more with
+     the AMG filters open.
 The last three lines are the `kernels` JSON line, the nvidia-smi line and
-{"ok": true, "device": {...}}. A copy of the results, the full profile
+{"ok": true, "device": {...}}. A copy of the results, the full profiles
 included, goes to build/chip_smoke.json (gitignored).
 """
 
@@ -47,9 +60,29 @@ BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 # would miss both by several times.
 TOL_MAX_REL = 2.5e-2  # max |out - ref| / max |ref|
 TOL_RMS_REL = 1e-2  # rms(out - ref) / rms(ref)
-TOL_F32 = 1e-3  # small SAM on the card vs on the CPU, f32, outputs O(1)
+TOL_F32 = 1e-3  # small SAM / DINOv2 on the card vs on the CPU, f32, outputs O(1)
+# small matcher, card vs CPU, f32: the dual-softmax confidences (in [0, 1]);
+# the match sets, of which a near-tie may flip a slot; the refined image-1
+# coordinates of the slots both sides keep (coarse pixel + 4 x a softmax
+# expectation, so 1e-3 px is 2.5e-4 of the expectation)
+TOL_CONF = 1e-4
+MIN_SAME_MATCHES = 0.99
+TOL_MKPTS_PX = 1e-3
+# solver, card vs CPU on the same correspondences and noise: R and t entries
+# (1e-3 is about 0.06 degrees), and at most this many inlier flags may
+# differ (points on the threshold)
+TOL_POSE = 1e-3
+MAX_INLIER_FLIPS = 2
+# solver on synthetic pairs with known poses (1 px noise, 30% outliers): the
+# JAX package's own solver test holds 300 points at 0.5 px noise to R < 3 and
+# t < 8 degrees; at twice that noise the limits are widened, since the noise
+# draw alone moves a pair's error by a few degrees
+MAX_R_ERR_DEG, MAX_T_ERR_DEG = 5.0, 15.0
+LINEMOD_K = ((572.4114, 0.0, 325.2611), (0.0, 573.57043, 242.04899), (0.0, 0.0, 1.0))
 
 SOURCE = "pope_tpu_torch/csrc/attention_relpos.cu"
+DEV = "cuda"  # where the stage-2 phases and the main path run
+PROFILER_OWN_EVENTS = ("Buffer Flush", "Activity Buffer Request")  # the tracer's, not the program's
 
 
 def nvidia_smi() -> str:
@@ -110,7 +143,12 @@ def kernel_phase(name, replaces, kernel, plain, library, args, reps, nbytes, flo
 
 
 def run_kernel_phases():
-    from pope_tpu_torch.ops.flash_attention import flash_attention_relpos, flash_attention_relpos_plain
+    from pope_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+        flash_attention_relpos,
+        flash_attention_relpos_plain,
+    )
     from pope_tpu_torch.ops.window_attention import (
         windowed_attention_relpos,
         windowed_attention_relpos_plain,
@@ -159,6 +197,23 @@ def run_kernel_phases():
         flops=4.0 * B * nh * N * N * d,
     )
     del qkv, rel_h, rel_w, q, k, v, mask
+
+    # kernel 3: DINOv2 ViT-S/14's 12 blocks in the retrieval forward; 4 pairs
+    # x (64 candidate crops + the prompt), 14x14 patches + cls, 6 heads, d=64
+    B, N, nh, d = 4 * 65, 197, 6, 64
+    C = nh * d
+    qkv = torch.randn(B, N, 3, nh, d, device=dev, generator=g).to(bf16)
+    qn, kn, vn = qkv.unbind(2)
+    q, k, v = (t.transpose(1, 2) for t in (qn, kn, vn))
+    rows["flash_attention"] = kernel_phase(
+        "flash_attention", "pope_tpu/ops/flash_attention.py:114",
+        flash_attention, flash_attention_plain,
+        lambda: F.scaled_dot_product_attention(q, k, v),
+        (qn, kn, vn), reps=20,
+        nbytes=2 * (qkv.numel() + B * N * C),
+        flops=4.0 * B * nh * N * N * d,
+    )
+    del qkv, q, k, v
     torch.cuda.empty_cache()
     return rows
 
@@ -199,6 +254,130 @@ def run_reference_phase():
     return errs
 
 
+def run_stage2_reference_phase():
+    """A small f32 DINOv2 (ViT-S width, 2 blocks), a small f32 matcher (full
+    widths, 2 coarse layers, threshold lowered so that there are matches to
+    compare) and the solver on the card against the same modules on the CPU
+    (plain versions of the kernels)."""
+    from pope_tpu_torch.config import CoarseMatchConfig, DinoV2Config, LoFTRStageConfig, MatcherConfig
+    from pope_tpu_torch.models.dinov2 import DinoVisionTransformer
+    from pope_tpu_torch.models.matcher import Matcher
+    from pope_tpu_torch.pipeline.api import init_dinov2_weights, init_matcher_weights
+    from pope_tpu_torch.solver import draw_gumbel, estimate_pose_ransac
+
+    errs, bad = {}, []
+    rng = np.random.default_rng(4)
+    cpu = DinoVisionTransformer(DinoV2Config(depth=2)).eval()
+    init_dinov2_weights(cpu, torch.Generator().manual_seed(5))
+    gpu = copy.deepcopy(cpu).to(DEV)
+    x = torch.from_numpy(rng.normal(0, 1, (3, 196, 196, 3)).astype(np.float32))
+    with torch.no_grad():
+        ref, out = cpu(x), gpu(x.to(DEV))
+    for key in ref:
+        errs[f"dinov2_{key}"] = (out[key].cpu() - ref[key]).abs().max().item()
+    bad += [k for k in errs if not errs[k] < TOL_F32]
+
+    cfg = MatcherConfig(
+        coarse=LoFTRStageConfig(layer_names=("self", "cross")),
+        match_coarse=CoarseMatchConfig(thr=0.0, border_rm=0),
+    )
+    cpu_m = Matcher(cfg).eval()
+    init_matcher_weights(cpu_m, torch.Generator().manual_seed(6))
+    gpu_m = copy.deepcopy(cpu_m).to(DEV)
+    img0 = torch.from_numpy(rng.uniform(0, 1, (1, 120, 160, 1)).astype(np.float32))
+    img1 = torch.cat([img0[:, y:y + 64, x:x + 64] for y, x in ((8, 16), (40, 64), (24, 88))]).contiguous()
+    with torch.no_grad():
+        ref = cpu_m(img0, img1, return_aux=True)
+        out = gpu_m(img0.to(DEV), img1.to(DEV), return_aux=True)
+    out = type(out)(*(None if t is None else t.cpu() for t in out))
+    same = (out.i_ids == ref.i_ids) & (out.j_ids == ref.j_ids) & (out.valid == ref.valid)
+    both = same & ref.valid
+    errs["matcher_conf"] = (out.conf_matrix - ref.conf_matrix).abs().max().item()
+    errs["matcher_same_slots"] = same.float().mean().item()
+    errs["matcher_valid"] = int(ref.valid.sum())
+    errs["matcher_mkpts1_px"] = (out.mkpts1 - ref.mkpts1)[both].abs().max().item() if both.any() else 0.0
+    if not (errs["matcher_conf"] < TOL_CONF and errs["matcher_same_slots"] >= MIN_SAME_MATCHES
+            and errs["matcher_mkpts1_px"] < TOL_MKPTS_PX and errs["matcher_valid"] > 0):
+        bad.append("matcher")
+
+    pairs = [synth_pair(np.random.default_rng(s), n=512) for s in (7, 8)]
+    p0, p1, K = (torch.from_numpy(np.stack([p[i] for p in pairs])) for i in range(3))
+    valid = torch.ones(p0.shape[:2], dtype=torch.bool)
+    noise = draw_gumbel((2, 3, 2048, 512), torch.Generator().manual_seed(9))
+    ref = estimate_pose_ransac(p0, p1, K, K, valid, noise)
+    out = estimate_pose_ransac(p0.to(DEV), p1.to(DEV), K.to(DEV), K.to(DEV), valid.to(DEV), noise.to(DEV))
+    errs["solver_ok"] = [bool(a) and bool(b) for a, b in zip(ref.ok, out.ok.cpu())]
+    errs["solver_R"] = (out.R.cpu() - ref.R).abs().max().item()
+    errs["solver_t"] = (out.t.cpu() - ref.t).abs().max().item()
+    errs["solver_inlier_flips"] = int((out.inliers.cpu() != ref.inliers).sum())
+    if not (all(errs["solver_ok"]) and errs["solver_R"] < TOL_POSE and errs["solver_t"] < TOL_POSE
+            and errs["solver_inlier_flips"] <= MAX_INLIER_FLIPS):
+        bad.append("solver")
+
+    print(json.dumps({"stage2_reference_phase": {"errors": errs, "tol": {
+        "f32": TOL_F32, "conf": TOL_CONF, "same_slots": MIN_SAME_MATCHES, "mkpts_px": TOL_MKPTS_PX,
+        "pose": TOL_POSE, "inlier_flips": MAX_INLIER_FLIPS}}}), flush=True)
+    if bad:
+        raise AssertionError(f"stage 2, card vs CPU disagree: {bad}: {errs}")
+    return errs
+
+
+def synth_pair(rng, n=1024, noise_px=1.0, outlier_frac=0.3, f=500.0, max_angle_deg=40.0):
+    """tests/test_solver.py's synthetic pair: n points in front of both
+    cameras under a known (R, t), pixel noise, a fraction of outliers.
+    Returns f32 (pix0, pix1, K) and f64 (R, t)."""
+    axis = rng.normal(0, 1, 3)
+    axis /= np.linalg.norm(axis)
+    angle = np.deg2rad(rng.uniform(5.0, max_angle_deg))
+    W = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    R = np.eye(3) + np.sin(angle) * W + (1 - np.cos(angle)) * W @ W  # Rodrigues
+    t = rng.normal(0, 1, 3)
+    t /= np.linalg.norm(t)
+    X = rng.uniform(-1, 1, (n, 3)) + np.array([0, 0, 5.0])
+    K = np.array([[f, 0, 320], [0, f, 240], [0, 0, 1]], np.float64)
+
+    def proj(Xc):
+        p = Xc @ K.T
+        return p[:, :2] / p[:, 2:3]
+
+    pix0, pix1 = proj(X), proj(X @ R.T + t)
+    pix0 += rng.normal(0, noise_px, pix0.shape)
+    pix1 += rng.normal(0, noise_px, pix1.shape)
+    n_out = int(n * outlier_frac)
+    if n_out:
+        idx = rng.choice(n, n_out, replace=False)
+        pix1[idx] = rng.uniform([0, 0], [640, 480], (n_out, 2))
+    return pix0.astype(np.float32), pix1.astype(np.float32), K.astype(np.float32), R, t
+
+
+def run_solver_phase():
+    """Four synthetic pairs (1024 correspondences, 1 px noise, 30% outliers)
+    in one batched RANSAC call on the card, noise from a seeded generator on
+    the card; each rotation within MAX_R_ERR_DEG of the truth."""
+    from pope_tpu_torch.geometry import rotation_angle_deg, translation_angle_deg
+    from pope_tpu_torch.solver import estimate_pose_ransac
+
+    pairs = [synth_pair(np.random.default_rng(s)) for s in range(10, 14)]
+    p0, p1, K = (torch.from_numpy(np.stack([p[i] for p in pairs])).to(DEV) for i in range(3))
+    R_gt, t_gt = (torch.from_numpy(np.stack([p[i] for p in pairs])).float().to(DEV) for i in (3, 4))
+    valid = torch.ones(p0.shape[:2], dtype=torch.bool, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = estimate_pose_ransac(p0, p1, K, K, valid, gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    r_err = rotation_angle_deg(res.R, R_gt).tolist()
+    t_err = translation_angle_deg(res.t, t_gt).tolist()
+    row = {"pairs": list(p0.shape[:2]), "ok": res.ok.tolist(), "R_err_deg": r_err, "t_err_deg": t_err,
+           "n_inliers": res.n_inliers.tolist(), "ms": ms,
+           "limits_deg": {"R": MAX_R_ERR_DEG, "t": MAX_T_ERR_DEG}}
+    print(json.dumps({"solver_phase": row}), flush=True)
+    if not (all(row["ok"]) and max(r_err) < MAX_R_ERR_DEG and max(t_err) < MAX_T_ERR_DEG):
+        raise AssertionError(f"solver on synthetic pairs: {row}")
+    return row
+
+
 def frames(seed: int, n: int = 4, h: int = 480, w: int = 640) -> np.ndarray:
     """Structured uint8 frames: a gradient, coloured boxes and mild noise."""
     rng = np.random.default_rng(seed)
@@ -223,6 +402,8 @@ def kernel_category(name: str) -> str:
         return "attention (csrc/attention_relpos.cu)"
     if any(s in n for s in ("gemm", "nvjet", "cutlass", "xmma", "magma")):
         return "gemm"
+    if any(s in n for s in ("syevj", "gesvd", "getrf", "getrs", "potrf", "jacobi", "cusolver")):
+        return "linalg (cusolver)"
     if "conv" in n or "cudnn" in n:
         return "conv"
     if "layer_norm" in n:
@@ -234,105 +415,69 @@ def kernel_category(name: str) -> str:
     return "other elementwise"
 
 
-def stage_times(amg, imgs) -> dict:
-    """Wall ms of each stage of one generate_boxes_batch call, with a device
-    sync around each: the encoder (resize, preprocess, ViT), the decoder (all
-    prompt chunks), the filters + NMS + capacity cut (the rest of
-    _generate_impl) and the small-region cleanup."""
-    from pope_tpu_torch.models.sam import amg as amg_module
-
+def wall_ms_by_part(parts, fn) -> dict:
+    """Run fn() once with each (owner, attribute, label) of `parts` wrapped
+    to add its wall ms, fenced by device syncs, to the result under label;
+    the whole call is "total". The attributes are restored afterwards."""
     acc = {}
 
-    def timed(name, fn):
+    def timed(label, f):
         def run(*args, **kwargs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
+            out = f(*args, **kwargs)
             torch.cuda.synchronize()
-            acc[name] = acc.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            acc[label] = acc.get(label, 0.0) + (time.perf_counter() - t0) * 1e3
             return out
         return run
 
-    cleanup = amg_module.postprocess_small_regions_device
-    amg._encode = timed("encode", amg._encode)
-    amg._generate_impl = timed("generate", amg._generate_impl)
-    amg.sam.decode = timed("decode", amg.sam.decode)
-    amg_module.postprocess_small_regions_device = timed("cleanup", cleanup)
+    saved = [(owner, attr, vars(owner).get(attr)) for owner, attr, _ in parts]
+    for owner, attr, label in parts:
+        setattr(owner, attr, timed(label, getattr(owner, attr)))
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        amg.generate_boxes_batch(imgs)
+        fn()
         torch.cuda.synchronize()
-        total = (time.perf_counter() - t0) * 1e3
+        acc["total"] = (time.perf_counter() - t0) * 1e3
     finally:
-        del amg._encode, amg._generate_impl, amg.sam.decode
-        amg_module.postprocess_small_regions_device = cleanup
+        for owner, attr, old in saved:
+            if old is None:  # a bound method: drop the instance attribute
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, old)
+    return acc
+
+
+def stage_times(amg, imgs) -> dict:
+    """Wall ms of each stage of one generate_boxes_batch call: the encoder
+    (resize, preprocess, ViT), the decoder (all prompt chunks), the filters
+    + NMS + capacity cut (the rest of _generate_impl) and the small-region
+    cleanup."""
+    from pope_tpu_torch.models.sam import amg as amg_module
+
+    acc = wall_ms_by_part(
+        [(amg, "_encode", "encode"), (amg, "_generate_impl", "generate"), (amg.sam, "decode", "decode"),
+         (amg_module, "postprocess_small_regions_device", "cleanup")],
+        lambda: amg.generate_boxes_batch(imgs),
+    )
     return {"encode": acc["encode"], "decode": acc["decode"],
             "filters_nms_cut": acc["generate"] - acc["decode"],
-            "cleanup": acc.get("cleanup", 0.0), "total": total}
+            "cleanup": acc.get("cleanup", 0.0), "total": acc["total"]}
 
 
-def run_main_path(counters):
-    from pope_tpu_torch.models.sam import AutomaticMaskGenerator
-    from pope_tpu_torch.pipeline import load_models
-
-    t0 = time.perf_counter()
-    models = load_models(components=("sam",), sam_type="h", seed=0)
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
-    imgs = frames(3)
-    amg = models.amg
-    enc = models.sam.config.encoder
-    n_global = len(enc.global_attn_indexes)
-    per_forward = {"windowed_attention_relpos": enc.depth - n_global, "flash_attention_relpos": n_global}
-
-    torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    boxes, valid, n_dropped = amg.generate_boxes_batch(imgs)
-    torch.cuda.synchronize()
-    first_ms = (time.perf_counter() - t0) * 1e3
-    launches = {name: fn.launches for name, fn in counters.items()}
-    if launches != per_forward:
-        raise AssertionError(f"launches {launches} != {per_forward} for one encoder forward")
-    B, cap = imgs.shape[0], amg.cfg.mask_capacity
-    if (tuple(boxes.shape), tuple(valid.shape), tuple(n_dropped.shape)) != ((B, cap, 4), (B, cap), (B,)):
-        raise AssertionError(f"shapes {boxes.shape} {valid.shape} {n_dropped.shape}")
-    if not torch.isfinite(boxes).all():
-        raise AssertionError("non-finite boxes")
-
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        amg.generate_boxes_batch(imgs)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    total = {name: fn.launches for name, fn in counters.items()}
-    if total != {k: 4 * v for k, v in per_forward.items()}:
-        raise AssertionError(f"launch counts over 4 runs: {total}")
-    peak = torch.cuda.max_memory_allocated()
-
-    # the same weights with the filters open: NMS, the top-64 cut and the
-    # small-region cleanup see full candidate sets
-    open_cfg = dataclasses.replace(amg.cfg, pred_iou_thresh=float("-inf"), stability_score_thresh=0.0)
-    amg_open = AutomaticMaskGenerator(models.sam, open_cfg)
-    t0 = time.perf_counter()
-    ob, ov, od = amg_open.generate_boxes_batch(imgs)
-    torch.cuda.synchronize()
-    open_ms = (time.perf_counter() - t0) * 1e3
-    if not torch.isfinite(ob).all():
-        raise AssertionError("non-finite boxes (filters open)")
-
-    # where the time goes in one batch, by CUDA kernel
+def profile_call(fn, untraced_ms: float) -> dict:
+    """Where the time of one fn() goes, by CUDA kernel, kernel class and
+    PyTorch op (self device time: the kernels an op launched itself). The
+    profiler's own cost inflates the traced wall time, so the idle share is
+    taken against the untraced median."""
     from torch.profiler import ProfilerActivity, profile
 
-    # (the profiler's own cost inflates the traced run's wall time, so the
-    # idle share is taken against the untraced median)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        amg.generate_boxes_batch(imgs)
+        fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = [
         {"kernel": e.key[:100], "device_ms": e.self_device_time_total / 1e3, "count": e.count}
@@ -345,37 +490,193 @@ def run_main_path(counters):
         by_category[cat] = (ms + e.self_device_time_total / 1e3, n + e.count)
     by_category = {c: {"device_ms": ms, "count": n}
                    for c, (ms, n) in sorted(by_category.items(), key=lambda kv: -kv[1][0])}
-    # the PyTorch ops that launched those kernels (self device time: kernels
-    # launched by the op itself, not by the ops it calls)
-    ops = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CPU and e.self_device_time_total > 0]
+    ops = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CPU and e.self_device_time_total > 0
+           and e.key not in PROFILER_OWN_EVENTS]
     top_ops = [
         {"op": e.key, "device_ms": e.self_device_time_total / 1e3, "count": e.count}
         for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:12]
     ]
+    return {"device_busy_ms": busy_ms, "kernel_launches": sum(e.count for e in kernels),
+            "idle_share": 1.0 - busy_ms / untraced_ms,
+            "by_category": by_category, "top_kernels": top, "top_ops": top_ops}
 
-    row = {
-        "model": "sam_vit_h (seeded random weights)", "frames": list(imgs.shape),
-        "load_s": load_s, "first_ms": first_ms, "ms_per_batch": times,
+
+def counted_run(counters, fn):
+    """fn() with every kernel's launch count set to 0 just before it; returns
+    (fn's result, wall ms, the counts read just after)."""
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, {name: f.launches for name, f in counters.items()}
+
+
+def timed_runs(fn, n: int = 3) -> list:
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def stage2_times(run, args) -> dict:
+    """Wall ms of each part of one stage-2 call: crop + DINOv2 + top-k
+    (retrieve_top_k), the matcher (match_and_score) and the solver
+    (estimate_pose_ransac); "other" is the prompt preprocess, the winner's
+    selection and the packing."""
+    from pope_tpu_torch.pipeline import pose_pipeline as pp
+
+    labels = {"retrieve_top_k": "crop_dinov2_topk", "match_and_score": "matcher",
+              "estimate_pose_ransac": "solver"}
+    acc = wall_ms_by_part([(pp, name, label) for name, label in labels.items()],
+                          lambda: run(*args, packed=True))
+    acc["other"] = acc["total"] - sum(acc[label] for label in labels.values())
+    return acc
+
+
+def matcher_backbone_ms(matcher, prompts) -> dict:
+    """Wall ms of the matcher backbone on the gray prompt frames as the port
+    runs it (convs outside cuDNN) and with cuDNN's own algorithm choice, one
+    call each after a warm-up call."""
+    from pope_tpu_torch.pipeline.pose_pipeline import _rgb01_to_gray, _to_rgb01
+
+    gray = _rgb01_to_gray(_to_rgb01(prompts))[..., None]
+    out = {}
+    with torch.no_grad():
+        for name, fn in (("port", matcher.backbone), ("cudnn", matcher.backbone._forward)):
+            fn(gray)
+            out[name] = timed_runs(lambda: fn(gray), 1)[0]
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_stage2_outputs(small, matches, B: int, M: int) -> None:
+    if tuple(small.shape) != (B, 29) or tuple(matches.shape) != (B, M, 6):
+        raise AssertionError(f"stage-2 shapes {tuple(small.shape)} {tuple(matches.shape)}")
+    ok = small[:, 12] > 0.5
+    if not (torch.isfinite(small[ok]).all() and torch.isfinite(small[:, 12:]).all()
+            and torch.isfinite(matches).all()):
+        raise AssertionError("non-finite stage-2 outputs")
+
+
+def stage2_summary(small, matches) -> dict:
+    return {"ok": (small[:, 12] > 0.5).tolist(), "n_strong": small[:, 26].tolist(),
+            "n_matches": matches[..., 5].sum(-1).tolist(), "pre_bbox": small[:, 13:17].tolist(),
+            "n_dropped_matches": small[:, 28].tolist()}
+
+
+def run_main_path(counters):
+    from pope_tpu_torch.models.sam import AutomaticMaskGenerator
+    from pope_tpu_torch.pipeline import PipelineExecutor, load_models
+
+    t0 = time.perf_counter()
+    models = load_models(components=("sam", "dinov2", "matcher"), sam_type="h", seed=0)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    prompts, targets = frames(4), frames(3)
+    B = targets.shape[0]
+    K = torch.tensor(LINEMOD_K, device=DEV).expand(B, 3, 3).contiguous()
+    amg = models.amg
+    enc = models.sam.config.encoder
+    n_global = len(enc.global_attn_indexes)
+    stage1_counts = {"windowed_attention_relpos": enc.depth - n_global,
+                     "flash_attention_relpos": n_global, "flash_attention": 0}
+    stage2_counts = {"windowed_attention_relpos": 0, "flash_attention_relpos": 0,
+                     "flash_attention": models.config.dinov2.depth}
+
+    # stage 1: AMG on the target frames
+    torch.cuda.reset_peak_memory_stats()
+    (boxes, valid, n_dropped), first_ms, launches1 = counted_run(
+        counters, lambda: amg.generate_boxes_batch(targets))
+    if launches1 != stage1_counts:
+        raise AssertionError(f"stage 1 launches {launches1} != {stage1_counts} for one encoder forward")
+    cap = amg.cfg.mask_capacity
+    if (tuple(boxes.shape), tuple(valid.shape), tuple(n_dropped.shape)) != ((B, cap, 4), (B, cap), (B,)):
+        raise AssertionError(f"shapes {boxes.shape} {valid.shape} {n_dropped.shape}")
+    if not torch.isfinite(boxes).all():
+        raise AssertionError("non-finite boxes")
+    times = timed_runs(lambda: amg.generate_boxes_batch(targets))
+    total = {name: fn.launches for name, fn in counters.items()}
+    if total != {k: 4 * v for k, v in stage1_counts.items()}:
+        raise AssertionError(f"stage 1 launch counts over 4 runs: {total}")
+    peak = torch.cuda.max_memory_allocated()
+
+    # the same weights with the filters open: NMS, the top-64 cut and the
+    # small-region cleanup see full candidate sets
+    open_cfg = dataclasses.replace(amg.cfg, pred_iou_thresh=float("-inf"), stability_score_thresh=0.0)
+    amg_open = AutomaticMaskGenerator(models.sam, open_cfg, device=models.device)
+    t0 = time.perf_counter()
+    ob, ov, od = amg_open.generate_boxes_batch(targets)
+    torch.cuda.synchronize()
+    open_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.isfinite(ob).all():
+        raise AssertionError("non-finite boxes (filters open)")
+
+    stage1 = {
+        "model": "sam_vit_h (seeded random weights)", "frames": list(targets.shape),
+        "first_ms": first_ms, "ms_per_batch": times,
         "median_ms_per_batch": statistics.median(times), "peak_bytes": peak,
-        "launches_per_forward": launches, "valid": valid.sum(1).tolist(),
+        "launches_per_forward": launches1, "valid": valid.sum(1).tolist(),
         "n_dropped": n_dropped.tolist(), "open_filters": {
             "ms": open_ms, "valid": ov.sum(1).tolist(), "n_dropped": od.tolist(),
         },
-        "stages_ms": stage_times(amg, imgs),
-        "profile": {"device_busy_ms": busy_ms, "kernel_launches": sum(e.count for e in kernels),
-                    "idle_share": 1.0 - busy_ms / statistics.median(times),
-                    "by_category": by_category, "top_kernels": top, "top_ops": top_ops},
+        "stages_ms": stage_times(amg, targets),
+        "profile": profile_call(lambda: amg.generate_boxes_batch(targets), statistics.median(times)),
     }
-    print(json.dumps({"main_path": row}), flush=True)
-    return row, launches
+    print(json.dumps({"main_path_stage1": stage1}), flush=True)
+
+    # stage 2: retrieve -> match -> solve on the stage-1 boxes, the prompt
+    # folded into the retrieval forward, the solver's noise drawn on the card
+    run = PipelineExecutor(models).batched()
+    gen = torch.Generator(device=DEV)
+    prompts_d = torch.from_numpy(prompts).to(DEV)
+    targets_d = torch.from_numpy(targets).to(DEV)
+
+    def args(bx=boxes, vd=valid, dr=n_dropped):
+        return (prompts_d, targets_d, K, K, bx, vd, None, gen.manual_seed(0), dr)
+
+    M = models.config.matcher.match_coarse.match_capacity
+    torch.cuda.reset_peak_memory_stats()
+    (small, matches), first2_ms, launches2 = counted_run(counters, lambda: run(*args(), packed=True))
+    if launches2 != stage2_counts:
+        raise AssertionError(f"stage 2 launches {launches2} != {stage2_counts} for one call")
+    check_stage2_outputs(small, matches, B, M)
+    times2 = timed_runs(lambda: run(*args(), packed=True))
+    total = {name: fn.launches for name, fn in counters.items()}
+    if total != {k: 4 * v for k, v in stage2_counts.items()}:
+        raise AssertionError(f"stage 2 launch counts over 4 runs: {total}")
+    peak2 = torch.cuda.max_memory_allocated()
+    small_open, matches_open = run(*args(ob, ov, od), packed=True)
+    check_stage2_outputs(small_open, matches_open, B, M)
+    backbone_ms = matcher_backbone_ms(models.matcher, prompts_d)
+
+    stage2 = {
+        "models": "dinov2_vits14 bf16 + tanh, matcher MatcherConfig() f32 (seeded random weights)",
+        "prompts": list(prompts.shape), "first_ms": first2_ms, "ms_per_batch": times2,
+        "median_ms_per_batch": statistics.median(times2), "peak_bytes": peak2,
+        "launches_per_call": launches2, "outputs": stage2_summary(small, matches),
+        "open_filters": {"valid": ov.sum(1).tolist(), **stage2_summary(small_open, matches_open)},
+        "stages_ms": stage2_times(run, args()),
+        "matcher_backbone_ms": backbone_ms,
+        "profile": profile_call(lambda: run(*args(), packed=True), statistics.median(times2)),
+    }
+    print(json.dumps({"main_path_stage2": stage2}), flush=True)
+    row = {"load_s": load_s, "stage1": stage1, "stage2": stage2}
+    return row, {**{k: launches1[k] for k in ("windowed_attention_relpos", "flash_attention_relpos")},
+                 "flash_attention": launches2["flash_attention"]}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is false; it runs on a CUDA card")
     from pope_tpu_torch.ops import cuda_kernels
-    from pope_tpu_torch.ops.flash_attention import flash_attention_relpos
+    from pope_tpu_torch.ops.flash_attention import flash_attention, flash_attention_relpos
     from pope_tpu_torch.ops.window_attention import windowed_attention_relpos
     from pope_tpu_torch.utils.device import resolve_device
 
@@ -396,8 +697,11 @@ def main() -> int:
 
     kernels = run_kernel_phases()
     reference = run_reference_phase()
+    reference2 = run_stage2_reference_phase()
+    solver = run_solver_phase()
     counters = {"windowed_attention_relpos": windowed_attention_relpos,
-                "flash_attention_relpos": flash_attention_relpos}
+                "flash_attention_relpos": flash_attention_relpos,
+                "flash_attention": flash_attention}
     main_path, launches = run_main_path(counters)
 
     listed = []
@@ -407,15 +711,13 @@ def main() -> int:
                       | {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")}
                       | {"status": "ported"})
-    not_ported = [{"name": "flash_attention", "replaces": "pope_tpu/ops/flash_attention.py:114",
-                   "status": "not yet ported (off the main path)"}]
-    summary = {"kernels": listed, "not_ported": not_ported}
+    summary = {"kernels": listed, "not_ported": []}
 
     out = Path(__file__).resolve().parent / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps({
         "card": smi, "build_s": build_s, "kernels": kernels, "reference": reference,
-        "main_path": main_path, "summary": summary,
+        "stage2_reference": reference2, "solver": solver, "main_path": main_path, "summary": summary,
     }, indent=1))
 
     print(json.dumps(summary), flush=True)

@@ -1,18 +1,26 @@
-// Attention with SAM's decomposed relative-position bias, for Hopper (sm_90a).
+// Streaming attention for Hopper (sm_90a), with or without SAM's decomposed
+// relative-position bias:
 //
 //   out[b, n, h*d:(h+1)*d] = softmax_k(q_n . k_k * d^-1/2
-//                                      + rel_h[b, h, n, k / wk]
-//                                      + rel_w[b, h, n, k % wk]) . v
+//                                      [+ rel_h[b, h, n, k / wk]
+//                                       + rel_w[b, h, n, k % wk]]) . v
 //
-// over a (hk x wk) key grid, N = hk * wk keys, keys in row-major order.
+// with the bias over a (hk x wk) key grid, N = hk * wk keys, keys in
+// row-major order.
 //
-// Replaces two Pallas TPU kernels of the JAX package:
+// Replaces the three Pallas TPU kernels of the JAX package:
 //   - pope_tpu/ops/window_attention.py::windowed_attention_relpos
 //     (_window_attn_kernel): SAM's 14x14 windowed layers;
 //   - pope_tpu/ops/flash_attention.py::flash_attention_relpos
-//     (_attn_bias_kernel + _stream_body): SAM's global layers.
-// Both wrappers (ops/window_attention.py, ops/flash_attention.py) call the
-// one C entry, pope_attention_relpos, with views of their qkv layouts.  In
+//     (_attn_bias_kernel + _stream_body): SAM's global layers;
+//   - pope_tpu/ops/flash_attention.py::flash_attention (_attn_kernel +
+//     _stream_body): bias-free attention, here DINOv2's 12 blocks.
+// The bias and the bias-free kernels are one template each (HAS_BIAS); the
+// bias-free instantiation drops the rel-table staging and the per-logit
+// gather.  The rel-pos wrappers (ops/window_attention.py,
+// ops/flash_attention.py) call the C entry pope_attention_relpos, the
+// bias-free one (ops/flash_attention.py::flash_attention) pope_attention,
+// all with views of their qkv layouts.  In
 // bf16 the softmax weights are rounded to bf16 for the p . v product, as the
 // TPU's windowed kernel does; the TPU's global kernel kept them in f32,
 // which the bf16 tolerance its tests hold it to allows.
@@ -48,6 +56,10 @@
 // overlap (no cp.async or TMA pipeline), and N = 196 pads to four 64-key
 // and four 64-query tiles, of which 196^2 / 256^2 = 59% is live work.
 // Those are the next steps; this version is the correct baseline.
+// Kernel-3 shapes (DINOv2 ViT-S/14 retrieval forward, B=4 pairs x 65
+// crops: 260 x 6 heads, N = 197, d = 64) read 118 MB of qkv and write 39 MB
+// for 15.5 GFLOP: bytes bound it, ~47 us at 3.35 TB/s.  N = 197 is 4 tiles
+// of 64 with a 5-row tail, so 197^2 / 256^2 = 59% of the work is live.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,6 +105,7 @@ size_t smem_bytes(int d, int hk, int wk) {
                           (size_t)TQ * (TK + 1) + (size_t)TQ * hk + (size_t)TQ * wk);
 }
 
+template <bool HAS_BIAS>
 __global__ void __launch_bounds__(NT) attn_relpos_kernel(const Args a) {
   extern __shared__ float smem[];
   const int d = a.d, hk = a.hk, wk = a.wk, N = a.N;
@@ -119,13 +132,15 @@ __global__ void __launch_bounds__(NT) attn_relpos_kernel(const Args a) {
     const int r = i / d, c = i - r * d, n = q0 + r;
     Qs[r * ld + c] = n < N ? qp[n * a.sq_n + c] * a.scale : 0.f;
   }
-  for (int i = tid; i < TQ * hk; i += NT) {
-    const int n = q0 + i / hk;
-    Rh[i] = n < N ? rhp[(int64_t)q0 * hk + i] : 0.f;
-  }
-  for (int i = tid; i < TQ * wk; i += NT) {
-    const int n = q0 + i / wk;
-    Rw[i] = n < N ? rwp[(int64_t)q0 * wk + i] : 0.f;
+  if constexpr (HAS_BIAS) {
+    for (int i = tid; i < TQ * hk; i += NT) {
+      const int n = q0 + i / hk;
+      Rh[i] = n < N ? rhp[(int64_t)q0 * hk + i] : 0.f;
+    }
+    for (int i = tid; i < TQ * wk; i += NT) {
+      const int n = q0 + i / wk;
+      Rw[i] = n < N ? rwp[(int64_t)q0 * wk + i] : 0.f;
+    }
   }
 
   const int dcols = (d + 15) / 16;
@@ -165,14 +180,16 @@ __global__ void __launch_bounds__(NT) attn_relpos_kernel(const Args a) {
         for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 
-    int kh[4], kw[4];
+    int kh[4] = {0, 0, 0, 0}, kw[4] = {0, 0, 0, 0};
     bool live[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = k0 + tx + 16 * j;
       live[j] = n < N;
-      kh[j] = n / wk;
-      kw[j] = n - kh[j] * wk;
+      if constexpr (HAS_BIAS) {
+        kh[j] = n / wk;
+        kw[j] = n - kh[j] * wk;
+      }
     }
 
 #pragma unroll
@@ -181,7 +198,11 @@ __global__ void __launch_bounds__(NT) attn_relpos_kernel(const Args a) {
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        s[i][j] = live[j] ? s[i][j] + Rh[r * hk + kh[j]] + Rw[r * wk + kw[j]] : -INFINITY;
+        if (!live[j]) {
+          s[i][j] = -INFINITY;
+        } else if constexpr (HAS_BIAS) {
+          s[i][j] += Rh[r * hk + kh[j]] + Rw[r * wk + kw[j]];
+        }
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], row_max16(mx));
@@ -300,7 +321,7 @@ size_t mma_smem_bytes(int d, int hk, int wk) {
   return sizeof(__nv_bfloat16) * 4 * (size_t)TK * (d + KPAD) + sizeof(float) * (size_t)LDR * (hk + wk);
 }
 
-template <int D>
+template <int D, bool HAS_BIAS>
 __global__ void __launch_bounds__(MMA_NT) attn_relpos_mma_kernel(const Args a) {
   constexpr int DK = D / 16;  // k-steps of S = Q K^T
   constexpr int DN = D / 8;   // n-tiles of O, even as D % 16 == 0
@@ -341,13 +362,15 @@ __global__ void __launch_bounds__(MMA_NT) attn_relpos_mma_kernel(const Args a) {
   };
   load_tile(0, 0);
 
-  for (int i = tid; i < TQ * hk; i += MMA_NT) {
-    const int r = i / hk, c = i - r * hk;
-    RhT[c * LDR + r] = q0 + r < N ? __bfloat162float(rhp[(int64_t)q0 * hk + i]) : 0.f;
-  }
-  for (int i = tid; i < TQ * wk; i += MMA_NT) {
-    const int r = i / wk, c = i - r * wk;
-    RwT[c * LDR + r] = q0 + r < N ? __bfloat162float(rwp[(int64_t)q0 * wk + i]) : 0.f;
+  if constexpr (HAS_BIAS) {
+    for (int i = tid; i < TQ * hk; i += MMA_NT) {
+      const int r = i / hk, c = i - r * hk;
+      RhT[c * LDR + r] = q0 + r < N ? __bfloat162float(rhp[(int64_t)q0 * hk + i]) : 0.f;
+    }
+    for (int i = tid; i < TQ * wk; i += MMA_NT) {
+      const int r = i / wk, c = i - r * wk;
+      RwT[c * LDR + r] = q0 + r < N ? __bfloat162float(rwp[(int64_t)q0 * wk + i]) : 0.f;
+    }
   }
 
   // this warp's 16 query rows as A fragments: rows r0 = g and r1 = g + 8
@@ -406,31 +429,40 @@ __global__ void __launch_bounds__(MMA_NT) attn_relpos_mma_kernel(const Args a) {
     }
 
     // scale, bias and mask; this thread's keys are k0 + 2t + 8 nt (+1)
-    int kh = (k0 + 2 * t) / wk, kw = k0 + 2 * t - kh * wk;
+    if constexpr (HAS_BIAS) {
+      int kh = (k0 + 2 * t) / wk, kw = k0 + 2 * t - kh * wk;
+#pragma unroll
+      for (int nt = 0; nt < TK / 8; ++nt) {
+        if (nt > 0) {
+          kw += 8;
+          while (kw >= wk) {
+            kw -= wk;
+            ++kh;
+          }
+        }
+        const int key = k0 + nt * 8 + 2 * t;
+        const int kh1 = kw + 1 < wk ? kh : kh + 1, kw1 = kw + 1 < wk ? kw + 1 : 0;
+        if (key < N) {  // the tables hold rows of live keys only
+          s[nt][0] = s[nt][0] * a.scale + RhT[kh * LDR + r0] + RwT[kw * LDR + r0];
+          s[nt][2] = s[nt][2] * a.scale + RhT[kh * LDR + r1] + RwT[kw * LDR + r1];
+        }
+        if (key + 1 < N) {
+          s[nt][1] = s[nt][1] * a.scale + RhT[kh1 * LDR + r0] + RwT[kw1 * LDR + r0];
+          s[nt][3] = s[nt][3] * a.scale + RhT[kh1 * LDR + r1] + RwT[kw1 * LDR + r1];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < TK / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] *= a.scale;
+    }
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
     for (int nt = 0; nt < TK / 8; ++nt) {
-      if (nt > 0) {
-        kw += 8;
-        while (kw >= wk) {
-          kw -= wk;
-          ++kh;
-        }
-      }
       const int key = k0 + nt * 8 + 2 * t;
-      const int kh1 = kw + 1 < wk ? kh : kh + 1, kw1 = kw + 1 < wk ? kw + 1 : 0;
-      if (key < N) {
-        s[nt][0] = s[nt][0] * a.scale + RhT[kh * LDR + r0] + RwT[kw * LDR + r0];
-        s[nt][2] = s[nt][2] * a.scale + RhT[kh * LDR + r1] + RwT[kw * LDR + r1];
-      } else {
-        s[nt][0] = s[nt][2] = -INFINITY;
-      }
-      if (key + 1 < N) {
-        s[nt][1] = s[nt][1] * a.scale + RhT[kh1 * LDR + r0] + RwT[kw1 * LDR + r0];
-        s[nt][3] = s[nt][3] * a.scale + RhT[kh1 * LDR + r1] + RwT[kw1 * LDR + r1];
-      } else {
-        s[nt][1] = s[nt][3] = -INFINITY;
-      }
+      if (key >= N) s[nt][0] = s[nt][2] = -INFINITY;
+      if (key + 1 >= N) s[nt][1] = s[nt][3] = -INFINITY;
       mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
       mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
     }
@@ -502,50 +534,61 @@ __global__ void __launch_bounds__(MMA_NT) attn_relpos_mma_kernel(const Args a) {
   }
 }
 
-template <int D>
+template <int D, bool HAS_BIAS>
 cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
   const size_t smem = mma_smem_bytes(D, a.hk, a.wk);
-  cudaError_t err = cudaFuncSetAttribute(attn_relpos_mma_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(attn_relpos_mma_kernel<D, HAS_BIAS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.N + TQ - 1) / TQ, a.B * a.nh);
-  attn_relpos_mma_kernel<D><<<grid, MMA_NT, smem, stream>>>(a);
+  attn_relpos_mma_kernel<D, HAS_BIAS><<<grid, MMA_NT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-bool valid_args(const Args& a) {
-  return a.d >= 1 && a.d <= DMAX && a.hk >= 1 && a.wk >= 1 && a.N == a.hk * a.wk && a.B >= 1 &&
-         a.nh >= 1;
+bool valid_args(const Args& a, bool has_bias) {
+  const bool grid_ok = has_bias ? a.hk >= 1 && a.wk >= 1 && a.N == a.hk * a.wk
+                                : a.hk == 0 && a.wk == 0 && a.N >= 1;
+  return a.d >= 1 && a.d <= DMAX && grid_ok && a.B >= 1 && a.nh >= 1;
 }
 
+template <bool HAS_BIAS>
 cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
   const size_t smem = smem_bytes(a.d, a.hk, a.wk);
   const cudaError_t err = cudaFuncSetAttribute(
-      attn_relpos_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attn_relpos_kernel<HAS_BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.N + TQ - 1) / TQ, a.B * a.nh);
-  attn_relpos_kernel<<<grid, NT, smem, stream>>>(a);
+  attn_relpos_kernel<HAS_BIAS><<<grid, NT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+template <bool HAS_BIAS>
 cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
   const uintptr_t ptrs = (uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v;
   const int64_t strides = a.sq_b | a.sq_n | a.sq_h | a.sk_b | a.sk_n | a.sk_h | a.sv_b | a.sv_n |
                           a.sv_h;
   if (ptrs % 16 != 0 || strides % 8 != 0) return cudaErrorInvalidValue;
-  // the head dims of the shipped configs (ViT-B/L 64, ViT-H 80) and the tests' 32
+  // the head dims of the shipped configs (SAM ViT-B/L and DINOv2 64, ViT-H
+  // 80) and the tests' 32
   switch (a.d) {
-    case 32: return launch_mma<32>(a, stream);
-    case 64: return launch_mma<64>(a, stream);
-    case 80: return launch_mma<80>(a, stream);
+    case 32: return launch_mma<32, HAS_BIAS>(a, stream);
+    case 64: return launch_mma<64, HAS_BIAS>(a, stream);
+    case 80: return launch_mma<80, HAS_BIAS>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
+template <bool HAS_BIAS>
+cudaError_t launch(const Args& a, int is_bf16, void* stream) {
+  if (!valid_args(a, HAS_BIAS)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_bf16<HAS_BIAS>(a, st) : launch_f32<HAS_BIAS>(a, st);
+}
+
 }  // namespace
 
-// Both kernels: the windowed layers (ops/window_attention.py) and the global
-// layers (ops/flash_attention.py).  Strides are in elements.  Returns
+// The rel-pos kernels: the windowed layers (ops/window_attention.py) and the
+// global layers (ops/flash_attention.py).  Strides are in elements.  Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for shapes
 // the kernels do not take.
 extern "C" int pope_attention_relpos(const void* q, const void* k, const void* v,
@@ -556,9 +599,18 @@ extern "C" int pope_attention_relpos(const void* q, const void* k, const void* v
                                      float scale, int is_bf16, void* stream) {
   const Args a{q,    k,    v,    rel_h, rel_w, out, sq_b, sq_n, sq_h, sk_b, sk_n,
                sk_h, sv_b, sv_n, sv_h,  B,     N,   nh,   d,    hk,   wk,   scale};
-  if (!valid_args(a)) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_bf16(a, st) : launch_f32(a, st);
+  return launch<true>(a, is_bf16, stream);
+}
+
+// The bias-free kernel (ops/flash_attention.py::flash_attention), any N.
+extern "C" int pope_attention(const void* q, const void* k, const void* v, void* out,
+                              int64_t sq_b, int64_t sq_n, int64_t sq_h, int64_t sk_b,
+                              int64_t sk_n, int64_t sk_h, int64_t sv_b, int64_t sv_n,
+                              int64_t sv_h, int B, int N, int nh, int d, float scale,
+                              int is_bf16, void* stream) {
+  const Args a{q,    k,    v,    nullptr, nullptr, out, sq_b, sq_n, sq_h, sk_b, sk_n,
+               sk_h, sv_b, sv_n, sv_h,    B,       N,   nh,   d,    0,    0,    scale};
+  return launch<false>(a, is_bf16, stream);
 }
 
 extern "C" const char* pope_cuda_error_string(int err) {

@@ -1,0 +1,16 @@
+"""Crop geometry, epipolar geometry and pose algebra (port of
+pope_tpu/geometry: the parts the retrieve -> match -> solve stage uses)."""
+
+from pope_tpu_torch.geometry.affine import (
+    crop_resize_bilinear,
+    get_affine_transform,
+    get_image_crop_resize,
+    get_K_crop_resize,
+)
+from pope_tpu_torch.geometry.epipolar import normalize_keypoints, sampson_distance, triangulate_midpoint
+from pope_tpu_torch.geometry.pose import (
+    relative_pose_error,
+    rotation_angle_deg,
+    skew,
+    translation_angle_deg,
+)

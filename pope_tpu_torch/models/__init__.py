@@ -1,1 +1,1 @@
-"""Model families of the port (SAM so far)."""
+"""Model families of the port: SAM, DINOv2, the matcher."""

@@ -65,10 +65,40 @@ def library() -> ctypes.CDLL:
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.pope_attention_relpos.argtypes = [ptr] * 6 + [i64] * 9 + [i32] * 6 + [ctypes.c_float, i32, ptr]
         lib.pope_attention_relpos.restype = i32
+        lib.pope_attention.argtypes = [ptr] * 4 + [i64] * 9 + [i32] * 4 + [ctypes.c_float, i32, ptr]
+        lib.pope_attention.restype = i32
         lib.pope_cuda_error_string.argtypes = [i32]
         lib.pope_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _check_qkv(q, k, v, others=()):
+    """The operand checks both entries share: one CUDA device and dtype, one
+    shape, unit last stride, a head dim the bodies take. Returns q's shape."""
+    B, N, nh, d = q.shape
+    tensors = (q, k, v, *others)
+    if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
+        raise ValueError("attention kernel: all operands must lie on one CUDA device")
+    if q.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != q.dtype for t in tensors):
+        raise TypeError(f"attention kernel takes float32 or bfloat16 operands of one dtype, got "
+                        f"{[t.dtype for t in tensors]}")
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("q/k/v need a unit last stride")
+    if d > 128:
+        raise ValueError(f"head dim {d} > 128")
+    misaligned = any(t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]) for t in (q, k, v))
+    if q.dtype == torch.bfloat16 and (d not in _BF16_HEAD_DIMS or misaligned):
+        raise ValueError(f"bfloat16 attention kernel: head dim must be one of {_BF16_HEAD_DIMS} "
+                         "and q/k/v rows must start on 16 bytes")
+    return B, N, nh, d
+
+
+def _raise_on(err: int, entry: str, lib) -> None:
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: {lib.pope_cuda_error_string(err).decode()}")
 
 
 def launch_attention_relpos(q, k, v, rel_h, rel_w, hk: int, wk: int):
@@ -80,28 +110,12 @@ def launch_attention_relpos(q, k, v, rel_h, rel_w, hk: int, wk: int):
     contiguous, all of one dtype (float32 or bfloat16). In bfloat16 the
     tensor-core body also needs d in _BF16_HEAD_DIMS and q/k/v rows that start
     on 16 bytes. Returns a new contiguous (B, N, nh * d) tensor."""
-    B, N, nh, d = q.shape
-    tensors = (q, k, v, rel_h, rel_w)
-    if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
-        raise ValueError("attention kernel: all operands must lie on one CUDA device")
-    if q.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != q.dtype for t in tensors):
-        raise TypeError(f"attention kernel takes float32 or bfloat16 operands of one dtype, got "
-                        f"{[t.dtype for t in tensors]}")
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
+    B, N, nh, d = _check_qkv(q, k, v, (rel_h, rel_w))
     if N != hk * wk or rel_h.shape != (B, nh, N, hk) or rel_w.shape != (B, nh, N, wk):
         raise ValueError(f"rel tables {tuple(rel_h.shape)} {tuple(rel_w.shape)} do not fit "
                          f"q {tuple(q.shape)} on a {hk}x{wk} key grid")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("q/k/v need a unit last stride")
     if not (rel_h.is_contiguous() and rel_w.is_contiguous()):
         raise ValueError("rel tables must be contiguous")
-    if d > 128:
-        raise ValueError(f"head dim {d} > 128")
-    misaligned = any(t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]) for t in (q, k, v))
-    if q.dtype == torch.bfloat16 and (d not in _BF16_HEAD_DIMS or misaligned):
-        raise ValueError(f"bfloat16 attention kernel: head dim must be one of {_BF16_HEAD_DIMS} "
-                         "and q/k/v rows must start on 16 bytes")
     out = torch.empty((B, N, nh * d), dtype=q.dtype, device=q.device)
     lib = library()
     with torch.cuda.device(q.device):
@@ -112,6 +126,23 @@ def launch_attention_relpos(q, k, v, rel_h, rel_w, hk: int, wk: int):
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             B, N, nh, d, hk, wk, float(d ** -0.5), int(q.dtype == torch.bfloat16), stream,
         )
-    if err != 0:
-        raise RuntimeError(f"pope_attention_relpos failed: {lib.pope_cuda_error_string(err).decode()}")
+    _raise_on(err, "pope_attention_relpos", lib)
+    return out
+
+
+def launch_attention(q, k, v):
+    """Run csrc/attention_relpos.cu's bias-free kernel: softmax(q k^T d^-1/2) v
+    over any N, on the same (B, N, nh, d) views and types as
+    launch_attention_relpos. Returns a new contiguous (B, N, nh * d) tensor."""
+    B, N, nh, d = _check_qkv(q, k, v)
+    out = torch.empty((B, N, nh * d), dtype=q.dtype, device=q.device)
+    lib = library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.pope_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            B, N, nh, d, float(d ** -0.5), int(q.dtype == torch.bfloat16), stream,
+        )
+    _raise_on(err, "pope_attention", lib)
     return out

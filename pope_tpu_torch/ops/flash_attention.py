@@ -1,9 +1,14 @@
-"""Streaming attention with decomposed rel-pos bias for SAM's global layers:
-the CUDA kernel's wrapper and its plain PyTorch version.
+"""Streaming attention: the CUDA kernels' wrappers and their plain PyTorch
+versions.
 
-Port of pope_tpu/ops/flash_attention.py::flash_attention_relpos. The kernel
-(csrc/attention_relpos.cu, shared with the windowed layers) streams key/value
-tiles through an f32 online softmax and gathers the bias
+- `flash_attention_relpos`, with decomposed rel-pos bias, for SAM's global
+  layers (port of pope_tpu/ops/flash_attention.py::flash_attention_relpos);
+- `flash_attention`, bias-free, for DINOv2's blocks (port of
+  pope_tpu/ops/flash_attention.py::flash_attention).
+
+The rel-pos kernel (csrc/attention_relpos.cu, shared with the windowed
+layers) streams key/value tiles through an f32 online softmax and gathers
+the bias
 rel_h[q, k // wk] + rel_w[q, k % wk] per tile, so the (N, N) logits never
 reach device memory. Logits, softmax statistics and sums are f32; the scale
 is d^-1/2. In bf16 the kernel rounds the softmax weights to bf16 for the
@@ -11,15 +16,17 @@ p . v product on the tensor cores, where the plain version keeps them f32.
 
 Unlike the JAX entry, which takes (B*nh, N, d) copies, q, k and v are
 (B, N, nh, d) views: the encoder passes slices of its qkv Dense output as
-they are, and the output comes back in the `proj` input layout.
-`flash_attention` (the bias-free variant, off the main path) is not ported.
+they are, and the output comes back in the `proj` input layout. The
+bias-free kernel is the same source's HAS_BIAS=false instantiation: no rel
+tables, any N (DINOv2's 197 tokens: a masked key tail, an unwritten query
+tail).
 """
 
 from __future__ import annotations
 
 import torch
 
-from pope_tpu_torch.ops.cuda_kernels import launch_attention_relpos
+from pope_tpu_torch.ops.cuda_kernels import launch_attention, launch_attention_relpos
 
 
 def flash_attention_relpos_plain(q, k, v, rel_h, rel_w, hk: int, wk: int):
@@ -53,3 +60,32 @@ def flash_attention_relpos(q, k, v, rel_h, rel_w, hk: int, wk: int):
 
 
 flash_attention_relpos.launches = 0
+
+
+def flash_attention_plain(q, k, v):
+    """softmax(q k^T d^-1/2) v in plain PyTorch, f32 logits and softmax (same
+    shapes as the wrapper)."""
+    B, N, nh, d = q.shape
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * d ** -0.5, k.float())
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return out.reshape(B, N, nh * d).to(q.dtype)
+
+
+def flash_attention(q, k, v):
+    """Fused bias-free attention, scale d^-1/2 on the true head dim.
+
+    q, k, v: (B, N, nh, d); on CUDA any views with a unit last stride (the
+             (B, N, 3, nh, d) view of a qkv Dense output, sliced, is fine).
+    Returns (B, N, nh*d) in q.dtype.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    out = launch_attention(q, k, v)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

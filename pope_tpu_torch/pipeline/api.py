@@ -1,8 +1,11 @@
-"""Model loading (port of pope_tpu/pipeline/api.py::load_models, SAM only).
+"""Model loading (port of pope_tpu/pipeline/api.py::load_models): SAM,
+DINOv2 and the matcher.
 
-Without a checkpoint SAM gets seeded random weights, made on the device from
-a `torch.Generator`. A released `sam_vit_*.pth` loads through the copied
-reference converter and the weights bridge.
+Without a checkpoint each tower gets seeded random weights, made on the
+device from a `torch.Generator` (seeds `seed`, `seed + 1`, `seed + 2`, as the
+JAX package keys them). A released checkpoint (`sam_vit_*.pth`,
+`dinov2_vits14_pretrain.pth`, the matcher's `.ckpt`) loads through the
+copied reference converter and the weights bridge.
 """
 
 from __future__ import annotations
@@ -16,12 +19,15 @@ import torch
 import torch.nn as nn
 
 from pope_tpu_torch.config import PipelineConfig, SamEncoderConfig
+from pope_tpu_torch.models.dinov2 import DinoVisionTransformer, convert_torch_dinov2_state
+from pope_tpu_torch.models.dinov2.model import LayerScale
+from pope_tpu_torch.models.matcher import Matcher, convert_torch_matcher_state
 from pope_tpu_torch.models.sam import AutomaticMaskGenerator, Sam, convert_torch_sam_state
 from pope_tpu_torch.models.sam.decoder import UpConvT
 from pope_tpu_torch.models.sam.encoder import LayerNorm2d
 from pope_tpu_torch.utils.bf16_storage import cast_sam_storage
 from pope_tpu_torch.utils.device import resolve_device
-from pope_tpu_torch.weights import sam_state_from_jax
+from pope_tpu_torch.weights import dinov2_state_from_jax, matcher_state_from_jax, sam_state_from_jax
 
 SAM_CHECKPOINTS = {
     "b": ("weights/sam_vit_b_01ec64.pth", SamEncoderConfig.vit_b),
@@ -32,11 +38,12 @@ SAM_CHECKPOINTS = {
 
 @dataclasses.dataclass
 class PopeModels:
-    """The loaded model bundle. dinov2 and the matcher come with the next
-    slice of the port."""
+    """The loaded model bundle; towers left out of `components` are None."""
 
-    sam: Sam
-    amg: AutomaticMaskGenerator
+    sam: Optional[Sam]
+    amg: Optional[AutomaticMaskGenerator]
+    dinov2: Optional[DinoVisionTransformer]
+    matcher: Optional[Matcher]
     config: PipelineConfig
     device: torch.device
 
@@ -50,6 +57,21 @@ def _load_torch_state(path: str):
     return {k: v.numpy() if hasattr(v, "numpy") else np.asarray(v) for k, v in obj.items()}
 
 
+def _init_dense_and_norm(mod: nn.Module, g: torch.Generator) -> bool:
+    """Lecun-normal Dense / conv kernels with zero biases, unit LayerNorms;
+    False for any other module."""
+    if isinstance(mod, (nn.Linear, nn.Conv2d)):
+        mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.weight[0].numel()), generator=g)
+        if mod.bias is not None:
+            mod.bias.zero_()
+    elif isinstance(mod, (nn.LayerNorm, LayerNorm2d)):
+        mod.weight.fill_(1.0)
+        mod.bias.zero_()
+    else:
+        return False
+    return True
+
+
 @torch.no_grad()
 def init_sam_weights(sam: Sam, generator: torch.Generator) -> None:
     """Seeded random init in place: lecun-normal Dense/conv kernels, zero
@@ -58,15 +80,9 @@ def init_sam_weights(sam: Sam, generator: torch.Generator) -> None:
     so the attention kernels' bias paths see real data."""
     g = generator
     for mod in sam.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv2d)):
-            fan_in = mod.weight[0].numel()
-            mod.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=g)
-            if mod.bias is not None:
-                mod.bias.zero_()
-        elif isinstance(mod, (nn.LayerNorm, LayerNorm2d)):
-            mod.weight.fill_(1.0)
-            mod.bias.zero_()
-        elif isinstance(mod, UpConvT):
+        if _init_dense_and_norm(mod, g):
+            continue
+        if isinstance(mod, UpConvT):
             mod.kernel.normal_(0.0, 1.0 / math.sqrt(4 * mod.kernel.shape[2]), generator=g)
             mod.bias.zero_()
         else:
@@ -75,33 +91,74 @@ def init_sam_weights(sam: Sam, generator: torch.Generator) -> None:
                 p.normal_(0.0, 0.02 if small else 1.0, generator=g)
 
 
+@torch.no_grad()
+def init_dinov2_weights(model: DinoVisionTransformer, generator: torch.Generator) -> None:
+    """Seeded random init in place: lecun-normal Dense / conv kernels, zero
+    biases, unit LayerNorms, 0.02-normal cls token and pos embed, zero mask
+    token. LayerScale gamma is drawn from U(0.1, 1), not the 1e-5 of a fresh
+    DINOv2: at 1e-5 the blocks barely touch the residual stream, and the
+    attention kernel's work would not show in the output."""
+    g = generator
+    for mod in model.modules():
+        if not _init_dense_and_norm(mod, g) and isinstance(mod, LayerScale):
+            mod.gamma.uniform_(0.1, 1.0, generator=g)
+    model.cls_token.normal_(0.0, 0.02, generator=g)
+    model.pos_embed.normal_(0.0, 0.02, generator=g)
+    model.mask_token.zero_()
+
+
+@torch.no_grad()
+def init_matcher_weights(model: Matcher, generator: torch.Generator) -> None:
+    """Seeded random init in place: lecun-normal Dense / conv kernels, zero
+    biases, unit LayerNorms; BatchNorms keep their init (unit scale, zero
+    bias, statistics mean 0 and var 1, as flax's)."""
+    for mod in model.modules():
+        _init_dense_and_norm(mod, generator)
+
+
 def load_models(
     config: PipelineConfig = PipelineConfig(),
     sam_checkpoint: Optional[str] = None,
     sam_type: str = "h",
+    dinov2_checkpoint: Optional[str] = None,
+    matcher_checkpoint: Optional[str] = None,
     seed: int = 0,
-    components: tuple = ("sam",),
+    components: tuple = ("sam", "dinov2", "matcher"),
     device=None,
 ) -> PopeModels:
-    """Build SAM on `device` (default CUDA; raises without a GPU unless
-    device="cpu") and its automatic mask generator."""
-    later = [c for c in components if c in ("dinov2", "matcher")]
-    if later:
-        raise NotImplementedError(
-            f"{later}: DINOv2 and the matcher are ported in the next slice "
-            "(ROADMAP.md Queue 1, items 5-8)"
-        )
-    if "sam" not in components:
-        raise ValueError(f"unknown components {components}")
+    """Build SAM and its automatic mask generator, DINOv2 and the matcher on
+    `device` (default CUDA; raises without a GPU unless device="cpu"),
+    loading the reference checkpoints when given."""
+    unknown = set(components) - {"sam", "dinov2", "matcher"}
+    if unknown:
+        raise ValueError(f"unknown components {sorted(unknown)}")
     dev = resolve_device(device)
-    sam_cfg = dataclasses.replace(config.sam, encoder=SAM_CHECKPOINTS[sam_type][1]())
-    with torch.device(dev):
-        sam = Sam(sam_cfg)
-    if sam_checkpoint:
-        tree = convert_torch_sam_state(_load_torch_state(sam_checkpoint), depth=sam_cfg.encoder.depth)
-        sam.load_state_dict(sam_state_from_jax(tree), strict=True)
-    else:
-        init_sam_weights(sam, torch.Generator(device=dev).manual_seed(seed))
-    cast_sam_storage(sam, sam_cfg.encoder)
-    amg = AutomaticMaskGenerator(sam, config.amg, device=dev)
-    return PopeModels(sam=sam, amg=amg, config=config, device=dev)
+    sam = amg = dinov2 = matcher = None
+    if "sam" in components:
+        sam_cfg = dataclasses.replace(config.sam, encoder=SAM_CHECKPOINTS[sam_type][1]())
+        with torch.device(dev):
+            sam = Sam(sam_cfg)
+        if sam_checkpoint:
+            tree = convert_torch_sam_state(_load_torch_state(sam_checkpoint), depth=sam_cfg.encoder.depth)
+            sam.load_state_dict(sam_state_from_jax(tree), strict=True)
+        else:
+            init_sam_weights(sam, torch.Generator(device=dev).manual_seed(seed))
+        cast_sam_storage(sam, sam_cfg.encoder)
+        amg = AutomaticMaskGenerator(sam, config.amg, device=dev)
+    if "dinov2" in components:
+        with torch.device(dev):
+            dinov2 = DinoVisionTransformer(config.dinov2).eval()
+        if dinov2_checkpoint:
+            tree = convert_torch_dinov2_state(_load_torch_state(dinov2_checkpoint), depth=config.dinov2.depth)
+            dinov2.load_state_dict(dinov2_state_from_jax(tree), strict=True)
+        else:
+            init_dinov2_weights(dinov2, torch.Generator(device=dev).manual_seed(seed + 1))
+    if "matcher" in components:
+        with torch.device(dev):
+            matcher = Matcher(config.matcher).eval()
+        if matcher_checkpoint:
+            variables = convert_torch_matcher_state(_load_torch_state(matcher_checkpoint))
+            matcher.load_state_dict(matcher_state_from_jax(variables), strict=True)
+        else:
+            init_matcher_weights(matcher, torch.Generator(device=dev).manual_seed(seed + 2))
+    return PopeModels(sam=sam, amg=amg, dinov2=dinov2, matcher=matcher, config=config, device=dev)

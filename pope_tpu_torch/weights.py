@@ -1,12 +1,16 @@
-"""Weights bridge: the JAX package's SAM parameter tree -> the port's
-state_dict.
+"""Weights bridge: the JAX package's parameter trees (SAM, DINOv2, the
+matcher) -> the port's state_dicts.
 
 The port's modules carry the JAX package's parameter names, so a flax path
 `image_encoder/block_3/qkv/kernel` becomes the key
 `image_encoder.block_3.qkv.weight`. Layouts change to PyTorch's:
 - Dense kernels (in, out) -> Linear weights (out, in);
 - conv kernels HWIO -> Conv2d weights OIHW;
-- flax LayerNorm `scale` -> `weight`;
+- flax LayerNorm and BatchNorm `scale` -> `weight`;
+- flax BatchNorm statistics (the `batch_stats` collection, `mean` / `var`)
+  -> the buffers `running_mean` / `running_var`;
+- everything else (biases, DINOv2's LayerScale `gamma`, cls / mask tokens,
+  pos embeds, the scalar `bin_score`) keeps its name and shape;
 - `UpConvT` kernels (2, 2, in, out) stay as they are: the port's UpConvT
   keeps the JAX tap order (models/sam/decoder.py).
 """
@@ -31,19 +35,47 @@ def _leaf(path, value) -> tuple:
     return ".".join(path), a
 
 
-def sam_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """{"params": tree} or the tree itself, leaves as numpy arrays -> a
-    state_dict of f32 tensors for `pope_tpu_torch.models.sam.Sam`."""
-    tree = params.get("params", params)
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _walk(node, path, leaf, out: Dict[str, torch.Tensor]) -> None:
+    for key, val in node.items():
+        if isinstance(val, Mapping):
+            _walk(val, path + (key,), leaf, out)
+        else:
+            name, a = leaf(path + (key,), val)
+            out[name] = torch.from_numpy(np.array(a, order="C"))  # keeps 0-dim leaves 0-dim
+
+
+def _stat_leaf(path, value) -> tuple:
+    *mod, name = path
+    return ".".join(mod + [_STATS[name]]), np.asarray(value, dtype=np.float32)
+
+
+def params_state_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """{"params": tree[, "batch_stats": tree]} or a bare params tree, leaves
+    as numpy arrays -> a state_dict of f32 tensors for the port's module of
+    the same architecture."""
     out: Dict[str, torch.Tensor] = {}
-
-    def walk(node, path):
-        for key, val in node.items():
-            if isinstance(val, Mapping):
-                walk(val, path + (key,))
-            else:
-                name, a = _leaf(path + (key,), val)
-                out[name] = torch.from_numpy(np.ascontiguousarray(a))
-
-    walk(tree, ())
+    _walk(variables.get("params", variables), (), _leaf, out)
+    _walk(variables.get("batch_stats", {}), (), _stat_leaf, out)
     return out
+
+
+def sam_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX SAM tree -> a state_dict for `pope_tpu_torch.models.sam.Sam`."""
+    return params_state_from_jax(params)
+
+
+def dinov2_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX DINOv2 tree -> a state_dict for
+    `pope_tpu_torch.models.dinov2.DinoVisionTransformer` (LayerScale
+    `gamma`, cls / mask tokens and the pos embed keep their shapes)."""
+    return params_state_from_jax(params)
+
+
+def matcher_state_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX matcher's {"params", "batch_stats"} -> a state_dict for
+    `pope_tpu_torch.models.matcher.Matcher`: BatchNorm statistics become
+    `running_mean` / `running_var`, a sinkhorn `bin_score` stays a scalar."""
+    return params_state_from_jax(variables)

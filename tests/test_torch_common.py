@@ -123,3 +123,39 @@ def f32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().float().numpy()
     return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def seeded_variables(module, *init_args, seed: int = 0, fill=None) -> dict:
+    """The variable tree of a flax `module.init(key, *init_args)` filled from
+    a numpy seed: lecun-scaled kernels, N(0, 0.1) biases, scales near 1,
+    N(0, 1) for everything else; `fill(name, shape, rng)` may return an array
+    to override a leaf by name. Returned as nested dicts of numpy arrays."""
+    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), *init_args))
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, x):
+        name, shape = path[-1].key, x.shape
+        a = fill(name, shape, rng) if fill is not None else None
+        if a is None and name == "kernel":
+            a = rng.normal(0, 1, shape) / np.sqrt(np.prod(shape[:-1]))
+        elif a is None and name == "bias":
+            a = rng.normal(0, 0.1, shape)
+        elif a is None and name == "scale":
+            a = 1.0 + rng.normal(0, 0.1, shape)
+        elif a is None:
+            a = rng.normal(0, 1, shape)
+        return np.asarray(a, np.float32)
+
+    return _to_dict(jax.tree_util.tree_map_with_path(leaf, shapes))
+
+
+def port_config(cfg):
+    """A pope_tpu config dataclass -> the port's class of the same name with
+    the same field values (nested configs included)."""
+    import pope_tpu_torch.config as tcfg
+
+    fields = {
+        f.name: port_config(v) if dataclasses.is_dataclass(v) else v
+        for f in dataclasses.fields(cfg) for v in [getattr(cfg, f.name)]
+    }
+    return getattr(tcfg, type(cfg).__name__)(**fields)

@@ -1,5 +1,6 @@
 """The port on the card: the CUDA kernels against their plain versions, and a
-small SAM on the card against the same module on the CPU. Needs an NVIDIA
+small SAM, a small DINOv2, a small matcher and the solver on the card
+against the same modules on the CPU. Needs an NVIDIA
 GPU (marked `cuda`; skipped without one). Imports neither JAX nor pope_tpu,
 so it also runs where only the port's dependencies are installed:
 
@@ -12,14 +13,30 @@ import numpy as np
 import pytest
 import torch
 
-from pope_tpu_torch.config import SamConfig, SamEncoderConfig
+from pope_tpu_torch.config import (
+    BackboneConfig,
+    CoarseMatchConfig,
+    DinoV2Config,
+    LoFTRStageConfig,
+    MatcherConfig,
+    SamConfig,
+    SamEncoderConfig,
+)
+from pope_tpu_torch.models.dinov2 import DinoVisionTransformer
+from pope_tpu_torch.models.matcher import Matcher
 from pope_tpu_torch.models.sam import Sam
-from pope_tpu_torch.ops.flash_attention import flash_attention_relpos, flash_attention_relpos_plain
+from pope_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_plain,
+    flash_attention_relpos,
+    flash_attention_relpos_plain,
+)
 from pope_tpu_torch.ops.window_attention import (
     windowed_attention_relpos,
     windowed_attention_relpos_plain,
 )
-from pope_tpu_torch.pipeline.api import init_sam_weights
+from pope_tpu_torch.pipeline.api import init_dinov2_weights, init_matcher_weights, init_sam_weights
+from pope_tpu_torch.solver import draw_gumbel, estimate_pose_ransac
 from pope_tpu_torch.utils.device import resolve_device
 
 pytestmark = pytest.mark.cuda
@@ -106,3 +123,98 @@ def test_small_sam_on_card_matches_cpu(card):
             m, i = gpu.decode(emb[:1].to(card), pts.to(card), labels.to(card), subsample=sub)
             torch.testing.assert_close(m.cpu(), masks, atol=1e-4, rtol=0)
             torch.testing.assert_close(i.cpu(), iou, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize(
+    "dtype,B,N,nh,d",
+    [(torch.bfloat16, 260, 197, 6, 64), (torch.float32, 4, 197, 6, 64), (torch.bfloat16, 3, 50, 2, 32)],
+    ids=["bf16-retrieval", "f32", "bf16-small"],
+)
+def test_flash_attention_matches_plain(card, dtype, B, N, nh, d):
+    """Bias-free attention on (B, N, nh, d) views of a (B, N, 3, nh, d) qkv
+    tensor, as DINOv2 hands them over; first row: the retrieval forward's
+    shape (4 pairs x 65 crops, 197 tokens, 6 heads of 64)."""
+    g = torch.Generator(device=card).manual_seed(1)
+    qkv = torch.randn(B, N, 3, nh, d, device=card, generator=g).to(dtype)
+    q, k, v = qkv.unbind(2)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v)
+    assert out.shape == (B, N, nh * d) and out.dtype == dtype
+    assert_matches_plain(out, flash_attention_plain(q, k, v))
+    assert flash_attention.launches == before + 1
+
+
+def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(card):
+    before = flash_attention.launches
+    qkv = torch.zeros(2, 20, 3, 2, 64, device=card, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash_attention(*qkv.unbind(2))
+    # a head dim the bf16 body has no instantiation for
+    odd = torch.zeros(2, 20, 3, 2, 48, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim must be one of"):
+        flash_attention(*odd.unbind(2))
+    # rows that do not start on 16 bytes (a view one element in)
+    flat = torch.zeros(2 * 20 * 3 * 2 * 64 + 1, device=card, dtype=torch.bfloat16)
+    shifted = flat[1:].view(2, 20, 3, 2, 64)
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention(*shifted.unbind(2))
+    assert flash_attention.launches == before
+
+
+def test_small_dinov2_and_matcher_on_card_match_cpu(card):
+    """ViT-S width at 2 blocks and a 2-layer matcher, f32: the card's kernels
+    and cuDNN against the CPU's plain versions."""
+    cpu = DinoVisionTransformer(DinoV2Config(depth=2)).eval()
+    init_dinov2_weights(cpu, torch.Generator().manual_seed(2))
+    gpu = copy.deepcopy(cpu).to(card)
+    x = torch.from_numpy(np.random.default_rng(3).normal(0, 1, (3, 196, 196, 3)).astype(np.float32))
+    n = flash_attention.launches
+    with torch.no_grad():
+        ref, out = cpu(x), gpu(x.to(card))
+    assert flash_attention.launches == n + 2
+    for key in ref:
+        torch.testing.assert_close(out[key].cpu(), ref[key], atol=1e-4, rtol=0)
+
+    cfg = MatcherConfig(
+        backbone=BackboneConfig(initial_dim=32, block_dims=(32, 48, 64)),
+        coarse=LoFTRStageConfig(d_model=64, d_ffn=64, nhead=4, layer_names=("self", "cross")),
+        fine=LoFTRStageConfig(d_model=32, d_ffn=32, nhead=4, layer_names=("self", "cross")),
+        match_coarse=CoarseMatchConfig(match_capacity=128, thr=0.0, border_rm=0),
+    )
+    cpu_m = Matcher(cfg).eval()
+    init_matcher_weights(cpu_m, torch.Generator().manual_seed(4))
+    gpu_m = copy.deepcopy(cpu_m).to(card)
+    rng = np.random.default_rng(5)
+    img0 = torch.from_numpy(rng.uniform(0, 1, (1, 96, 128, 1)).astype(np.float32))
+    img1 = img0[:, 16:80, 24:88].repeat(3, 1, 1, 1).contiguous()
+    with torch.no_grad():
+        ref, out = cpu_m(img0, img1, return_aux=True), gpu_m(img0.to(card), img1.to(card), return_aux=True)
+    torch.testing.assert_close(out.conf_matrix.cpu(), ref.conf_matrix, atol=1e-5, rtol=1e-4)
+    same = (out.i_ids.cpu() == ref.i_ids) & (out.j_ids.cpu() == ref.j_ids) & (out.valid.cpu() == ref.valid)
+    assert same.float().mean() >= 0.99  # a near-tie may flip a slot
+    both = same & ref.valid
+    torch.testing.assert_close(out.mkpts1.cpu()[both], ref.mkpts1[both], atol=1e-3, rtol=0)
+
+
+def test_solver_on_card_matches_cpu(card):
+    """The same correspondences and Gumbel noise (drawn once on the CPU) on
+    the card and on the CPU: the same pose and inliers."""
+    rng = np.random.default_rng(6)
+    n = 256
+    X = rng.uniform(-1, 1, (n, 3)) + np.array([0, 0, 5.0])
+    ang = np.deg2rad(20.0)
+    R = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0], [-np.sin(ang), 0, np.cos(ang)]])
+    t = np.array([0.6, 0.1, 0.2]) / np.linalg.norm([0.6, 0.1, 0.2])
+    K = np.array([[500.0, 0, 320], [0, 500, 240], [0, 0, 1]])
+    proj = lambda P: (P @ K.T)[:, :2] / (P @ K.T)[:, 2:]
+    p0 = proj(X) + rng.normal(0, 0.5, (n, 2))
+    p1 = proj(X @ R.T + t) + rng.normal(0, 0.5, (n, 2))
+    p1[: n // 4] = rng.uniform([0, 0], [640, 480], (n // 4, 2))
+    args = [torch.from_numpy(a.astype(np.float32)) for a in (p0, p1, K, K)] + [torch.ones(n, dtype=torch.bool)]
+    noise = draw_gumbel((3, 2048, n), torch.Generator().manual_seed(7))
+    ref = estimate_pose_ransac(*args, noise)
+    out = estimate_pose_ransac(*(a.to(card) for a in args), noise.to(card))
+    assert bool(ref.ok) and bool(out.ok)
+    torch.testing.assert_close(out.R.cpu(), ref.R, atol=1e-3, rtol=0)
+    torch.testing.assert_close(out.t.cpu(), ref.t, atol=1e-3, rtol=0)
+    assert (out.inliers.cpu() != ref.inliers).sum() <= 2  # points on the threshold may flip

@@ -1,5 +1,6 @@
 """The port's attention kernels (pope_tpu_torch/ops/window_attention.py,
-flash_attention.py) against the Pallas kernels they replace.
+flash_attention.py: windowed and global rel-pos attention, and bias-free
+flash attention) against the Pallas kernels they replace.
 
 On the CPU the wrappers run their plain PyTorch versions, which repeat the
 CUDA kernels' arithmetic; those are held against the Pallas kernels in
@@ -13,9 +14,15 @@ import numpy as np
 import pytest
 import torch
 
+from pope_tpu.ops.flash_attention import flash_attention as pallas_attention
 from pope_tpu.ops.flash_attention import flash_attention_relpos as pallas_flash
 from pope_tpu.ops.window_attention import windowed_attention_relpos as pallas_window
-from pope_tpu_torch.ops.flash_attention import flash_attention_relpos, flash_attention_relpos_plain
+from pope_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_plain,
+    flash_attention_relpos,
+    flash_attention_relpos_plain,
+)
 from pope_tpu_torch.ops.window_attention import (
     windowed_attention_relpos,
     windowed_attention_relpos_plain,
@@ -89,17 +96,38 @@ def test_flash_plain_matches_pallas(dtype, hk, wk):
     _assert_close(out, ref, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N,d", [(197, 64), (50, 32)])
+def test_attention_plain_matches_pallas(dtype, N, d):
+    """Bias-free attention at DINOv2's shape (N = 197 tokens, d = 64) and a
+    small one. The Pallas entry takes (B*nh, N, d); the port's takes
+    (B, N, nh, d) views, here of a (B, N, 3, nh, d) qkv tensor as DINOv2
+    hands them over."""
+    B, nh = 2, 3
+    rng = np.random.default_rng(4)
+    qkv = rng.standard_normal((B, N, 3, nh, d)).astype(np.float32)
+    heads = lambda a: a.transpose(0, 2, 1, 3).reshape(B * nh, N, d)
+    ref = pallas_attention(*(_j(heads(qkv[:, :, i]), dtype) for i in range(3)), interpret=True)
+    ref = np.asarray(jnp.asarray(ref, jnp.float32)).reshape(B, nh, N, d).transpose(0, 2, 1, 3)
+    t = _t(qkv, dtype)
+    out = flash_attention(t[:, :, 0], t[:, :, 1], t[:, :, 2])
+    assert out.shape == (B, N, nh * d) and out.dtype == getattr(torch, dtype)
+    _assert_close(out, ref.reshape(B, N, nh * d), dtype)
+
+
 def test_wrappers_take_plain_version_on_cpu():
     """A CPU tensor takes the plain version and launches nothing."""
     BW, nh, d, hk, wk = 2, 2, 16, 4, 4
     qkv, rel_h, rel_w = (torch.from_numpy(a) for a in _window_inputs(2, BW, nh, d, hk, wk))
-    before = (windowed_attention_relpos.launches, flash_attention_relpos.launches)
+    counters = (windowed_attention_relpos, flash_attention_relpos, flash_attention)
+    before = [f.launches for f in counters]
     out = windowed_attention_relpos(qkv, rel_h, rel_w, nh, d, hk, wk)
     torch.testing.assert_close(out, windowed_attention_relpos_plain(qkv, rel_h, rel_w, nh, d, hk, wk))
     q, k, v = qkv.view(BW, hk * wk, 3, nh, d).unbind(2)
     out = flash_attention_relpos(q, k, v, rel_h, rel_w, hk, wk)
     torch.testing.assert_close(out, flash_attention_relpos_plain(q, k, v, rel_h, rel_w, hk, wk))
-    assert (windowed_attention_relpos.launches, flash_attention_relpos.launches) == before
+    torch.testing.assert_close(flash_attention(q, k, v), flash_attention_plain(q, k, v))
+    assert [f.launches for f in counters] == before
 
 
 def test_window_and_flash_plain_agree_in_f32():

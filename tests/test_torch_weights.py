@@ -9,13 +9,17 @@ import numpy as np
 import pytest
 import torch
 
+from pope_tpu.models.dinov2.convert import convert_torch_dinov2_state as jax_convert_dinov2
+from pope_tpu.models.matcher.convert import convert_torch_matcher_state as jax_convert_matcher
 from pope_tpu.models.sam.convert import convert_torch_sam_state as jax_convert
 from pope_tpu.utils.state_manifest import load_state_manifest
-from pope_tpu_torch.config import PipelineConfig, SamConfig, SamEncoderConfig
+from pope_tpu_torch.config import DinoV2Config, MatcherConfig, PipelineConfig, SamConfig, SamEncoderConfig
+from pope_tpu_torch.models.dinov2 import DinoVisionTransformer, convert_torch_dinov2_state
+from pope_tpu_torch.models.matcher import Matcher, convert_torch_matcher_state
 from pope_tpu_torch.models.sam import Sam
 from pope_tpu_torch.models.sam.convert import convert_torch_sam_state
 from pope_tpu_torch.pipeline import load_models
-from pope_tpu_torch.weights import sam_state_from_jax
+from pope_tpu_torch.weights import dinov2_state_from_jax, matcher_state_from_jax, params_state_from_jax, sam_state_from_jax
 from tests.test_torch_common import jax_params, port_sam, tiny_cfg
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -83,6 +87,95 @@ def test_reference_checkpoint_loads_strictly():
     )
 
 
+def _manifest_checkpoint(name, seed, keep=lambda key: True):
+    """A random state dict in a released file's key/shape layout (the JAX
+    package's manifest): float leaves N(0, 1), BatchNorm variances positive."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, shape in load_state_manifest(name).items():
+        if not keep(key):
+            continue
+        if key.endswith("num_batches_tracked"):
+            sd[key] = np.asarray(7, np.int64)
+        elif key.endswith("running_var"):
+            sd[key] = rng.uniform(0.5, 2.0, shape).astype(np.float32)
+        else:
+            sd[key] = rng.standard_normal(shape, dtype=np.float32)
+    return sd
+
+
+def test_dinov2_checkpoint_round_trip():
+    """dinov2_vits14 layout, cut to DEPTH blocks -> the copied converter (equal
+    to pope_tpu's) -> the bridge: loads strictly, with Linear and conv
+    weights, LayerScale gammas and the tokens equal to the file's."""
+    sd = _manifest_checkpoint("dinov2_vits14", 2, lambda k: not re.match(rf"blocks\.([{DEPTH}-9]|1\d)\.", k))
+    ours = convert_torch_dinov2_state(sd, depth=DEPTH)
+    ref = dict(_flatten(jax_convert_dinov2(sd, depth=DEPTH)))
+    assert dict(_flatten(ours)).keys() == ref.keys()
+    for k, v in _flatten(ours):
+        np.testing.assert_array_equal(v, ref[k], err_msg="/".join(k))
+    model = DinoVisionTransformer(DinoV2Config(depth=DEPTH))
+    model.load_state_dict(dinov2_state_from_jax(ours), strict=True)
+    state = model.state_dict()
+    same = {
+        "block_1.attn.qkv.weight": "blocks.1.attn.qkv.weight",
+        "block_0.attn.proj.weight": "blocks.0.attn.proj.weight",
+        "block_1.mlp_fc2.weight": "blocks.1.mlp.fc2.weight",
+        "block_0.ls1.gamma": "blocks.0.ls1.gamma",
+        "block_1.ls2.gamma": "blocks.1.ls2.gamma",
+        "patch_embed.weight": "patch_embed.proj.weight",
+        "cls_token": "cls_token", "mask_token": "mask_token", "pos_embed": "pos_embed",
+        "norm.weight": "norm.weight",
+    }
+    for ours_key, ref_key in same.items():
+        np.testing.assert_array_equal(state[ours_key].numpy(), sd[ref_key], err_msg=ours_key)
+
+
+def test_matcher_checkpoint_round_trip():
+    """The released matcher layout ('matcher.'-prefixed LoFTR keys) -> the
+    copied converter (equal to pope_tpu's) -> the bridge: loads strictly into
+    the full MatcherConfig(), BatchNorm statistics land in running_mean /
+    running_var, Linear and conv weights equal the file's."""
+    sd = _manifest_checkpoint("matcher", 3)
+    ours = convert_torch_matcher_state(sd)
+    ref = jax_convert_matcher(sd)
+    for coll in ("params", "batch_stats"):
+        mine, theirs = dict(_flatten(ours[coll])), dict(_flatten(ref[coll]))
+        assert mine.keys() == theirs.keys()
+        for k in theirs:
+            np.testing.assert_array_equal(mine[k], theirs[k], err_msg="/".join(k))
+    model = Matcher(MatcherConfig())
+    model.load_state_dict(matcher_state_from_jax(ours), strict=True)
+    state = model.state_dict()
+    same = {
+        "backbone.stem_conv.weight": "backbone.conv1.weight",
+        "backbone.stem_bn.running_mean": "backbone.bn1.running_mean",
+        "backbone.stem_bn.running_var": "backbone.bn1.running_var",
+        "backbone.layer2_0.down.conv.weight": "backbone.layer2.0.downsample.0.weight",
+        "backbone.layer3_1.cb2.bn.running_var": "backbone.layer3.1.bn2.running_var",
+        "backbone.layer3_1.cb2.bn.weight": "backbone.layer3.1.bn2.weight",
+        "backbone.l1_out.conv_out.weight": "backbone.layer1_outconv2.3.weight",
+        "loftr_coarse.layer_7.mlp1.weight": "loftr_coarse.layers.7.mlp.0.weight",
+        "loftr_fine.layer_1.merge.weight": "loftr_fine.layers.1.merge.weight",
+        "fine_merge_feat.weight": "fine_preprocess.merge_feat.weight",
+    }
+    for ours_key, ref_key in same.items():
+        np.testing.assert_array_equal(state[ours_key].numpy(), sd["matcher." + ref_key], err_msg=ours_key)
+
+
+def test_bridge_keeps_scalars_and_maps_batch_stats():
+    """A scalar leaf (the sinkhorn variant's bin_score) stays a 0-dim tensor;
+    BatchNorm `mean` / `var` become running_mean / running_var; flax `scale`
+    becomes `weight`."""
+    out = params_state_from_jax({
+        "params": {"bin_score": np.float32(1.5), "bn": {"scale": np.ones(3), "bias": np.zeros(3)}},
+        "batch_stats": {"bn": {"mean": np.full(3, 0.25), "var": np.full(3, 2.0)}},
+    })
+    assert out["bin_score"].shape == () and float(out["bin_score"]) == 1.5
+    assert sorted(out) == ["bin_score", "bn.bias", "bn.running_mean", "bn.running_var", "bn.weight"]
+    assert out["bn.running_var"].dtype == torch.float32 and float(out["bn.running_mean"][0]) == 0.25
+
+
 def _to_jax_tree(state):
     """Test-side inverse of the bridge: port state_dict -> flax-layout tree."""
     tree = {}
@@ -137,8 +230,10 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu():
         pytest.skip("a GPU is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_models(sam_type="b")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        load_models(components=("sam", "dinov2"), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_models(components=("dinov2", "matcher"))
+    with pytest.raises(ValueError, match="unknown components"):
+        load_models(components=("sam", "regressor"), device="cpu")
 
 
 def test_load_models_on_cpu_with_seeded_weights(monkeypatch):
@@ -160,9 +255,16 @@ def test_load_models_on_cpu_with_seeded_weights(monkeypatch):
     assert enc_mod.block_0.qkv.weight.dtype == torch.bfloat16
     assert enc_mod.block_0.norm1.weight.dtype == torch.float32
     assert enc_mod.block_1.rel_pos_h.abs().min() > 0 and enc_mod.pos_embed.abs().sum() > 0
+    # DINOv2's LayerScale is drawn O(0.1-1), not its 1e-5 init, so the
+    # attention blocks move the residual stream
+    gammas = torch.cat([blk.ls1.gamma for blk in (m.dinov2.block_0, m.dinov2.block_11)])
+    assert gammas.min() >= 0.1 and gammas.max() <= 1.0
+    assert m.matcher.backbone.stem_conv.weight.abs().sum() > 0
     again = load_models(cfg, sam_type="b", seed=3, device="cpu")
-    for (k, a), (_, b) in zip(m.sam.state_dict().items(), again.sam.state_dict().items()):
-        assert torch.equal(a, b), k
+    for tower in ("sam", "dinov2", "matcher"):
+        mine, theirs = getattr(m, tower).state_dict(), getattr(again, tower).state_dict()
+        for (k, a), (_, b) in zip(mine.items(), theirs.items()):
+            assert torch.equal(a, b), f"{tower}.{k}"
 
 
 def test_port_imports_no_jax_and_calls_no_library_attention():
