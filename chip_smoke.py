@@ -5,14 +5,19 @@
 
 Phases, each of which raises on failure (exit code != 0):
   1. device: print the card's name and power limit (nvidia-smi);
-  2. build: compile the CUDA kernels from pope_tpu_torch/csrc with nvcc;
+  2. build: compile the CUDA kernels from pope_tpu_torch/csrc with nvcc,
+     print ptxas's registers, shared memory and spills for the short
+     kernel's 12 instantiations, none of which may spill;
   3. kernels: each ported kernel at the shape the main path gives it (SAM
      ViT-H's AMG program on B=4 640x480 frames, rect 48x64 token grid, for
      the two rel-pos kernels; DINOv2 ViT-S/14's retrieval forward over 4
-     pairs x 65 crops for the bias-free one), held against its plain PyTorch
-     version, and timed beside the plain version, the bound of the card and
-     one library call (SDPA, with a materialised bias mask where the kernel
-     has a bias);
+     pairs x 65 crops for the bias-free one), through the design the main
+     path takes there (the short kernel for 1 and 3, the streaming one for
+     2), held against its plain PyTorch version, and timed beside the plain
+     version, the bound of the card and one library call (SDPA, with a
+     materialised bias mask where the kernel has a bias). For kernels 1 and
+     3 the streaming design is checked and timed too, in turns with
+     the short one (previous, short, short, previous);
   4. reference: a small SAM (ViT-H width, 2 blocks, f32) encodes and decodes
      on the card and on the CPU, where the port runs its plain versions
      (which the CPU test suite holds against pope_tpu); the two must agree;
@@ -27,7 +32,10 @@ Phases, each of which raises on failure (exit code != 0):
      AutomaticMaskGenerator.generate_boxes_batch on four 640x480 target
      frames, then stage 2, PipelineExecutor.batched() (retrieve -> match ->
      solve) on four prompt frames and the stage-1 boxes. Each stage runs with
-     the kernels' launch counts set to 0 just before it and read just after;
+     the kernels' launch counts (in all and per design) set to 0 just before
+     it and read just after: 28 windowed launches through the short kernel
+     and 4 global ones through the streaming kernel per SAM forward, 12
+     DINOv2 launches through the short kernel per stage-2 call;
      then both are timed and profiled, and stage 1 and 2 run once more with
      the AMG filters open.
 The last three lines are the `kernels` JSON line, the nvidia-smi line and
@@ -40,6 +48,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -80,7 +89,8 @@ MAX_INLIER_FLIPS = 2
 MAX_R_ERR_DEG, MAX_T_ERR_DEG = 5.0, 15.0
 LINEMOD_K = ((572.4114, 0.0, 325.2611), (0.0, 573.57043, 242.04899), (0.0, 0.0, 1.0))
 
-SOURCE = "pope_tpu_torch/csrc/attention_relpos.cu"
+STREAM_SOURCE = "pope_tpu_torch/csrc/attention_relpos.cu"
+SHORT_SOURCE = "pope_tpu_torch/csrc/attention_short.cu"
 DEV = "cuda"  # where the stage-2 phases and the main path run
 PROFILER_OWN_EVENTS = ("Buffer Flush", "Activity Buffer Request")  # the tracer's, not the program's
 
@@ -112,29 +122,46 @@ def bound(bytes_moved: float, flops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_phase(name, replaces, kernel, plain, library, args, reps, nbytes, flops):
-    out = kernel(*args)
-    ref = plain(*args).float()
+def check_close(name, out, ref):
+    """Kernel output against its plain version, scaled to the output."""
+    ref = ref.float()
     diff = out.float() - ref
     err = diff.abs().max().item()
     rms_err = diff.square().mean().sqrt().item()
     ref_max, ref_rms = ref.abs().max().item(), ref.square().mean().sqrt().item()
-    torch.cuda.synchronize()
-    del out, ref, diff
     if not (err <= TOL_MAX_REL * ref_max and rms_err <= TOL_RMS_REL * ref_rms):
         raise AssertionError(
             f"{name}: kernel vs plain max abs err {err} (limit {TOL_MAX_REL} x {ref_max}), "
             f"rms err {rms_err} (limit {TOL_RMS_REL} x {ref_rms})"
         )
-    ms = cuda_ms(lambda: kernel(*args), reps)
+    return {"max_abs_err": err, "rms_err": rms_err, "ref_max_abs": ref_max, "ref_rms": ref_rms}
+
+
+def kernel_phase(name, replaces, source, kernel, plain, library, args, reps, nbytes, flops, previous=None):
+    """Hold `kernel` (the design the main path takes at this shape) against
+    its plain version and time it beside the plain version, one library call
+    and the card's bound. `previous`, the streaming design at the same
+    shape, is held to the same limits and timed in turns with the kernel
+    (previous, kernel, kernel, previous)."""
+    ref = plain(*args)
+    errs = check_close(name, kernel(*args), ref)
+    if previous is not None:
+        errs["previous"] = check_close(f"{name} (previous design)", previous(*args), ref)
+    torch.cuda.synchronize()
+    del ref
+    if previous is None:
+        turns = [cuda_ms(lambda: kernel(*args), reps)]
+        ms, previous_ms = turns[0], None
+    else:
+        turns = [cuda_ms(lambda: fn(*args), reps) for fn in (previous, kernel, kernel, previous)]
+        ms, previous_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
     plain_ms = cuda_ms(lambda: plain(*args), max(2, reps // 5), warmup=1)
     library_ms = cuda_ms(library, reps)
     bound_ms, bound_by = bound(nbytes, flops)
     row = {
-        "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-        "max_abs_err": err, "rms_err": rms_err, "ref_max_abs": ref_max, "ref_rms": ref_rms,
+        "name": name, "route": "cuda", "source": source, "replaces": replaces, **errs,
         "tol": {"max_rel": TOL_MAX_REL, "rms_rel": TOL_RMS_REL},
-        "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+        "ms": ms, "kernel_ms": ms, "previous_ms": previous_ms, "turns_ms": turns, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         "bytes": nbytes, "flops": flops, "shapes": [list(a.shape) for a in args if torch.is_tensor(a)],
     }
@@ -143,6 +170,7 @@ def kernel_phase(name, replaces, kernel, plain, library, args, reps, nbytes, flo
 
 
 def run_kernel_phases():
+    from pope_tpu_torch.ops.cuda_kernels import launch_attention, launch_attention_relpos
     from pope_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_plain,
@@ -150,6 +178,7 @@ def run_kernel_phases():
         flash_attention_relpos_plain,
     )
     from pope_tpu_torch.ops.window_attention import (
+        _split_qkv,
         windowed_attention_relpos,
         windowed_attention_relpos_plain,
     )
@@ -168,13 +197,17 @@ def run_kernel_phases():
     q, k, v = (t.transpose(1, 2) for t in qkv.view(BW, N, 3, nh, d).unbind(2))
     mask = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(BW, nh, N, N)
     args = (qkv, rel_h, rel_w, nh, d, ws, ws)
+
+    def windowed_stream(qkv, rel_h, rel_w, nh, d, hk, wk):
+        return launch_attention_relpos(*_split_qkv(qkv, nh, d), rel_h, rel_w, hk, wk, "stream")
+
     rows["windowed_attention_relpos"] = kernel_phase(
-        "windowed_attention_relpos", "pope_tpu/ops/window_attention.py:80",
+        "windowed_attention_relpos", "pope_tpu/ops/window_attention.py:80", SHORT_SOURCE,
         windowed_attention_relpos, windowed_attention_relpos_plain,
         lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
         args, reps=20,
         nbytes=2 * (qkv.numel() + rel_h.numel() + rel_w.numel() + BW * N * C),
-        flops=4.0 * BW * nh * N * N * d,
+        flops=4.0 * BW * nh * N * N * d, previous=windowed_stream,
     )
     del qkv, rel_h, rel_w, q, k, v, mask
 
@@ -189,7 +222,7 @@ def run_kernel_phases():
     q, k, v = (t.transpose(1, 2) for t in (qn, kn, vn))
     args = (qn, kn, vn, rel_h, rel_w, H, W)
     rows["flash_attention_relpos"] = kernel_phase(
-        "flash_attention_relpos", "pope_tpu/ops/flash_attention.py:140",
+        "flash_attention_relpos", "pope_tpu/ops/flash_attention.py:140", STREAM_SOURCE,
         flash_attention_relpos, flash_attention_relpos_plain,
         lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
         args, reps=5,
@@ -206,15 +239,44 @@ def run_kernel_phases():
     qn, kn, vn = qkv.unbind(2)
     q, k, v = (t.transpose(1, 2) for t in (qn, kn, vn))
     rows["flash_attention"] = kernel_phase(
-        "flash_attention", "pope_tpu/ops/flash_attention.py:114",
+        "flash_attention", "pope_tpu/ops/flash_attention.py:114", SHORT_SOURCE,
         flash_attention, flash_attention_plain,
         lambda: F.scaled_dot_product_attention(q, k, v),
         (qn, kn, vn), reps=20,
         nbytes=2 * (qkv.numel() + B * N * C),
         flops=4.0 * B * nh * N * N * d,
+        previous=lambda q, k, v: launch_attention(q, k, v, "stream"),
     )
     del qkv, q, k, v
     torch.cuda.empty_cache()
+    return rows
+
+
+def ptxas_short_kernels(log: str) -> list:
+    """ptxas's registers, shared memory and spills for each instantiation of
+    the short kernel (attn_short_kernel<D, HAS_BIAS, WIDE>), from nvcc's -v
+    log."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            t = re.search(r"attn_short_kernelILi(\d+)ELb([01])ELb([01])E", name)
+            flag = {"0": "false", "1": "true"}
+            cur = {"kernel": f"attn_short_kernel<{t.group(1)}, {flag[t.group(2)]}, {flag[t.group(3)]}>"} if t else None
+            if cur:
+                rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
     return rows
 
 
@@ -400,6 +462,8 @@ def kernel_category(name: str) -> str:
     n = name.lower()
     if "attn_relpos" in n:
         return "attention (csrc/attention_relpos.cu)"
+    if "attn_short" in n:
+        return "attention (csrc/attention_short.cu)"
     if any(s in n for s in ("gemm", "nvjet", "cutlass", "xmma", "magma")):
         return "gemm"
     if any(s in n for s in ("syevj", "gesvd", "getrf", "getrs", "potrf", "jacobi", "cusolver")):
@@ -503,16 +567,23 @@ def profile_call(fn, untraced_ms: float) -> dict:
 
 
 def counted_run(counters, fn):
-    """fn() with every kernel's launch count set to 0 just before it; returns
-    (fn's result, wall ms, the counts read just after)."""
+    """fn() with every kernel's launch counts (in all and per design) set to 0
+    just before it; returns (fn's result, wall ms, the counts read just
+    after, the counts per design)."""
     for f in counters.values():
         f.launches = 0
+        f.launches_by_design.update(dict.fromkeys(f.launches_by_design, 0))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    return out, ms, {name: f.launches for name, f in counters.items()}
+    return (out, ms, {name: f.launches for name, f in counters.items()},
+            {name: dict(f.launches_by_design) for name, f in counters.items()})
+
+
+def designs(short: int = 0, stream: int = 0) -> dict:
+    return {"short": short, "stream": stream}
 
 
 def timed_runs(fn, n: int = 3) -> list:
@@ -589,13 +660,20 @@ def run_main_path(counters):
                      "flash_attention_relpos": n_global, "flash_attention": 0}
     stage2_counts = {"windowed_attention_relpos": 0, "flash_attention_relpos": 0,
                      "flash_attention": models.config.dinov2.depth}
+    # the windowed layers and DINOv2 take the short kernel, the global layers
+    # the streaming one
+    stage1_designs = {"windowed_attention_relpos": designs(short=enc.depth - n_global),
+                      "flash_attention_relpos": designs(stream=n_global), "flash_attention": designs()}
+    stage2_designs = {"windowed_attention_relpos": designs(), "flash_attention_relpos": designs(),
+                      "flash_attention": designs(short=models.config.dinov2.depth)}
 
     # stage 1: AMG on the target frames
     torch.cuda.reset_peak_memory_stats()
-    (boxes, valid, n_dropped), first_ms, launches1 = counted_run(
+    (boxes, valid, n_dropped), first_ms, launches1, designs1 = counted_run(
         counters, lambda: amg.generate_boxes_batch(targets))
-    if launches1 != stage1_counts:
-        raise AssertionError(f"stage 1 launches {launches1} != {stage1_counts} for one encoder forward")
+    if launches1 != stage1_counts or designs1 != stage1_designs:
+        raise AssertionError(f"stage 1 launches {launches1} {designs1} != {stage1_counts} {stage1_designs} "
+                             "for one encoder forward")
     cap = amg.cfg.mask_capacity
     if (tuple(boxes.shape), tuple(valid.shape), tuple(n_dropped.shape)) != ((B, cap, 4), (B, cap), (B,)):
         raise AssertionError(f"shapes {boxes.shape} {valid.shape} {n_dropped.shape}")
@@ -622,7 +700,7 @@ def run_main_path(counters):
         "model": "sam_vit_h (seeded random weights)", "frames": list(targets.shape),
         "first_ms": first_ms, "ms_per_batch": times,
         "median_ms_per_batch": statistics.median(times), "peak_bytes": peak,
-        "launches_per_forward": launches1, "valid": valid.sum(1).tolist(),
+        "launches_per_forward": launches1, "launches_by_design": designs1, "valid": valid.sum(1).tolist(),
         "n_dropped": n_dropped.tolist(), "open_filters": {
             "ms": open_ms, "valid": ov.sum(1).tolist(), "n_dropped": od.tolist(),
         },
@@ -643,9 +721,10 @@ def run_main_path(counters):
 
     M = models.config.matcher.match_coarse.match_capacity
     torch.cuda.reset_peak_memory_stats()
-    (small, matches), first2_ms, launches2 = counted_run(counters, lambda: run(*args(), packed=True))
-    if launches2 != stage2_counts:
-        raise AssertionError(f"stage 2 launches {launches2} != {stage2_counts} for one call")
+    (small, matches), first2_ms, launches2, designs2 = counted_run(counters, lambda: run(*args(), packed=True))
+    if launches2 != stage2_counts or designs2 != stage2_designs:
+        raise AssertionError(f"stage 2 launches {launches2} {designs2} != {stage2_counts} {stage2_designs} "
+                             "for one call")
     check_stage2_outputs(small, matches, B, M)
     times2 = timed_runs(lambda: run(*args(), packed=True))
     total = {name: fn.launches for name, fn in counters.items()}
@@ -660,7 +739,8 @@ def run_main_path(counters):
         "models": "dinov2_vits14 bf16 + tanh, matcher MatcherConfig() f32 (seeded random weights)",
         "prompts": list(prompts.shape), "first_ms": first2_ms, "ms_per_batch": times2,
         "median_ms_per_batch": statistics.median(times2), "peak_bytes": peak2,
-        "launches_per_call": launches2, "outputs": stage2_summary(small, matches),
+        "launches_per_call": launches2, "launches_by_design": designs2,
+        "outputs": stage2_summary(small, matches),
         "open_filters": {"valid": ov.sum(1).tolist(), **stage2_summary(small_open, matches_open)},
         "stages_ms": stage2_times(run, args()),
         "matcher_backbone_ms": backbone_ms,
@@ -691,8 +771,14 @@ def main() -> int:
     _, log = cuda_kernels.build()
     cuda_kernels.library()
     build_s = time.perf_counter() - t0
+    ptxas = None
     if log is not None:  # freshly compiled: ptxas's registers and spills per kernel
-        print(log, flush=True)
+        print("\n".join(line for line in log.splitlines()
+                        if re.search(r"Compiling entry|registers|spill|error|warning", line)), flush=True)
+        ptxas = ptxas_short_kernels(log)
+        print(json.dumps({"ptxas_short_kernel": ptxas}), flush=True)
+        if len(ptxas) != 12 or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in ptxas):
+            raise AssertionError(f"the short kernel's 12 instantiations must build without spills: {ptxas}")
     print(json.dumps({"build_s": build_s, "cached": log is None}), flush=True)
 
     kernels = run_kernel_phases()
@@ -709,14 +795,14 @@ def main() -> int:
         listed.append({k: row[k] for k in ("name", "route", "source", "replaces")}
                       | {"launches": launches[name]}
                       | {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                             "bound_by", "library_ms")}
+                                             "bound_by", "library_ms", "previous_ms")}
                       | {"status": "ported"})
     summary = {"kernels": listed, "not_ported": []}
 
     out = Path(__file__).resolve().parent / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps({
-        "card": smi, "build_s": build_s, "kernels": kernels, "reference": reference,
+        "card": smi, "build_s": build_s, "ptxas_short_kernel": ptxas, "kernels": kernels, "reference": reference,
         "stage2_reference": reference2, "solver": solver, "main_path": main_path, "summary": summary,
     }, indent=1))
 

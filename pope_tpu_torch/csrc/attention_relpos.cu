@@ -8,19 +8,22 @@
 // with the bias over a (hk x wk) key grid, N = hk * wk keys, keys in
 // row-major order.
 //
-// Replaces the three Pallas TPU kernels of the JAX package:
-//   - pope_tpu/ops/window_attention.py::windowed_attention_relpos
-//     (_window_attn_kernel): SAM's 14x14 windowed layers;
+// The streaming design, one of the two that replace the Pallas TPU kernels
+// of the JAX package:
 //   - pope_tpu/ops/flash_attention.py::flash_attention_relpos
-//     (_attn_bias_kernel + _stream_body): SAM's global layers;
-//   - pope_tpu/ops/flash_attention.py::flash_attention (_attn_kernel +
-//     _stream_body): bias-free attention, here DINOv2's 12 blocks.
+//     (_attn_bias_kernel + _stream_body): SAM's global layers, on the main
+//     path always here;
+//   - pope_tpu/ops/window_attention.py::windowed_attention_relpos
+//     (_window_attn_kernel) and pope_tpu/ops/flash_attention.py::
+//     flash_attention (_attn_kernel): here for the shapes that
+//     attention_short.cu does not take (float32, N > 256, bias grids of
+//     hk + wk > 32).  At the main path's shapes (SAM's 14x14 windows,
+//     DINOv2's 197 tokens) those run attention_short.cu;
+//     ops/cuda_kernels.py::attention_design decides by shape.
 // The bias and the bias-free kernels are one template each (HAS_BIAS); the
 // bias-free instantiation drops the rel-table staging and the per-logit
-// gather.  The rel-pos wrappers (ops/window_attention.py,
-// ops/flash_attention.py) call the C entry pope_attention_relpos, the
-// bias-free one (ops/flash_attention.py::flash_attention) pope_attention,
-// all with views of their qkv layouts.  In
+// gather.  The C entries are pope_attention_relpos and pope_attention, both
+// taking views of their callers' qkv layouts.  In
 // bf16 the softmax weights are rounded to bf16 for the p . v product, as the
 // TPU's windowed kernel does; the TPU's global kernel kept them in f32,
 // which the bf16 tolerance its tests hold it to allows.
@@ -38,7 +41,7 @@
 // rel_w rows, staged in shared memory.  The TPU kernels had to expand the
 // tables with 0/1 matmuls because Mosaic has no gather.  Two bodies, by
 // dtype:
-//   - bf16 (the main path): tensor cores through mma.sync m16n8k16 with f32
+//   - bf16 (the global layers on the main path): tensor cores through mma.sync m16n8k16 with f32
 //     accumulation, 4 warps of 16 query rows, FlashAttention-2's reuse of
 //     the S accumulators as the A operand of P V (attn_relpos_mma_kernel).
 //     It takes head dims 32, 64 and 80 and q/k/v rows that can be read 16
@@ -46,20 +49,14 @@
 //   - float32 (the f32 encoder configs): f32 FMAs on the CUDA cores, 256
 //     threads owning 4 x 4 logits each (attn_relpos_kernel).
 //
-// What bounds it on an H100.  Kernel-1 shapes (SAM ViT-H windowed layer, B=4
-// 640x480 frames: 80 windows x 16 heads, N = 196, d = 80) move ~175 MB
-// (qkv read, rel tables, output write) for ~16 GFLOP: bytes bound it, with a
-// floor of ~52 us at 3.35 TB/s.  Kernel-2 shapes (global layer, 64 heads,
-// N = 3072, d = 80) do ~193 GFLOP on ~170 MB: operations bound it, ~195 us
-// at the 989 TFLOP/s bf16 tensor-core peak.  mma.sync reaches a fraction
-// of that peak (wgmma is Hopper's full-rate path), there is no copy/compute
-// overlap (no cp.async or TMA pipeline), and N = 196 pads to four 64-key
-// and four 64-query tiles, of which 196^2 / 256^2 = 59% is live work.
-// Those are the next steps; this version is the correct baseline.
-// Kernel-3 shapes (DINOv2 ViT-S/14 retrieval forward, B=4 pairs x 65
-// crops: 260 x 6 heads, N = 197, d = 64) read 118 MB of qkv and write 39 MB
-// for 15.5 GFLOP: bytes bound it, ~47 us at 3.35 TB/s.  N = 197 is 4 tiles
-// of 64 with a 5-row tail, so 197^2 / 256^2 = 59% of the work is live.
+// What bounds it on an H100.  Kernel-2 shapes (SAM ViT-H global layer, B=4
+// 640x480 frames: 64 heads, N = 3072, d = 80) do ~193 GFLOP on ~170 MB:
+// operations bound it, ~195 us at the 989 TFLOP/s bf16 tensor-core peak.
+// mma.sync reaches a fraction of that peak (wgmma is Hopper's full-rate
+// path) and there is no TMA / warp-specialised pipeline; that redesign is
+// the next step for this kernel.  At the short shapes (N = 196/197) this
+// design read K and V once per 64-query tile and did 59% live work, which is
+// why those shapes moved to attention_short.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

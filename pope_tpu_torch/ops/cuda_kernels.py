@@ -20,8 +20,10 @@ import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_SOURCES = ("attention_relpos.cu",)
-_BF16_HEAD_DIMS = (32, 64, 80)  # the tensor-core body's instantiations (launch_bf16)
+_SOURCES = ("attention_relpos.cu", "attention_short.cu")
+_BF16_HEAD_DIMS = (32, 64, 80)  # the tensor-core bodies' instantiations (launch_bf16, launch_short)
+SHORT_MAX_N = 256  # attention_short.cu: a whole head in shared memory, one TMA box of rows
+SHORT_MAX_GRID = 32  # and a bias grid of hk + wk <= 32: two k-steps of its bias product
 
 _lib = None  # the loaded library, once built
 
@@ -67,6 +69,10 @@ def library() -> ctypes.CDLL:
         lib.pope_attention_relpos.restype = i32
         lib.pope_attention.argtypes = [ptr] * 4 + [i64] * 9 + [i32] * 4 + [ctypes.c_float, i32, ptr]
         lib.pope_attention.restype = i32
+        lib.pope_attention_short_relpos.argtypes = [ptr] * 6 + [i64] * 9 + [i32] * 6 + [ctypes.c_float, ptr]
+        lib.pope_attention_short_relpos.restype = i32
+        lib.pope_attention_short.argtypes = [ptr] * 4 + [i64] * 9 + [i32] * 4 + [ctypes.c_float, ptr]
+        lib.pope_attention_short.restype = i32
         lib.pope_cuda_error_string.argtypes = [i32]
         lib.pope_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -101,48 +107,88 @@ def _raise_on(err: int, entry: str, lib) -> None:
         raise RuntimeError(f"{entry} failed: {lib.pope_cuda_error_string(err).decode()}")
 
 
-def launch_attention_relpos(q, k, v, rel_h, rel_w, hk: int, wk: int):
-    """Run csrc/attention_relpos.cu's kernel for the windowed and the global
-    layers.
+def attention_design(dtype, N: int, d: int, hk: int = 0, wk: int = 0) -> str:
+    """The kernel that takes a shape: "short" (csrc/attention_short.cu: a
+    whole head in shared memory; bf16, N <= SHORT_MAX_N, d in
+    _BF16_HEAD_DIMS and, with a bias, hk + wk <= SHORT_MAX_GRID) or "stream"
+    (csrc/attention_relpos.cu: the rest, float32 included). The shape alone
+    decides; a kernel that fails raises."""
+    if (dtype == torch.bfloat16 and N <= SHORT_MAX_N and d in _BF16_HEAD_DIMS
+            and hk + wk <= SHORT_MAX_GRID):
+        return "short"
+    return "stream"
+
+
+def _resolve_design(design, dtype, N: int, d: int, hk: int = 0, wk: int = 0) -> str:
+    """`design`, or attention_design's choice when it is None; the short
+    kernel only for a shape it takes."""
+    fits = attention_design(dtype, N, d, hk, wk)
+    design = design or fits
+    if design not in ("short", "stream"):
+        raise ValueError(f"unknown attention design {design!r}")
+    if design == "short" and fits != "short":
+        raise ValueError(f"the short kernel does not take {dtype} N={N} d={d} on a {hk}x{wk} grid")
+    return design
+
+
+def _views(q, k, v):
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr()), (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+
+
+def launch_attention_relpos(q, k, v, rel_h, rel_w, hk: int, wk: int, design: str | None = None):
+    """Run the rel-pos attention kernel for the windowed and the global
+    layers: `design` (by default attention_design's choice for the shape)
+    "short" is csrc/attention_short.cu, "stream" csrc/attention_relpos.cu.
 
     q, k, v: (B, N, nh, d) CUDA views with a unit last stride (slices of the
     qkv Dense output are fine); rel_h (B, nh, N, hk) and rel_w (B, nh, N, wk)
     contiguous, all of one dtype (float32 or bfloat16). In bfloat16 the
-    tensor-core body also needs d in _BF16_HEAD_DIMS and q/k/v rows that start
-    on 16 bytes. Returns a new contiguous (B, N, nh * d) tensor."""
+    tensor-core bodies also need d in _BF16_HEAD_DIMS and q/k/v rows that
+    start on 16 bytes. Returns a new contiguous (B, N, nh * d) tensor."""
     B, N, nh, d = _check_qkv(q, k, v, (rel_h, rel_w))
     if N != hk * wk or rel_h.shape != (B, nh, N, hk) or rel_w.shape != (B, nh, N, wk):
         raise ValueError(f"rel tables {tuple(rel_h.shape)} {tuple(rel_w.shape)} do not fit "
                          f"q {tuple(q.shape)} on a {hk}x{wk} key grid")
     if not (rel_h.is_contiguous() and rel_w.is_contiguous()):
         raise ValueError("rel tables must be contiguous")
+    design = _resolve_design(design, q.dtype, N, d, hk, wk)
     out = torch.empty((B, N, nh * d), dtype=q.dtype, device=q.device)
     lib = library()
+    ptrs, strides = _views(q, k, v)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.pope_attention_relpos(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
-            out.data_ptr(),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            B, N, nh, d, hk, wk, float(d ** -0.5), int(q.dtype == torch.bfloat16), stream,
-        )
-    _raise_on(err, "pope_attention_relpos", lib)
+        tail = (B, N, nh, d, hk, wk, float(d ** -0.5))
+        rel = (rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr())
+        if design == "short":
+            entry = "pope_attention_short_relpos"
+            err = lib.pope_attention_short_relpos(*ptrs, *rel, *strides, *tail, stream)
+        else:
+            entry = "pope_attention_relpos"
+            err = lib.pope_attention_relpos(*ptrs, *rel, *strides, *tail,
+                                            int(q.dtype == torch.bfloat16), stream)
+    _raise_on(err, entry, lib)
     return out
 
 
-def launch_attention(q, k, v):
-    """Run csrc/attention_relpos.cu's bias-free kernel: softmax(q k^T d^-1/2) v
-    over any N, on the same (B, N, nh, d) views and types as
-    launch_attention_relpos. Returns a new contiguous (B, N, nh * d) tensor."""
+def launch_attention(q, k, v, design: str | None = None):
+    """Run the bias-free kernel, softmax(q k^T d^-1/2) v, on the same
+    (B, N, nh, d) views and types as launch_attention_relpos, through
+    `design` (by default attention_design's choice). Returns a new
+    contiguous (B, N, nh * d) tensor."""
     B, N, nh, d = _check_qkv(q, k, v)
+    design = _resolve_design(design, q.dtype, N, d)
     out = torch.empty((B, N, nh * d), dtype=q.dtype, device=q.device)
     lib = library()
+    ptrs, strides = _views(q, k, v)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.pope_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            B, N, nh, d, float(d ** -0.5), int(q.dtype == torch.bfloat16), stream,
-        )
-    _raise_on(err, "pope_attention", lib)
+        tail = (B, N, nh, d, float(d ** -0.5))
+        if design == "short":
+            entry = "pope_attention_short"
+            err = lib.pope_attention_short(*ptrs, out.data_ptr(), *strides, *tail, stream)
+        else:
+            entry = "pope_attention"
+            err = lib.pope_attention(*ptrs, out.data_ptr(), *strides, *tail,
+                                     int(q.dtype == torch.bfloat16), stream)
+    _raise_on(err, entry, lib)
     return out

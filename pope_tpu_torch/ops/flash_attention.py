@@ -6,27 +6,31 @@ versions.
 - `flash_attention`, bias-free, for DINOv2's blocks (port of
   pope_tpu/ops/flash_attention.py::flash_attention).
 
-The rel-pos kernel (csrc/attention_relpos.cu, shared with the windowed
-layers) streams key/value tiles through an f32 online softmax and gathers
-the bias
-rel_h[q, k // wk] + rel_w[q, k % wk] per tile, so the (N, N) logits never
-reach device memory. Logits, softmax statistics and sums are f32; the scale
-is d^-1/2. In bf16 the kernel rounds the softmax weights to bf16 for the
-p . v product on the tensor cores, where the plain version keeps them f32.
+Two hand-written CUDA designs serve both wrappers, picked by shape
+(`cuda_kernels.attention_design`; each wrapper counts its launches per design
+in `launches_by_design`):
+- "stream" (csrc/attention_relpos.cu, shared with the windowed layers)
+  streams key/value tiles through an f32 online softmax and gathers the bias
+  rel_h[q, k // wk] + rel_w[q, k % wk] per tile, so the (N, N) logits never
+  reach device memory: SAM's global layers (N = 3072) and float32;
+- "short" (csrc/attention_short.cu) holds a whole head in shared memory and
+  its key row in registers: bf16, N <= 256, so DINOv2's 197 tokens.
+Logits, softmax statistics and sums are f32; the scale is d^-1/2. In bf16
+the kernels round the softmax weights to bf16 for the p . v product on the
+tensor cores, where the plain version keeps them f32.
 
 Unlike the JAX entry, which takes (B*nh, N, d) copies, q, k and v are
 (B, N, nh, d) views: the encoder passes slices of its qkv Dense output as
 they are, and the output comes back in the `proj` input layout. The
-bias-free kernel is the same source's HAS_BIAS=false instantiation: no rel
-tables, any N (DINOv2's 197 tokens: a masked key tail, an unwritten query
-tail).
+bias-free kernels are the sources' HAS_BIAS=false instantiations: no rel
+tables, masked key tails, unwritten query tails.
 """
 
 from __future__ import annotations
 
 import torch
 
-from pope_tpu_torch.ops.cuda_kernels import launch_attention, launch_attention_relpos
+from pope_tpu_torch.ops.cuda_kernels import attention_design, launch_attention, launch_attention_relpos
 
 
 def flash_attention_relpos_plain(q, k, v, rel_h, rel_w, hk: int, wk: int):
@@ -48,18 +52,22 @@ def flash_attention_relpos(q, k, v, rel_h, rel_w, hk: int, wk: int):
     rel_w:   (B, nh, N, wk) bias against the key column.
     Returns (B, N, nh*d) in q.dtype.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    attention_design picks.
     """
     if q.shape[1] != hk * wk:
         raise ValueError(f"q {tuple(q.shape)} does not fit a {hk}x{wk} key grid")
     if q.device.type == "cpu":
         return flash_attention_relpos_plain(q, k, v, rel_h, rel_w, hk, wk)
-    out = launch_attention_relpos(q, k, v, rel_h, rel_w, hk, wk)
+    design = attention_design(q.dtype, q.shape[1], q.shape[3], hk, wk)
+    out = launch_attention_relpos(q, k, v, rel_h, rel_w, hk, wk, design)
     flash_attention_relpos.launches += 1
+    flash_attention_relpos.launches_by_design[design] += 1
     return out
 
 
 flash_attention_relpos.launches = 0
+flash_attention_relpos.launches_by_design = {"short": 0, "stream": 0}
 
 
 def flash_attention_plain(q, k, v):
@@ -79,13 +87,17 @@ def flash_attention(q, k, v):
              (B, N, 3, nh, d) view of a qkv Dense output, sliced, is fine).
     Returns (B, N, nh*d) in q.dtype.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    attention_design picks.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
-    out = launch_attention(q, k, v)
+    design = attention_design(q.dtype, q.shape[1], q.shape[3])
+    out = launch_attention(q, k, v, design)
     flash_attention.launches += 1
+    flash_attention.launches_by_design[design] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_design = {"short": 0, "stream": 0}

@@ -9,15 +9,19 @@ window (N = hk * wk tokens) and head:
 reading q, k and v as column slices of the un-reshaped qkv Dense output and
 writing the `proj` input layout. Logits and softmax are f32; the softmax
 weights are rounded to the input type before p . v, which accumulates in f32.
-The kernel is csrc/attention_relpos.cu, which the global layers' wrapper
-(ops/flash_attention.py) shares.
+On the card it runs one of two hand-written kernels, picked by shape
+(`cuda_kernels.attention_design`) and counted per design in
+`launches_by_design`: SAM's 14x14 windows in bf16 take csrc/attention_short.cu
+(a whole window-head in shared memory, the bias as a tensor-core product);
+float32 and larger windows take csrc/attention_relpos.cu, which the global
+layers' wrapper (ops/flash_attention.py) shares.
 """
 
 from __future__ import annotations
 
 import torch
 
-from pope_tpu_torch.ops.cuda_kernels import launch_attention_relpos
+from pope_tpu_torch.ops.cuda_kernels import attention_design, launch_attention_relpos
 
 
 def _split_qkv(qkv, nh: int, d: int):
@@ -47,7 +51,8 @@ def windowed_attention_relpos(qkv, rel_h, rel_w, nh: int, d: int, hk: int, wk: i
     Keys are row-major over the (hk, wk) window grid, N = hk * wk.
     Returns (BW, N, nh*d) in qkv.dtype.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    attention_design picks.
     """
     BW, N, C3 = qkv.shape
     if C3 != 3 * nh * d or N != hk * wk:
@@ -57,9 +62,12 @@ def windowed_attention_relpos(qkv, rel_h, rel_w, nh: int, d: int, hk: int, wk: i
     if not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous")
     q, k, v = _split_qkv(qkv, nh, d)
-    out = launch_attention_relpos(q, k, v, rel_h, rel_w, hk, wk)
+    design = attention_design(qkv.dtype, N, d, hk, wk)
+    out = launch_attention_relpos(q, k, v, rel_h, rel_w, hk, wk, design)
     windowed_attention_relpos.launches += 1
+    windowed_attention_relpos.launches_by_design[design] += 1
     return out
 
 
 windowed_attention_relpos.launches = 0
+windowed_attention_relpos.launches_by_design = {"short": 0, "stream": 0}

@@ -25,6 +25,7 @@ from pope_tpu_torch.config import (
 from pope_tpu_torch.models.dinov2 import DinoVisionTransformer
 from pope_tpu_torch.models.matcher import Matcher
 from pope_tpu_torch.models.sam import Sam
+from pope_tpu_torch.ops.cuda_kernels import launch_attention
 from pope_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_plain,
@@ -159,6 +160,65 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="16 bytes"):
         flash_attention(*shifted.unbind(2))
     assert flash_attention.launches == before
+
+
+def assert_one_launch_of(wrapper, before, design):
+    """`wrapper` launched once since `before` (its launches_by_design), through `design`."""
+    after = wrapper.launches_by_design
+    assert {k: after[k] - before[k] for k in after} == {k: int(k == design) for k in after}
+
+
+@pytest.mark.parametrize("d", [32, 64, 80])
+@pytest.mark.parametrize("N", [1, 15, 16, 17, 64, 65, 196, 197, 200, 256, 257])
+@pytest.mark.parametrize("B,nh", [(2, 3), (70, 3)], ids=["6-heads", "210-heads"])
+def test_flash_attention_designs_by_shape(card, B, nh, N, d):
+    """Bias-free bf16 attention on views of a (B, N, 3, nh, d) qkv tensor
+    across the short kernel's limits (one pass up to N = 200, two to 256) and
+    its ragged tails, with fewer and more heads than the card has SMs (the
+    persistent loop): the short kernel up to N = 256, the streaming one
+    above."""
+    g = torch.Generator(device=card).manual_seed(N * 100 + d)
+    qkv = torch.randn(B, N, 3, nh, d, device=card, generator=g).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    before = dict(flash_attention.launches_by_design)
+    out = flash_attention(q, k, v)
+    assert_matches_plain(out, flash_attention_plain(q, k, v))
+    assert_one_launch_of(flash_attention, before, "short" if N <= 256 else "stream")
+
+
+@pytest.mark.parametrize("d", [32, 64, 80])
+@pytest.mark.parametrize("hk,wk", [(14, 14), (5, 7), (12, 16), (16, 16), (8, 40)])
+@pytest.mark.parametrize("BW,nh", [(2, 3), (50, 4)], ids=["6-heads", "200-heads"])
+def test_relpos_designs_by_shape(card, BW, nh, hk, wk, d):
+    """The rel-pos wrappers in bf16 on windows of hk x wk: the windowed one
+    on its qkv layout, the global one on views of it. Grids of N <= 256 with
+    hk + wk <= 32 take the short kernel (16x16 in two passes); 8x40 (N =
+    320) the streaming one."""
+    g = torch.Generator(device=card).manual_seed(hk * 1000 + wk * 10 + d)
+    N = hk * wk
+    qkv = torch.randn(BW, N, 3 * nh * d, device=card, generator=g).to(torch.bfloat16)
+    rel_h = (0.5 * torch.randn(BW, nh, N, hk, device=card, generator=g)).to(torch.bfloat16)
+    rel_w = (0.5 * torch.randn(BW, nh, N, wk, device=card, generator=g)).to(torch.bfloat16)
+    design = "short" if N <= 256 else "stream"
+    before = dict(windowed_attention_relpos.launches_by_design)
+    out = windowed_attention_relpos(qkv, rel_h, rel_w, nh, d, hk, wk)
+    assert_matches_plain(out, windowed_attention_relpos_plain(qkv, rel_h, rel_w, nh, d, hk, wk))
+    assert_one_launch_of(windowed_attention_relpos, before, design)
+    q, k, v = qkv.view(BW, N, 3, nh, d).unbind(2)
+    before = dict(flash_attention_relpos.launches_by_design)
+    out = flash_attention_relpos(q, k, v, rel_h, rel_w, hk, wk)
+    assert_matches_plain(out, flash_attention_relpos_plain(q, k, v, rel_h, rel_w, hk, wk))
+    assert_one_launch_of(flash_attention_relpos, before, design)
+
+
+def test_short_kernel_raises_on_what_it_does_not_take(card):
+    """Asked for the short kernel, a shape it does not take raises: nothing
+    falls back to the streaming kernel or the plain version."""
+    qkv = torch.zeros(2, 257, 3, 2, 64, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="short kernel does not take"):
+        launch_attention(*qkv.unbind(2), "short")
+    with pytest.raises(ValueError, match="short kernel does not take"):
+        launch_attention(*qkv[:, :196].float().unbind(2), "short")
 
 
 def test_small_dinov2_and_matcher_on_card_match_cpu(card):

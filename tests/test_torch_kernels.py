@@ -17,6 +17,7 @@ import torch
 from pope_tpu.ops.flash_attention import flash_attention as pallas_attention
 from pope_tpu.ops.flash_attention import flash_attention_relpos as pallas_flash
 from pope_tpu.ops.window_attention import windowed_attention_relpos as pallas_window
+from pope_tpu_torch.ops.cuda_kernels import attention_design
 from pope_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_plain,
@@ -120,14 +121,14 @@ def test_wrappers_take_plain_version_on_cpu():
     BW, nh, d, hk, wk = 2, 2, 16, 4, 4
     qkv, rel_h, rel_w = (torch.from_numpy(a) for a in _window_inputs(2, BW, nh, d, hk, wk))
     counters = (windowed_attention_relpos, flash_attention_relpos, flash_attention)
-    before = [f.launches for f in counters]
+    before = [(f.launches, dict(f.launches_by_design)) for f in counters]
     out = windowed_attention_relpos(qkv, rel_h, rel_w, nh, d, hk, wk)
     torch.testing.assert_close(out, windowed_attention_relpos_plain(qkv, rel_h, rel_w, nh, d, hk, wk))
     q, k, v = qkv.view(BW, hk * wk, 3, nh, d).unbind(2)
     out = flash_attention_relpos(q, k, v, rel_h, rel_w, hk, wk)
     torch.testing.assert_close(out, flash_attention_relpos_plain(q, k, v, rel_h, rel_w, hk, wk))
     torch.testing.assert_close(flash_attention(q, k, v), flash_attention_plain(q, k, v))
-    assert [f.launches for f in counters] == before
+    assert [(f.launches, f.launches_by_design) for f in counters] == before
 
 
 def test_window_and_flash_plain_agree_in_f32():
@@ -141,3 +142,44 @@ def test_window_and_flash_plain_agree_in_f32():
         flash_attention_relpos_plain(q, k, v, rel_h, rel_w, hk, wk),
         atol=1e-5, rtol=1e-5,
     )
+
+
+@pytest.mark.parametrize(
+    "dtype,N,d,hk,wk,design",
+    [
+        (torch.bfloat16, 196, 80, 14, 14, "short"),  # SAM ViT-H's windows
+        (torch.bfloat16, 197, 64, 0, 0, "short"),  # DINOv2's crops
+        (torch.bfloat16, 3072, 80, 48, 64, "stream"),  # SAM ViT-H's global layers
+        (torch.bfloat16, 1, 32, 0, 0, "short"),
+        (torch.bfloat16, 200, 64, 0, 0, "short"),
+        (torch.bfloat16, 201, 64, 0, 0, "short"),  # two passes of 128 keys
+        (torch.bfloat16, 256, 80, 16, 16, "short"),
+        (torch.bfloat16, 257, 64, 0, 0, "stream"),
+        (torch.bfloat16, 320, 80, 8, 40, "stream"),
+        (torch.bfloat16, 192, 80, 12, 16, "short"),
+        (torch.bfloat16, 200, 32, 1, 200, "stream"),  # a grid wider than the bias product takes
+        (torch.bfloat16, 196, 48, 14, 14, "stream"),  # a head dim without a short instantiation
+        (torch.float32, 196, 80, 14, 14, "stream"),
+    ],
+)
+def test_attention_design_by_shape(dtype, N, d, hk, wk, design):
+    """The shape alone picks the kernel: bf16, N <= 256, d in (32, 64, 80)
+    and a bias grid of hk + wk <= 32 take the short kernel, the rest the
+    streaming one."""
+    assert attention_design(dtype, N, d, hk, wk) == design
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N,d", [(200, 80), (17, 32)])
+def test_attention_plain_matches_pallas_at_short_kernel_edges(dtype, N, d):
+    """Bias-free attention at the short kernel's largest one-pass N (200, its
+    whole key row in one accumulator) and a ragged small one, against the
+    Pallas kernel."""
+    B, nh = 1, 2
+    rng = np.random.default_rng(5)
+    qkv = rng.standard_normal((B, N, 3, nh, d)).astype(np.float32)
+    heads = lambda a: a.transpose(0, 2, 1, 3).reshape(B * nh, N, d)
+    ref = pallas_attention(*(_j(heads(qkv[:, :, i]), dtype) for i in range(3)), interpret=True)
+    ref = np.asarray(jnp.asarray(ref, jnp.float32)).reshape(B, nh, N, d).transpose(0, 2, 1, 3)
+    t = _t(qkv, dtype)
+    _assert_close(flash_attention(t[:, :, 0], t[:, :, 1], t[:, :, 2]), ref.reshape(B, N, nh * d), dtype)
