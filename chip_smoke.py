@@ -5,19 +5,24 @@
 
 Phases, each of which raises on failure (exit code != 0):
   1. device: print the card's name and power limit (nvidia-smi);
-  2. build: compile the CUDA kernels from pope_tpu_torch/csrc with nvcc,
-     print ptxas's registers, shared memory and spills for the short
-     kernel's 12 instantiations, none of which may spill;
+  2. build: compile the CUDA kernels from pope_tpu_torch/csrc with nvcc (one
+     process per source, in parallel), print ptxas's registers, shared
+     memory and spills for the short kernel's 12 instantiations and the long
+     kernel's 9, none of which may spill;
   3. kernels: each ported kernel at the shape the main path gives it (SAM
      ViT-H's AMG program on B=4 640x480 frames, rect 48x64 token grid, for
      the two rel-pos kernels; DINOv2 ViT-S/14's retrieval forward over 4
      pairs x 65 crops for the bias-free one), through the design the main
-     path takes there (the short kernel for 1 and 3, the streaming one for
-     2), held against its plain PyTorch version, and timed beside the plain
-     version, the bound of the card and one library call (SDPA, with a
-     materialised bias mask where the kernel has a bias). For kernels 1 and
-     3 the streaming design is checked and timed too, in turns with
-     the short one (previous, short, short, previous);
+     path takes there (the short kernel for 1 and 3, the long one for 2),
+     held against its plain PyTorch version, and timed beside the plain
+     version, the bound of the card, the exponentials' floor on the
+     special-function units (at the card's highest SM clock; in the
+     kernel_phase row, not in the kernels line) and one library call
+     (SDPA, with a materialised bias mask where the kernel has a bias).
+     The streaming design (the previous one at each shape) is checked and
+     timed too, in turns with the main path's (previous, new, new,
+     previous). Each time is the card's: the calls are queued behind a
+     sleep on the card, so the host's time per call does not enter it;
   4. reference: a small SAM (ViT-H width, 2 blocks, f32) encodes and decodes
      on the card and on the CPU, where the port runs its plain versions
      (which the CPU test suite holds against pope_tpu); the two must agree;
@@ -34,8 +39,8 @@ Phases, each of which raises on failure (exit code != 0):
      solve) on four prompt frames and the stage-1 boxes. Each stage runs with
      the kernels' launch counts (in all and per design) set to 0 just before
      it and read just after: 28 windowed launches through the short kernel
-     and 4 global ones through the streaming kernel per SAM forward, 12
-     DINOv2 launches through the short kernel per stage-2 call;
+     and 4 global ones through the long kernel per SAM forward, 12 DINOv2
+     launches through the short kernel per stage-2 call;
      then both are timed and profiled, and stage 1 and 2 run once more with
      the AMG filters open.
 The last three lines are the `kernels` JSON line, the nvidia-smi line and
@@ -60,6 +65,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+EX2_PER_SM_CLOCK = 16  # Hopper's special-function units: 16 ex2 results a clock per SM
 # kernel vs plain in bf16, scaled to the output: the outputs are softmax
 # averages of v ~ N(0, 1) over N keys, so their size falls with N (rms about
 # 0.15 at N = 196, 0.04 at N = 3072). The largest error may be a few bf16 ulps
@@ -89,10 +95,13 @@ MAX_INLIER_FLIPS = 2
 MAX_R_ERR_DEG, MAX_T_ERR_DEG = 5.0, 15.0
 LINEMOD_K = ((572.4114, 0.0, 325.2611), (0.0, 573.57043, 242.04899), (0.0, 0.0, 1.0))
 
-STREAM_SOURCE = "pope_tpu_torch/csrc/attention_relpos.cu"
 SHORT_SOURCE = "pope_tpu_torch/csrc/attention_short.cu"
+LONG_SOURCE = "pope_tpu_torch/csrc/attention_long.cu"
 DEV = "cuda"  # where the stage-2 phases and the main path run
 PROFILER_OWN_EVENTS = ("Buffer Flush", "Activity Buffer Request")  # the tracer's, not the program's
+# cuda_ms holds the card this many clocks (about 10 ms) before its start event,
+# so that the host has issued every timed call before the first one runs
+HOST_LEAD_CYCLES = 20_000_000
 
 
 def nvidia_smi() -> str:
@@ -103,12 +112,29 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ex2_per_s() -> float:
+    """The card's peak ex2 rate: EX2_PER_SM_CLOCK a clock on each SM at the
+    highest SM clock nvidia-smi reports (clocks.max.sm; 1980 MHz on an H100
+    SXM, which makes 4.18e12/s over its 132 SMs)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    )
+    mhz = float(out.stdout.strip().splitlines()[0])
+    return EX2_PER_SM_CLOCK * torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
+
+
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of fn() over `reps` back-to-back calls."""
+    """Mean device time of fn() over `reps` back-to-back calls. The card
+    sleeps HOST_LEAD_CYCLES before the start event, so the calls run back to
+    back on the card whatever the host's time per call: a wrapper's Python
+    takes 0.04-0.12 ms, as long as a short-kernel launch
+    (tools/launch_overhead.py)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOST_LEAD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -137,12 +163,15 @@ def check_close(name, out, ref):
     return {"max_abs_err": err, "rms_err": rms_err, "ref_max_abs": ref_max, "ref_rms": ref_rms}
 
 
-def kernel_phase(name, replaces, source, kernel, plain, library, args, reps, nbytes, flops, previous=None):
+def kernel_phase(name, replaces, source, kernel, plain, library, args, reps, nbytes, flops, exps,
+                 ex2_rate, previous=None):
     """Hold `kernel` (the design the main path takes at this shape) against
-    its plain version and time it beside the plain version, one library call
-    and the card's bound. `previous`, the streaming design at the same
-    shape, is held to the same limits and timed in turns with the kernel
-    (previous, kernel, kernel, previous)."""
+    its plain version and time it beside the plain version, one library call,
+    the card's bound and the floor of its `exps` exponentials on the
+    special-function units at `ex2_rate` a second (computed, not measured: it
+    stays out of the `kernels` line). `previous`, the streaming design at
+    the same shape, is held to the same limits and timed in turns with the
+    kernel (previous, kernel, kernel, previous)."""
     ref = plain(*args)
     errs = check_close(name, kernel(*args), ref)
     if previous is not None:
@@ -162,8 +191,8 @@ def kernel_phase(name, replaces, source, kernel, plain, library, args, reps, nby
         "name": name, "route": "cuda", "source": source, "replaces": replaces, **errs,
         "tol": {"max_rel": TOL_MAX_REL, "rms_rel": TOL_RMS_REL},
         "ms": ms, "kernel_ms": ms, "previous_ms": previous_ms, "turns_ms": turns, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-        "bytes": nbytes, "flops": flops, "shapes": [list(a.shape) for a in args if torch.is_tensor(a)],
+        "bound_ms": bound_ms, "bound_by": bound_by, "exp_floor_ms": exps / ex2_rate * 1e3, "ex2_per_s": ex2_rate,
+        "library_ms": library_ms, "bytes": nbytes, "flops": flops, "exps": exps, "shapes": [list(a.shape) for a in args if torch.is_tensor(a)],
     }
     print(json.dumps({"kernel_phase": row}), flush=True)
     return row
@@ -186,6 +215,7 @@ def run_kernel_phases():
     F = torch.nn.functional
     dev, bf16 = "cuda", torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(0)
+    ex2_rate = ex2_per_s()
     rows = {}
 
     # kernel 1: 28 windowed layers; 4 frames x 20 windows of 14x14, 16 heads, d=80
@@ -207,7 +237,8 @@ def run_kernel_phases():
         lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
         args, reps=20,
         nbytes=2 * (qkv.numel() + rel_h.numel() + rel_w.numel() + BW * N * C),
-        flops=4.0 * BW * nh * N * N * d, previous=windowed_stream,
+        flops=4.0 * BW * nh * N * N * d, exps=BW * nh * N * N, ex2_rate=ex2_rate,
+        previous=windowed_stream,
     )
     del qkv, rel_h, rel_w, q, k, v, mask
 
@@ -222,12 +253,13 @@ def run_kernel_phases():
     q, k, v = (t.transpose(1, 2) for t in (qn, kn, vn))
     args = (qn, kn, vn, rel_h, rel_w, H, W)
     rows["flash_attention_relpos"] = kernel_phase(
-        "flash_attention_relpos", "pope_tpu/ops/flash_attention.py:140", STREAM_SOURCE,
+        "flash_attention_relpos", "pope_tpu/ops/flash_attention.py:140", LONG_SOURCE,
         flash_attention_relpos, flash_attention_relpos_plain,
         lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
-        args, reps=5,
+        args, reps=10,
         nbytes=2 * (qkv.numel() + rel_h.numel() + rel_w.numel() + B * N * C),
-        flops=4.0 * B * nh * N * N * d,
+        flops=4.0 * B * nh * N * N * d, exps=B * nh * N * N, ex2_rate=ex2_rate,
+        previous=lambda *a: launch_attention_relpos(*a, "stream"),
     )
     del qkv, rel_h, rel_w, q, k, v, mask
 
@@ -244,7 +276,7 @@ def run_kernel_phases():
         lambda: F.scaled_dot_product_attention(q, k, v),
         (qn, kn, vn), reps=20,
         nbytes=2 * (qkv.numel() + B * N * C),
-        flops=4.0 * B * nh * N * N * d,
+        flops=4.0 * B * nh * N * N * d, exps=B * nh * N * N, ex2_rate=ex2_rate,
         previous=lambda q, k, v: launch_attention(q, k, v, "stream"),
     )
     del qkv, q, k, v
@@ -252,20 +284,26 @@ def run_kernel_phases():
     return rows
 
 
-def ptxas_short_kernels(log: str) -> list:
+PTXAS_KERNELS = {  # the hand-written Hopper kernels' instantiations, by mangled name
+    "attn_short_kernel": (re.compile(r"attn_short_kernelILi(\d+)ELb([01])ELb([01])E"), 12),
+    "attn_long_kernel": (re.compile(r"attn_long_kernelILi(\d+)ELi(\d)E"), 9),
+}
+
+
+def ptxas_rows(log: str) -> list:
     """ptxas's registers, shared memory and spills for each instantiation of
-    the short kernel (attn_short_kernel<D, HAS_BIAS, WIDE>), from nvcc's -v
-    log."""
+    the short kernel (attn_short_kernel<D, HAS_BIAS, WIDE>) and the long one
+    (attn_long_kernel<D, BIAS>), from nvcc's -v log."""
     rows, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = m.group(1)
-            t = re.search(r"attn_short_kernelILi(\d+)ELb([01])ELb([01])E", name)
-            flag = {"0": "false", "1": "true"}
-            cur = {"kernel": f"attn_short_kernel<{t.group(1)}, {flag[t.group(2)]}, {flag[t.group(3)]}>"} if t else None
-            if cur:
-                rows.append(cur)
+            cur = None
+            for kernel, (pattern, _) in PTXAS_KERNELS.items():
+                t = pattern.search(m.group(1))
+                if t:
+                    cur = {"kernel": f"{kernel}<{', '.join(t.groups())}>"}
+                    rows.append(cur)
             continue
         if cur is None:
             continue
@@ -278,6 +316,14 @@ def ptxas_short_kernels(log: str) -> list:
             sm = re.search(r"(\d+) bytes smem", line)
             cur["static_smem"] = int(sm.group(1)) if sm else 0
     return rows
+
+
+def check_ptxas(rows: list) -> None:
+    """Every instantiation of the two Hopper kernels built, none spilled."""
+    for kernel, (_, count) in PTXAS_KERNELS.items():
+        mine = [r for r in rows if r["kernel"].startswith(kernel + "<")]
+        if len(mine) != count or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in mine):
+            raise AssertionError(f"{kernel}: its {count} instantiations must build without spills: {mine}")
 
 
 def run_reference_phase():
@@ -464,6 +510,8 @@ def kernel_category(name: str) -> str:
         return "attention (csrc/attention_relpos.cu)"
     if "attn_short" in n:
         return "attention (csrc/attention_short.cu)"
+    if "attn_long" in n:
+        return "attention (csrc/attention_long.cu)"
     if any(s in n for s in ("gemm", "nvjet", "cutlass", "xmma", "magma")):
         return "gemm"
     if any(s in n for s in ("syevj", "gesvd", "getrf", "getrs", "potrf", "jacobi", "cusolver")):
@@ -582,8 +630,8 @@ def counted_run(counters, fn):
             {name: dict(f.launches_by_design) for name, f in counters.items()})
 
 
-def designs(short: int = 0, stream: int = 0) -> dict:
-    return {"short": short, "stream": stream}
+def designs(short: int = 0, long: int = 0, stream: int = 0) -> dict:
+    return {"short": short, "long": long, "stream": stream}
 
 
 def timed_runs(fn, n: int = 3) -> list:
@@ -661,9 +709,9 @@ def run_main_path(counters):
     stage2_counts = {"windowed_attention_relpos": 0, "flash_attention_relpos": 0,
                      "flash_attention": models.config.dinov2.depth}
     # the windowed layers and DINOv2 take the short kernel, the global layers
-    # the streaming one
+    # the long one
     stage1_designs = {"windowed_attention_relpos": designs(short=enc.depth - n_global),
-                      "flash_attention_relpos": designs(stream=n_global), "flash_attention": designs()}
+                      "flash_attention_relpos": designs(long=n_global), "flash_attention": designs()}
     stage2_designs = {"windowed_attention_relpos": designs(), "flash_attention_relpos": designs(),
                       "flash_attention": designs(short=models.config.dinov2.depth)}
 
@@ -775,10 +823,9 @@ def main() -> int:
     if log is not None:  # freshly compiled: ptxas's registers and spills per kernel
         print("\n".join(line for line in log.splitlines()
                         if re.search(r"Compiling entry|registers|spill|error|warning", line)), flush=True)
-        ptxas = ptxas_short_kernels(log)
-        print(json.dumps({"ptxas_short_kernel": ptxas}), flush=True)
-        if len(ptxas) != 12 or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in ptxas):
-            raise AssertionError(f"the short kernel's 12 instantiations must build without spills: {ptxas}")
+        ptxas = ptxas_rows(log)
+        print(json.dumps({"ptxas": ptxas}), flush=True)
+        check_ptxas(ptxas)
     print(json.dumps({"build_s": build_s, "cached": log is None}), flush=True)
 
     kernels = run_kernel_phases()
@@ -794,15 +841,15 @@ def main() -> int:
     for name, row in kernels.items():
         listed.append({k: row[k] for k in ("name", "route", "source", "replaces")}
                       | {"launches": launches[name]}
-                      | {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                             "bound_by", "library_ms", "previous_ms")}
+                      | {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                             "library_ms", "previous_ms")}
                       | {"status": "ported"})
     summary = {"kernels": listed, "not_ported": []}
 
     out = Path(__file__).resolve().parent / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps({
-        "card": smi, "build_s": build_s, "ptxas_short_kernel": ptxas, "kernels": kernels, "reference": reference,
+        "card": smi, "build_s": build_s, "ptxas": ptxas, "kernels": kernels, "reference": reference,
         "stage2_reference": reference2, "solver": solver, "main_path": main_path, "summary": summary,
     }, indent=1))
 

@@ -1,0 +1,585 @@
+// Long-sequence attention for Hopper (sm_90a), bf16, with or without SAM's
+// decomposed relative-position bias:
+//
+//   out[b, n, h*d:(h+1)*d] = softmax_k(q_n . k_k * d^-1/2
+//                                      [+ rel_h[b, h, n, k / wk]
+//                                       + rel_w[b, h, n, k % wk]]) . v
+//
+// for any N, d in {32, 64, 80} and, with the bias, N = hk * wk keys in
+// row-major order on a grid of hk + wk <= 500.  It replaces, on the main
+// path, kernel 2: pope_tpu/ops/flash_attention.py::flash_attention_relpos
+// (_attn_bias_kernel + _stream_body), SAM ViT-H's 4 global layers, per B=4
+// batch of 640x480 frames 4 x 16 heads, N = 48 * 64 = 3072, d = 80.  That is
+// 193.3 GFLOP on 170 MB: operations bound it, 0.195 ms at 989 TFLOP/s; the
+// B * nh * N^2 = 604 M exponentials take 0.155 ms more on the special-function
+// units (about 3.9 T ex2/s) unless they overlap the products.  It also takes
+// every other bf16 shape that attention_short.cu does not (N > 256, grids of
+// hk + wk > 32), the bias-free flash_attention above N = 256 included;
+// ops/cuda_kernels.py::attention_design picks one by shape, and a failure
+// here raises, it never falls back.
+//
+// What held the streaming kernel (attention_relpos.cu, mma.sync) at 7.4x its
+// bound, and the design here:
+//   - mma.sync m16n8k16 cannot reach Hopper's tensor rate.  Here S = Q K^T is
+//     an m64n128k16 wgmma with both operands in shared memory (d/16 k-steps)
+//     and O += P V an m64n{d}k16 wgmma with P from registers (bf16 A
+//     fragments) and V as the MN-major B operand (8 k-steps per key tile);
+//   - every 64-row block read the head's whole K and V from L2 (3.0 GB per
+//     launch).  Here an item is 128 query rows (64 per consumer warpgroup),
+//     which halves that, and blocks are persistent (one per SM) and walk the
+//     items head-major, so the query tiles of a head run side by side and
+//     its 0.98 MB of K and V comes from L2, not device memory;
+//   - the bias was gathered per logit from shared memory with a running
+//     (kh, kw) wrap.  With wk = 64 (SAM's global grids) a 128-key tile is
+//     two whole key rows, so each thread's accumulator columns have the same
+//     kw in every tile: its 16 rel_w values per row are re-laid once per
+//     item so that a tile reads them as 16 conflict-free words, its rel_h
+//     values are 2 per row per tile, and each logit is one FFMA (s * d^-1/2
+//     + rel_w), the rel_h term folded into the exponent's offset.  Other
+//     grids gather both terms from the staged slabs per logit (right, not
+//     fast);
+//   - loads, S, softmax and P V ran in series in every warp.  Here one
+//     producer warp keeps Q (with the item's rel slabs) and 128-key K/V tiles
+//     in flight by TMA through mbarrier rings (2 Q stages, 2-4 K/V stages);
+//     each consumer warpgroup issues S of tile j and P V of tile j - 1
+//     together and runs the softmax of tile j while P V runs (FA3's
+//     intra-warpgroup overlap), and the two warpgroups' products and
+//     softmaxes interleave on the SM.  FA3's ping-pong (named barriers that
+//     make the warpgroups take turns at the tensor cores) measured no faster
+//     here, and with named barriers shared by the two warpgroups ptxas held
+//     every thread at the 168 registers of a 384-thread block, ignoring the
+//     consumers' setmaxnreg, so the d = 80 bias instantiations spilled
+//     (tools/ablate_kernels.py, variant "pingpong").
+// Operands are d/16 slabs of 32-byte rows with the 32-byte swizzle (as in
+// attention_short.cu; the TMA maps are 4-D (d, nh, N, B) over the strided
+// q/k/v views, rows past N read as zeros).  Ragged key tails are masked,
+// ragged query tails are not written.  The output leaves through shared
+// memory (the warpgroup's own Q rows, dead after its last S) as 16-byte
+// stores of whole row segments.
+//
+// Budget at kernel 2's shape: a Q stage is 20 KB of Q and 28 KB of rel slabs
+// (48 KB), a K/V stage 40 KB; 2 + 3 stages take 216 KB of the 227 KB a
+// block may use.  Registers: S 64 f32 accumulators a thread, O d/2, P's
+// fragments 8 x 4; the producer warpgroup gives its registers to the
+// consumers (setmaxnreg 40 / 232), and ptxas uses them: the SASS of the
+// d = 80 instantiations reaches register 186 (wk = 64 bias), 229 (gathered
+// bias) and 173 (no bias).
+//
+// Precision as the other kernels: f32 logits, softmax statistics and O, P
+// rounded to bf16 for P V, bf16 output.  The softmax runs in base 2 (ex2 of
+// logits scaled by log2 e), which is the same function.
+
+#include <math.h>
+
+#include <algorithm>
+
+#include "hopper.cuh"
+
+namespace {
+
+constexpr int LONG_NT = 384;  // 2 consumer warpgroups + 1 producer warpgroup
+// registers per thread after setmaxnreg: a register-file quarter holds one
+// warp of each warpgroup, 2 x 232 + 40 <= 512 per lane
+constexpr int LONG_CONSUMER_REGS = 232, LONG_PRODUCER_REGS = 40;
+constexpr int TQ = 128;  // query rows per item, 64 per consumer warpgroup
+constexpr int TK = 128;  // keys per K/V tile
+constexpr int MAX_Q_STAGES = 2, MAX_KV_STAGES = 4;
+constexpr float LOG2E = 1.4426950408889634f;
+
+enum Bias { NO_BIAS = 0, GATHER = 1, ROWS64 = 2 };
+
+struct LongArgs {
+  const __nv_bfloat16* rel_h;  // (B, nh, N, hk), contiguous
+  const __nv_bfloat16* rel_w;  // (B, nh, N, wk)
+  __nv_bfloat16* out;          // (B, N, nh * d)
+  int B, N, nh, hk, wk;
+  int rel_bulk;  // the rel slabs start and end on 16 bytes: 1-D bulk copies
+  int q_stages, kv_stages;
+  int q_stage_bytes, kv_stage_bytes;  // multiples of 1024
+  int rh_alloc;                       // bytes of an item's rel_h slab, a multiple of 16
+  float scale;                        // d^-1/2
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// shared-memory loads by 32-bit address (a generic pointer takes two registers)
+__device__ __forceinline__ uint32_t lds_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+__device__ __forceinline__ float lds_bf16(uint32_t addr) {
+  unsigned short v;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr) : "memory");
+  return __uint_as_float((uint32_t)v << 16);
+}
+
+// The online softmax of one 128-key tile for this thread's rows r0 and r1
+// (rows rr0, rr1 of the staged rel slabs): the logits x = s * scale + bias
+// become the weights p = 2^((x - m) log2 e) in s, m (the row maxima of x) and
+// l (this thread's part of the row sums) are updated, and corr gets the
+// factor by which O must be rescaled.  Accumulator layout of m64n128:
+// s[4 * blk + {0, 1}] are row r0's keys 8 blk + 2t + {0, 1}, s[4 * blk +
+// {2, 3}] row r1's.  rh0 and rh1 are the shared addresses of the two rows'
+// rel_h entries, rw0 and rw1 of their rel_w entries; ROWS64 reads its rel_w
+// values instead as the 16 words at rw0 + 128 i (bf16 pairs: row r0's
+// columns 8i + 2t, +1 for i < 8, row r1's for i >= 8).
+template <int BIAS>
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2], float (&corr)[2],
+                                             uint32_t rh0, uint32_t rh1, uint32_t rw0, uint32_t rw1, int k0,
+                                             int N, int hk, int wk, int t, float c) {
+  const bool ragged = k0 + TK > N;
+  float off[2][2];  // row maxima of x, less rel_h of keys 0-63 and 64-127 of the tile (ROWS64)
+  float mx0, mx1;
+  if constexpr (BIAS == ROWS64) {
+    // the tile is key rows k0 / 64 and k0 / 64 + 1 (past hk only when masked)
+    const int kh0 = min(k0 / 64, hk - 1), kh1 = min(k0 / 64 + 1, hk - 1);
+    const float h00 = lds_bf16(rh0 + 2 * kh0), h01 = lds_bf16(rh0 + 2 * kh1);
+    const float h10 = lds_bf16(rh1 + 2 * kh0), h11 = lds_bf16(rh1 + 2 * kh1);
+    float mh[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
+#pragma unroll
+    for (int cb = 0; cb < 8; ++cb) {
+      const uint32_t w0 = lds_u32(rw0 + 128 * cb), w1 = lds_u32(rw0 + 128 * (8 + cb));
+      const float b00 = __uint_as_float(w0 << 16), b01 = __uint_as_float(w0 & 0xffff0000u);
+      const float b10 = __uint_as_float(w1 << 16), b11 = __uint_as_float(w1 & 0xffff0000u);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int blk = 8 * half + cb;
+        float* e = &s[4 * blk];
+        e[0] = fmaf(e[0], c, b00);
+        e[1] = fmaf(e[1], c, b01);
+        e[2] = fmaf(e[2], c, b10);
+        e[3] = fmaf(e[3], c, b11);
+        if (ragged) {
+          const int key = k0 + 8 * blk + 2 * t;
+          if (key >= N) e[0] = e[2] = -INFINITY;
+          if (key + 1 >= N) e[1] = e[3] = -INFINITY;
+        }
+        mh[0][half] = fmaxf(mh[0][half], fmaxf(e[0], e[1]));
+        mh[1][half] = fmaxf(mh[1][half], fmaxf(e[2], e[3]));
+      }
+    }
+    mx0 = fmaxf(mh[0][0] + h00, mh[0][1] + h01);
+    mx1 = fmaxf(mh[1][0] + h10, mh[1][1] + h11);
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+    }
+    mx0 = fmaxf(m[0], mx0);
+    mx1 = fmaxf(m[1], mx1);
+    off[0][0] = mx0 - h00, off[0][1] = mx0 - h01;
+    off[1][0] = mx1 - h10, off[1][1] = mx1 - h11;
+  } else {
+    mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int blk = 0; blk < 16; ++blk) {
+      float* e = &s[4 * blk];
+      const int key = k0 + 8 * blk + 2 * t;
+      if constexpr (BIAS == GATHER) {
+        int kh = key / wk, kw = key - kh * wk, kh1 = kh, kw1 = kw + 1;
+        if (kw1 == wk) kw1 = 0, ++kh1;
+        kh = min(kh, hk - 1), kh1 = min(kh1, hk - 1);
+        e[0] = fmaf(e[0], c, lds_bf16(rh0 + 2 * kh) + lds_bf16(rw0 + 2 * kw));
+        e[1] = fmaf(e[1], c, lds_bf16(rh0 + 2 * kh1) + lds_bf16(rw0 + 2 * kw1));
+        e[2] = fmaf(e[2], c, lds_bf16(rh1 + 2 * kh) + lds_bf16(rw1 + 2 * kw));
+        e[3] = fmaf(e[3], c, lds_bf16(rh1 + 2 * kh1) + lds_bf16(rw1 + 2 * kw1));
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) e[i] *= c;
+      }
+      if (ragged) {
+        if (key >= N) e[0] = e[2] = -INFINITY;
+        if (key + 1 >= N) e[1] = e[3] = -INFINITY;
+      }
+      mx0 = fmaxf(mx0, fmaxf(e[0], e[1]));
+      mx1 = fmaxf(mx1, fmaxf(e[2], e[3]));
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+    }
+    mx0 = fmaxf(m[0], mx0);
+    mx1 = fmaxf(m[1], mx1);
+    off[0][0] = off[0][1] = mx0;
+    off[1][0] = off[1][1] = mx1;
+  }
+  // every tile holds a live key, so the new maxima are finite; the first
+  // tile's corr is 2^-inf = 0
+  corr[0] = ex2((m[0] - mx0) * LOG2E);
+  corr[1] = ex2((m[1] - mx1) * LOG2E);
+  m[0] = mx0;
+  m[1] = mx1;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) off[r][half] *= -LOG2E;
+  float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+  for (int blk = 0; blk < 16; ++blk) {
+    float* e = &s[4 * blk];
+    const int half = blk >> 3;
+    e[0] = ex2(fmaf(e[0], LOG2E, off[0][half]));
+    e[1] = ex2(fmaf(e[1], LOG2E, off[0][half]));
+    e[2] = ex2(fmaf(e[2], LOG2E, off[1][half]));
+    e[3] = ex2(fmaf(e[3], LOG2E, off[1][half]));
+    ls0 += e[0] + e[1];
+    ls1 += e[2] + e[3];
+  }
+  l[0] = l[0] * corr[0] + ls0;
+  l[1] = l[1] * corr[1] + ls1;
+}
+
+// P as bf16 A fragments of the 8 k-steps of P V (k-step j: n-blocks 2j, 2j + 1)
+__device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&pf)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    pf[j][0] = pack_bf16(s[8 * j], s[8 * j + 1]);
+    pf[j][1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
+    pf[j][2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
+    pf[j][3] = pack_bf16(s[8 * j + 6], s[8 * j + 7]);
+  }
+}
+
+// Shared memory: q_stages Q stages (Q as D/16 slabs of 128 rows x 32 B, then
+// the item's rel_h and rel_w rows, [row][hk] and [row][wk] bf16), then
+// kv_stages K/V stages (K then V, D/16 slabs of 128 rows each), then the
+// mbarriers: Q full / empty, K/V full / empty.  An item is (b * nh + h,
+// 128-query tile), numbered head-major; block i takes items i, i + grid, ...
+template <int D, int BIAS>
+__global__ void __launch_bounds__(LONG_NT, 1)
+    attn_long_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const LongArgs a) {
+  constexpr int DK = D / 16;  // k-steps of S, slabs per operand
+  constexpr int DB = D / 8;   // 8-column blocks of O, 16-byte chunks of an output row
+  constexpr uint32_t slab = TQ * SLAB_ROW;  // = TK * SLAB_ROW
+  constexpr uint32_t rel_off = DK * slab;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);  // generic pointer to `base`
+  const uint32_t kv_base = base + (uint32_t)(a.q_stages * a.q_stage_bytes);
+  const uint32_t bars = kv_base + (uint32_t)(a.kv_stages * a.kv_stage_bytes);
+  auto q_full = [&](int s) { return bars + 8u * s; };
+  auto q_empty = [&](int s) { return bars + 8u * (MAX_Q_STAGES + s); };
+  auto kv_full = [&](int s) { return bars + 8u * (2 * MAX_Q_STAGES + s); };
+  auto kv_empty = [&](int s) { return bars + 8u * (2 * MAX_Q_STAGES + MAX_KV_STAGES + s); };
+  const int N = a.N, nh = a.nh;
+  const int ntq = (N + TQ - 1) / TQ, nkt = (N + TK - 1) / TK;
+  const int n_items = a.B * nh * ntq;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.q_stages; ++s) {
+      mbar_init(q_full(s), 1);
+      mbar_init(q_empty(s), 2);  // one arrival per consumer warpgroup
+    }
+    for (int s = 0; s < a.kv_stages; ++s) {
+      mbar_init(kv_full(s), 1);
+      mbar_init(kv_empty(s), 8);  // one arrival per consumer warp, after its own wait
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // producer warpgroup: hands its registers to the consumers; one warp
+    // stays, and its lane 0 issues the copies
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(LONG_PRODUCER_REGS));
+    if (warp > 8) return;
+    int kv_i = 0, it = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
+      const int bh = item / ntq, q0 = (item - bh * ntq) * TQ;
+      const int b = bh / nh, h = bh - b * nh;
+      const int qs = it % a.q_stages;
+      mbar_wait(q_empty(qs), ((uint32_t)(it / a.q_stages) & 1u) ^ 1u);
+      const uint32_t st = base + (uint32_t)(qs * a.q_stage_bytes);
+      uint32_t tx = rel_off;
+      if constexpr (BIAS != NO_BIAS) {
+        const int rows = min(TQ, N - q0);
+        const __nv_bfloat16* rh = a.rel_h + ((int64_t)bh * N + q0) * a.hk;
+        const __nv_bfloat16* rw = a.rel_w + ((int64_t)bh * N + q0) * a.wk;
+        if (a.rel_bulk) {
+          const uint32_t rh_bytes = (uint32_t)(rows * a.hk * 2), rw_bytes = (uint32_t)(rows * a.wk * 2);
+          tx += rh_bytes + rw_bytes;
+          if (lane == 0) {
+            mbar_arrive_expect_tx(q_full(qs), tx);
+            bulk_load(st + rel_off, rh, rh_bytes, q_full(qs));
+            bulk_load(st + rel_off + a.rh_alloc, rw, rw_bytes, q_full(qs));
+          }
+        } else {  // slabs that do not start and end on 16 bytes: plain copies
+          __nv_bfloat16* dh = reinterpret_cast<__nv_bfloat16*>(gbase + (st - base) + rel_off);
+          __nv_bfloat16* dw = reinterpret_cast<__nv_bfloat16*>(gbase + (st - base) + rel_off + a.rh_alloc);
+          for (int e = lane; e < rows * a.hk; e += 32) dh[e] = rh[e];
+          for (int e = lane; e < rows * a.wk; e += 32) dw[e] = rw[e];
+          __threadfence_block();
+          __syncwarp();
+          if (lane == 0) mbar_arrive_expect_tx(q_full(qs), tx);
+        }
+      } else {
+        if (lane == 0) mbar_arrive_expect_tx(q_full(qs), tx);
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int j = 0; j < DK; ++j) tma_load_4d(st + j * slab, &tq, q_full(qs), 16 * j, h, q0, b);
+      }
+      for (int kt = 0; kt < nkt; ++kt, ++kv_i) {
+        const int s = kv_i % a.kv_stages;
+        mbar_wait(kv_empty(s), ((uint32_t)(kv_i / a.kv_stages) & 1u) ^ 1u);
+        if (lane == 0) {
+          const uint32_t ks = kv_base + (uint32_t)(s * a.kv_stage_bytes);
+          mbar_arrive_expect_tx(kv_full(s), 2 * DK * slab);
+#pragma unroll
+          for (int j = 0; j < DK; ++j) {
+            tma_load_4d(ks + j * slab, &tk, kv_full(s), 16 * j, h, kt * TK, b);
+            tma_load_4d(ks + (DK + j) * slab, &tv, kv_full(s), 16 * j, h, kt * TK, b);
+          }
+        }
+      }
+      __syncwarp();
+    }
+  } else {
+    // consumers: warpgroup wg takes rows 64 wg .. 64 wg + 63 of every item
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(LONG_CONSUMER_REGS));
+    const int wg = warp >> 2, tw = threadIdx.x & 127, wq = tw >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const int lr0 = wg * 64 + wq * 16 + g, lr1 = lr0 + 8;  // this thread's two rows of an item
+    const int64_t C = (int64_t)nh * D;
+    const float c = a.scale;
+
+    float sacc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sacc[i] = 0.f;
+    float oacc[D / 2];
+    uint32_t pf[8][4];
+    int kv_i = 0, it = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
+      const int bh = item / ntq, q0 = (item - bh * ntq) * TQ;
+      const int b = bh / nh, h = bh - b * nh;
+      const int qs = it % a.q_stages;
+      mbar_wait(q_full(qs), (uint32_t)(it / a.q_stages) & 1u);
+      const uint32_t Qs = base + (uint32_t)(qs * a.q_stage_bytes) + wg * 64 * SLAB_ROW;
+      unsigned char* qg = gbase + (qs * a.q_stage_bytes);
+      const int rows = min(TQ, N - q0);
+      // the shared addresses of rows r0 and r1 of the item's rel_h and rel_w
+      // slabs; rows past N read the last row's (GATHER; ROWS64 reads its own
+      // rows, whatever they hold: those rows are not written)
+      const int rr0 = BIAS == ROWS64 ? lr0 : min(lr0, rows - 1), rr1 = BIAS == ROWS64 ? lr1 : min(lr1, rows - 1);
+      const uint32_t rh_s = base + (uint32_t)(qs * a.q_stage_bytes) + rel_off, rw_s = rh_s + a.rh_alloc;
+      const uint32_t rh0 = rh_s + 2 * rr0 * a.hk, rh1 = rh_s + 2 * rr1 * a.hk;
+      uint32_t rw0 = rw_s + 2 * rr0 * a.wk, rw1 = rw_s + 2 * rr1 * a.wk;
+      if constexpr (BIAS == ROWS64) {
+        // this warp's 16 rows of rel_w (2 KB of the staged slab) re-laid in
+        // place as [word i][lane], so that each tile reads them back without
+        // bank conflicts (rows are 128 B apart: the slab's own order puts the
+        // 8 rows a warp reads at once in one bank)
+        uint32_t* words = reinterpret_cast<uint32_t*>(qg + rel_off + a.rh_alloc) + (wg * 64 + wq * 16) * 32;
+        uint32_t w[16];
+#pragma unroll
+        for (int cb = 0; cb < 8; ++cb) {
+          w[cb] = lds_u32(rw0 + 16 * cb + 4 * t);
+          w[8 + cb] = lds_u32(rw1 + 16 * cb + 4 * t);
+        }
+        __syncwarp();
+#pragma unroll
+        for (int i = 0; i < 16; ++i) words[32 * i + lane] = w[i];
+        __syncwarp();
+        rw0 = smem_u32(words + lane);
+      }
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+
+      auto issue_s = [&](uint32_t Ks) {
+#pragma unroll
+        for (int ks = 0; ks < DK; ++ks)
+          wgmma_ss_n128(sacc, desc_b32(Qs + ks * slab, 16), desc_b32(Ks + ks * slab, 16), ks > 0);
+        wgmma_commit();
+      };
+      auto issue_pv = [&](uint32_t Vs) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) wgmma_rs<D>(oacc, pf[j], desc_b32(Vs + j * 16 * SLAB_ROW, slab), 1);
+        wgmma_commit();
+      };
+
+      // tile 0: S alone
+      int s = kv_i % a.kv_stages;
+      mbar_wait(kv_full(s), (uint32_t)(kv_i / a.kv_stages) & 1u);
+      fence_regs(sacc);
+      wgmma_fence();
+      issue_s(kv_base + (uint32_t)(s * a.kv_stage_bytes));
+      wgmma_wait0();
+      fence_regs(sacc);
+      softmax_tile<BIAS>(sacc, m, l, corr, rh0, rh1, rw0, rw1, 0, N, a.hk, a.wk, t, c);
+      pack_p(sacc, pf);
+
+      // tile kt: S of kt and P V of kt - 1 issued together; the softmax of
+      // kt runs while P V does
+      for (int kt = 1; kt < nkt; ++kt) {
+        const int sp = s;
+        ++kv_i;
+        s = kv_i % a.kv_stages;
+        mbar_wait(kv_full(s), (uint32_t)(kv_i / a.kv_stages) & 1u);
+        fence_regs(sacc);
+        fence_regs(oacc);
+        fence_regs(pf);
+        wgmma_fence();
+        issue_s(kv_base + (uint32_t)(s * a.kv_stage_bytes));
+        issue_pv(kv_base + (uint32_t)(sp * a.kv_stage_bytes) + DK * slab);
+        wgmma_wait1();
+        fence_regs(sacc);
+        softmax_tile<BIAS>(sacc, m, l, corr, rh0, rh1, rw0, rw1, kt * TK, N, a.hk, a.wk, t, c);
+        wgmma_wait0();
+        fence_regs(oacc);
+        fence_regs(pf);
+        if (lane == 0) mbar_arrive(kv_empty(sp));
+#pragma unroll
+        for (int i = 0; i < D / 2; i += 4) {
+          oacc[i] *= corr[0];
+          oacc[i + 1] *= corr[0];
+          oacc[i + 2] *= corr[1];
+          oacc[i + 3] *= corr[1];
+        }
+        pack_p(sacc, pf);
+      }
+
+      // P V of the last tile
+      fence_regs(oacc);
+      fence_regs(pf);
+      wgmma_fence();
+      issue_pv(kv_base + (uint32_t)(s * a.kv_stage_bytes) + DK * slab);
+      wgmma_wait0();
+      fence_regs(oacc);
+      fence_regs(pf);
+      if (lane == 0) mbar_arrive(kv_empty(s));
+      ++kv_i;
+
+      // epilogue: normalise, stage the rows in this warpgroup's own Q rows
+      // (dead since its last S) with the 32-byte swizzle, then 16-byte
+      // stores of whole row segments
+      float l0 = l[0], l1 = l[1];
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+      }
+      const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+#pragma unroll
+      for (int nb = 0; nb < DB; ++nb) {
+        unsigned char* col = qg + (nb >> 1) * slab + 4 * t;
+        const int hh = nb & 1;
+        *reinterpret_cast<uint32_t*>(col + lr0 * SLAB_ROW + ((hh ^ ((lr0 >> 2) & 1)) << 4)) =
+            pack_bf16(oacc[4 * nb] * inv0, oacc[4 * nb + 1] * inv0);
+        *reinterpret_cast<uint32_t*>(col + lr1 * SLAB_ROW + ((hh ^ ((lr1 >> 2) & 1)) << 4)) =
+            pack_bf16(oacc[4 * nb + 2] * inv1, oacc[4 * nb + 3] * inv1);
+      }
+      bar_sync_wg(1 + wg);
+      for (int e = tw; e < 64 * DB; e += 128) {
+        const int r = wg * 64 + e / DB, ch = e % DB, n = q0 + r;
+        if (n >= N) break;
+        const uint4 v = *reinterpret_cast<const uint4*>(qg + (ch >> 1) * slab + r * SLAB_ROW +
+                                                        (((ch & 1) ^ ((r >> 2) & 1)) << 4));
+        *reinterpret_cast<uint4*>(a.out + ((int64_t)b * N + n) * C + (int64_t)h * D + ch * 8) = v;
+      }
+      // the stage's generic reads and writes before the producer's next TMA
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      bar_sync_wg(1 + wg);
+      if (tw == 0) mbar_arrive(q_empty(qs));
+    }
+  }
+}
+
+template <int D, int BIAS>
+cudaError_t launch_long_d(const View& q, const View& k, const View& v, LongArgs a, cudaStream_t stream) {
+  constexpr int DK = D / 16;
+  const int N = a.N;
+  a.rh_alloc = BIAS != NO_BIAS ? (TQ * a.hk * 2 + 15) / 16 * 16 : 0;
+  const int rw_alloc = BIAS != NO_BIAS ? (TQ * a.wk * 2 + 15) / 16 * 16 : 0;
+  a.q_stage_bytes = (DK * TQ * SLAB_ROW + a.rh_alloc + rw_alloc + 1023) / 1024 * 1024;
+  a.kv_stage_bytes = 2 * DK * TK * SLAB_ROW;
+  const int fixed = 1024 + 16 * (MAX_Q_STAGES + MAX_KV_STAGES);  // alignment slack, the mbarriers
+  a.q_stages = a.kv_stages = 0;
+  for (int qs = MAX_Q_STAGES; qs >= 1 && a.q_stages == 0; --qs)
+    for (int kvs = MAX_KV_STAGES; kvs >= 2; --kvs)
+      if (qs * a.q_stage_bytes + kvs * a.kv_stage_bytes + fixed <= SMEM_LIMIT) {
+        a.q_stages = qs, a.kv_stages = kvs;
+        break;
+      }
+  if (a.q_stages == 0) return cudaErrorInvalidValue;
+  const int smem = a.q_stages * a.q_stage_bytes + a.kv_stages * a.kv_stage_bytes + fixed;
+  if (BIAS != NO_BIAS) {
+    const uintptr_t p = (uintptr_t)a.rel_h | (uintptr_t)a.rel_w;
+    a.rel_bulk = p % 16 == 0 && ((int64_t)N * a.hk * 2) % 16 == 0 && ((int64_t)N * a.wk * 2) % 16 == 0;
+  }
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q.ptr, q.sb, q.sn, q.sh, a.B, N, a.nh, D, TQ) ||
+      !make_map(&tk, k.ptr, k.sb, k.sn, k.sh, a.B, N, a.nh, D, TK) ||
+      !make_map(&tv, v.ptr, v.sb, v.sn, v.sh, a.B, N, a.nh, D, TK))
+    return cudaErrorInvalidValue;
+  const int sms = sm_count();
+  if (sms == 0) return cudaErrorInvalidDevice;
+  const cudaError_t err = cudaFuncSetAttribute(attn_long_kernel<D, BIAS>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int64_t items = (int64_t)a.B * a.nh * ((N + TQ - 1) / TQ);
+  const int grid = (int)std::min<int64_t>(items, sms);
+  attn_long_kernel<D, BIAS><<<grid, LONG_NT, smem, stream>>>(tq, tk, tv, a);
+  return cudaGetLastError();
+}
+
+template <int BIAS>
+cudaError_t launch_long_bias(const View& q, const View& k, const View& v, const LongArgs& a, int d,
+                             cudaStream_t stream) {
+  switch (d) {
+    case 32: return launch_long_d<32, BIAS>(q, k, v, a, stream);
+    case 64: return launch_long_d<64, BIAS>(q, k, v, a, stream);
+    case 80: return launch_long_d<80, BIAS>(q, k, v, a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t launch_long(const View& q, const View& k, const View& v, const LongArgs& a, int d, bool has_bias,
+                        cudaStream_t stream) {
+  const bool grid_ok = has_bias ? a.hk >= 1 && a.wk >= 1 && a.N == a.hk * a.wk : true;
+  if (!tma_views_ok(q, k, v) || !grid_ok || a.N < 1 || a.B < 1 || a.nh < 1) return cudaErrorInvalidValue;
+  if (!has_bias) return launch_long_bias<NO_BIAS>(q, k, v, a, d, stream);
+  return a.wk == 64 ? launch_long_bias<ROWS64>(q, k, v, a, d, stream)
+                    : launch_long_bias<GATHER>(q, k, v, a, d, stream);
+}
+
+}  // namespace
+
+// The long kernel with the rel-pos bias (SAM's global layers), bf16 only,
+// N = hk * wk, d in {32, 64, 80}, hk + wk <= 500.  Strides in elements.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// shapes it does not take.
+extern "C" int pope_attention_long_relpos(const void* q, const void* k, const void* v, const void* rel_h,
+                                          const void* rel_w, void* out, int64_t sq_b, int64_t sq_n,
+                                          int64_t sq_h, int64_t sk_b, int64_t sk_n, int64_t sk_h,
+                                          int64_t sv_b, int64_t sv_n, int64_t sv_h, int B, int N, int nh,
+                                          int d, int hk, int wk, float scale, void* stream) {
+  LongArgs a{};
+  a.rel_h = static_cast<const __nv_bfloat16*>(rel_h);
+  a.rel_w = static_cast<const __nv_bfloat16*>(rel_w);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.B = B, a.N = N, a.nh = nh, a.hk = hk, a.wk = wk, a.scale = scale;
+  return launch_long({q, sq_b, sq_n, sq_h}, {k, sk_b, sk_n, sk_h}, {v, sv_b, sv_n, sv_h}, a, d, true,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The bias-free long kernel (flash_attention above N = 256), bf16 only.
+extern "C" int pope_attention_long(const void* q, const void* k, const void* v, void* out, int64_t sq_b,
+                                   int64_t sq_n, int64_t sq_h, int64_t sk_b, int64_t sk_n, int64_t sk_h,
+                                   int64_t sv_b, int64_t sv_n, int64_t sv_h, int B, int N, int nh, int d,
+                                   float scale, void* stream) {
+  LongArgs a{};
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.B = B, a.N = N, a.nh = nh, a.scale = scale;
+  return launch_long({q, sq_b, sq_n, sq_h}, {k, sk_b, sk_n, sk_h}, {v, sv_b, sv_n, sv_h}, a, d, false,
+                     static_cast<cudaStream_t>(stream));
+}

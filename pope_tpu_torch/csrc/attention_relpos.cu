@@ -8,18 +8,16 @@
 // with the bias over a (hk x wk) key grid, N = hk * wk keys, keys in
 // row-major order.
 //
-// The streaming design, one of the two that replace the Pallas TPU kernels
-// of the JAX package:
-//   - pope_tpu/ops/flash_attention.py::flash_attention_relpos
-//     (_attn_bias_kernel + _stream_body): SAM's global layers, on the main
-//     path always here;
-//   - pope_tpu/ops/window_attention.py::windowed_attention_relpos
-//     (_window_attn_kernel) and pope_tpu/ops/flash_attention.py::
-//     flash_attention (_attn_kernel): here for the shapes that
-//     attention_short.cu does not take (float32, N > 256, bias grids of
-//     hk + wk > 32).  At the main path's shapes (SAM's 14x14 windows,
-//     DINOv2's 197 tokens) those run attention_short.cu;
-//     ops/cuda_kernels.py::attention_design decides by shape.
+// The streaming design, the first of the three that replace the Pallas TPU
+// kernels of the JAX package (pope_tpu/ops/flash_attention.py::
+// flash_attention_relpos and flash_attention, pope_tpu/ops/
+// window_attention.py::windowed_attention_relpos).  The main path no longer
+// runs it: SAM's windows and DINOv2's 197 tokens take attention_short.cu,
+// SAM's global layers attention_long.cu.  It takes what those two do not:
+// float32, head dims other than 32, 64 and 80 (in float32), bias grids of
+// hk + wk > 500; ops/cuda_kernels.py::attention_design decides by shape,
+// and launch_attention(_relpos)(..., design="stream") forces it, as
+// chip_smoke.py does to time it beside the newer designs.
 // The bias and the bias-free kernels are one template each (HAS_BIAS); the
 // bias-free instantiation drops the rel-table staging and the per-logit
 // gather.  The C entries are pope_attention_relpos and pope_attention, both
@@ -53,10 +51,11 @@
 // 640x480 frames: 64 heads, N = 3072, d = 80) do ~193 GFLOP on ~170 MB:
 // operations bound it, ~195 us at the 989 TFLOP/s bf16 tensor-core peak.
 // mma.sync reaches a fraction of that peak (wgmma is Hopper's full-rate
-// path) and there is no TMA / warp-specialised pipeline; that redesign is
-// the next step for this kernel.  At the short shapes (N = 196/197) this
-// design read K and V once per 64-query tile and did 59% live work, which is
-// why those shapes moved to attention_short.cu.
+// path), each 64-row block reads its head's whole K and V, and there is no
+// TMA / warp-specialised pipeline: it took 7.4x the bound there, which is
+// why those shapes moved to attention_long.cu.  At the short shapes (N =
+// 196/197) this design read K and V once per 64-query tile and did 59% live
+// work, which is why those moved to attention_short.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -6,10 +6,11 @@
 //                                       + rel_w[b, h, n, k % wk]]) . v
 //
 // for N <= 256 keys, d in {32, 64, 80} and, with the bias, N = hk * wk on a
-// grid of hk + wk <= 32.  Everything else (SAM's global layers at N = 3072,
-// float32) stays on the streaming kernel, attention_relpos.cu;
+// grid of hk + wk <= 32.  Longer bf16 sequences (SAM's global layers at N =
+// 3072) take attention_long.cu, float32 attention_relpos.cu;
 // ops/cuda_kernels.py::attention_design picks one by shape, and a failure
-// here raises, it never falls back.
+// here raises, it never falls back.  The Hopper building blocks (mbarriers,
+// TMA, wgmma, tensor maps) are in hopper.cuh, shared with attention_long.cu.
 //
 // Replaces, on the main path:
 //   - kernel 1, pope_tpu/ops/window_attention.py::windowed_attention_relpos
@@ -66,13 +67,11 @@
 // Precision as the streaming kernel: f32 logits and softmax, P rounded to
 // bf16 for P V, f32 accumulation, bf16 output.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
 #include <algorithm>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -81,8 +80,6 @@ constexpr int SHORT_NT = 384;  // 2 consumer warpgroups + 1 producer warpgroup
 // registers per thread after setmaxnreg: a register-file quarter holds one
 // warp of each warpgroup, 2 x 232 + 40 <= 512 per lane
 constexpr int CONSUMER_REGS = 232, PRODUCER_REGS = 40;
-constexpr int SLAB_ROW = 32;   // bytes per slab row: 16 bf16 columns
-constexpr int SMEM_LIMIT = 232448;
 
 struct ShortArgs {
   const __nv_bfloat16* rel_h;  // (B, nh, N, hk), contiguous
@@ -94,118 +91,6 @@ struct ShortArgs {
   int stage_bytes;  // a multiple of 1024
   float scale;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// A wait that never ends (a phase that never completes) traps after about
-// 2^26 polls, seconds, instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done, polls = 0;
-  do {
-    if (++polls > (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void bar_sync_wg(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-
-// wgmma shared-memory descriptors, 32-byte swizzle (layout type 3).  K-major
-// (Q and K): 8-row core groups of 32-byte rows, 256 bytes apart (SBO); the
-// leading offset is unused.  MN-major (V as the B operand of P V): 16-column
-// atoms one slab apart (LBO), 8-key groups 256 bytes apart (SBO).
-__device__ __forceinline__ uint64_t desc_b32(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(256 >> 4) << 32) | (3ull << 62);
-}
-
-// The compiler does not know that wgmma reads and writes registers
-// asynchronously: these empty asm statements pin accumulators and A
-// fragments between issue and wait, so that nothing reads an accumulator
-// before the wait or reuses an A register before the product is done.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(acc));
-}
 
 // D[64 x 200] (+)= A[64 x 16] . B[200 x 16]^T, A and B K-major in shared memory
 __device__ __forceinline__ void wgmma_ss_n200(float (&d)[100], uint64_t da, uint64_t db, int acc) {
@@ -240,31 +125,6 @@ __device__ __forceinline__ void wgmma_ss_n200(float (&d)[100], uint64_t da, uint
       : "l"(da), "l"(db), "r"(acc));
 }
 
-// D[64 x 128] += A[64 x 16] . B[128 x 16]^T, A in registers, B K-major in shared memory
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 // D[64 x 200] += A[64 x 16] . B[200 x 16]^T, A in registers, B K-major in shared memory
 __device__ __forceinline__ void wgmma_rs_n200(float (&d)[100], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
@@ -296,43 +156,6 @@ __device__ __forceinline__ void wgmma_rs_n200(float (&d)[100], const uint32_t (&
         "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
         "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D[64 x 32] (+)= A[64 x 16] . B[16 x 32], A in registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-
-// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A in registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-
-// D[64 x 80] (+)= A[64 x 16] . B[16 x 80], A in registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4], uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t db, int acc) {
-  if constexpr (D == 32) wgmma_rs_n32(d, a, db, acc);
-  if constexpr (D == 64) wgmma_rs_n64(d, a, db, acc);
-  if constexpr (D == 80) wgmma_rs_n80(d, a, db, acc);
 }
 
 // One pass of S over SW keys: Q K^T (A and B from shared memory), and the
@@ -656,48 +479,6 @@ __global__ void __launch_bounds__(SHORT_NT, 1)
   }
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found at run time: no -lcuda
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A 4-D (d, nh, N, B) map over a (B, N, nh, d) bf16 view with unit last
-// stride; boxes of 16 columns x 1 head x `rows` tokens x 1, 32-byte
-// swizzle, rows past N read as zeros.
-bool make_map(CUtensorMap* map, const void* ptr, int64_t sb, int64_t sn, int64_t sh, int B, int N, int nh,
-              int d, int rows) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)nh, (cuuint64_t)N, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sn * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {16, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-struct View {
-  const void* ptr;
-  int64_t sb, sn, sh;
-};
-
 template <int D, bool HAS_BIAS, bool WIDE>
 cudaError_t launch_short_d(const View& q, const View& k, const View& v, ShortArgs a, cudaStream_t stream) {
   using K = Keys<WIDE>;
@@ -718,12 +499,10 @@ cudaError_t launch_short_d(const View& q, const View& k, const View& v, ShortArg
       !make_map(&tk, k.ptr, k.sb, k.sn, k.sh, a.B, N, a.nh, D, K::rows) ||
       !make_map(&tv, v.ptr, v.sb, v.sn, v.sh, a.B, N, a.nh, D, K::v_rows))
     return cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(attn_short_kernel<D, HAS_BIAS, WIDE>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int sms = sm_count();
+  if (sms == 0) return cudaErrorInvalidDevice;
+  const cudaError_t err = cudaFuncSetAttribute(attn_short_kernel<D, HAS_BIAS, WIDE>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int grid = std::min(a.B * a.nh, sms);
   attn_short_kernel<D, HAS_BIAS, WIDE><<<grid, SHORT_NT, smem, stream>>>(tq, tk, tv, a);
@@ -733,10 +512,8 @@ cudaError_t launch_short_d(const View& q, const View& k, const View& v, ShortArg
 template <bool HAS_BIAS>
 cudaError_t launch_short(const View& q, const View& k, const View& v, const ShortArgs& a, int d,
                          cudaStream_t stream) {
-  const uintptr_t ptrs = (uintptr_t)q.ptr | (uintptr_t)k.ptr | (uintptr_t)v.ptr;
-  const int64_t strides = q.sb | q.sn | q.sh | k.sb | k.sn | k.sh | v.sb | v.sn | v.sh;
   const bool grid_ok = HAS_BIAS ? a.hk >= 1 && a.wk >= 1 && a.N == a.hk * a.wk && a.hk + a.wk <= 32 : true;
-  if (ptrs % 16 != 0 || strides % 8 != 0 || !grid_ok || a.N < 1 || a.N > MAX_N || a.B < 1 || a.nh < 1)
+  if (!tma_views_ok(q, k, v) || !grid_ok || a.N < 1 || a.N > MAX_N || a.B < 1 || a.nh < 1)
     return cudaErrorInvalidValue;
   const bool wide = a.N > Keys<false>::sw;
   switch (d) {

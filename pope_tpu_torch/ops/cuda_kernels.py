@@ -1,10 +1,20 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 The sources under `pope_tpu_torch/csrc/` have a plain C interface. On first
-use `nvcc` compiles them for Hopper (`sm_90a`) into one shared library under
-`build/kernels/` at the root of the checkout, named by a hash of the sources
-so that an edit rebuilds it, and `ctypes` loads it. Nothing here runs at
+use `nvcc` compiles them for Hopper (`sm_90a`), one process per source, all
+in parallel, and links them into one shared library under `build/kernels/`
+at the root of the checkout, named by a hash of the sources and their
+headers so that an edit rebuilds it; `ctypes` loads it. Nothing here runs at
 import time: the CPU test suite imports every module and has no `nvcc`.
+
+Three attention designs, picked by shape (`attention_design`):
+- "short" (csrc/attention_short.cu): a whole head in shared memory; bf16,
+  N <= 256, d in _BF16_HEAD_DIMS, bias grids of hk + wk <= 32;
+- "long" (csrc/attention_long.cu): streams 128-key tiles past 128-query
+  items, a TMA producer warp and two wgmma consumer warpgroups, each of
+  which runs one tile's softmax while its own next products run; the other
+  bf16 shapes of those head dims, bias grids of hk + wk <= 500;
+- "stream" (csrc/attention_relpos.cu): the rest, float32 included.
 """
 
 from __future__ import annotations
@@ -14,16 +24,24 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_SOURCES = ("attention_relpos.cu", "attention_short.cu")
-_BF16_HEAD_DIMS = (32, 64, 80)  # the tensor-core bodies' instantiations (launch_bf16, launch_short)
+_SOURCES = ("attention_relpos.cu", "attention_short.cu", "attention_long.cu")
+_HEADERS = ("hopper.cuh",)  # included by the sources: part of the library's hash
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
+# the tensor-core bodies' instantiations (launch_bf16, launch_short, launch_long_bias)
+_BF16_HEAD_DIMS = (32, 64, 80)
 SHORT_MAX_N = 256  # attention_short.cu: a whole head in shared memory, one TMA box of rows
 SHORT_MAX_GRID = 32  # and a bias grid of hk + wk <= 32: two k-steps of its bias product
+# attention_long.cu: an item's rel rows (128 x (hk + wk) bf16) and one Q stage
+# beside two K/V stages fit in shared memory at d = 80
+LONG_MAX_GRID = 500
+DESIGNS = ("short", "long", "stream")  # attention_design's order of preference
 
 _lib = None  # the loaded library, once built
 
@@ -42,21 +60,34 @@ def build() -> tuple[Path, str | None]:
     memory and spills per kernel), or None when the library was already
     built."""
     srcs = [_CSRC / s for s in _SOURCES]
-    digest = hashlib.sha256(b"".join(p.read_bytes() for p in srcs)).hexdigest()[:16]
+    digest = hashlib.sha256(
+        b"".join(p.name.encode() + p.read_bytes() for p in srcs + [_CSRC / h for h in _HEADERS])
+    ).hexdigest()[:16]
     out = _BUILD_DIR / f"libpope_kernels_{digest}.so"
     if out.exists():
         return out, None
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xptxas", "-v",
-        "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), *map(str, srcs),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp_dir:
+        objs = [Path(tmp_dir) / f"{src.stem}.o" for src in srcs]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *_NVCC_FLAGS, "-Xptxas", "-v", "-Xcompiler", "-fPIC", "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(srcs, objs)
+        ]
+        logs = [proc.communicate()[0] for proc in procs]
+        for src, proc, log in zip(srcs, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{log}")
+        tmp = Path(tmp_dir) / out.name
+        proc = subprocess.run([nvcc, *_NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
+    return out, "".join(logs)
 
 
 def library() -> ctypes.CDLL:
@@ -73,6 +104,10 @@ def library() -> ctypes.CDLL:
         lib.pope_attention_short_relpos.restype = i32
         lib.pope_attention_short.argtypes = [ptr] * 4 + [i64] * 9 + [i32] * 4 + [ctypes.c_float, ptr]
         lib.pope_attention_short.restype = i32
+        lib.pope_attention_long_relpos.argtypes = lib.pope_attention_short_relpos.argtypes
+        lib.pope_attention_long_relpos.restype = i32
+        lib.pope_attention_long.argtypes = lib.pope_attention_short.argtypes
+        lib.pope_attention_long.restype = i32
         lib.pope_cuda_error_string.argtypes = [i32]
         lib.pope_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -107,27 +142,35 @@ def _raise_on(err: int, entry: str, lib) -> None:
         raise RuntimeError(f"{entry} failed: {lib.pope_cuda_error_string(err).decode()}")
 
 
+def _takes(design: str, dtype, N: int, d: int, hk: int, wk: int) -> bool:
+    """Whether the kernel of `design` takes a shape (hk = wk = 0: no bias)."""
+    tensor_cores = dtype == torch.bfloat16 and d in _BF16_HEAD_DIMS
+    if design == "short":
+        return tensor_cores and N <= SHORT_MAX_N and hk + wk <= SHORT_MAX_GRID
+    if design == "long":
+        return tensor_cores and hk + wk <= LONG_MAX_GRID
+    return True
+
+
 def attention_design(dtype, N: int, d: int, hk: int = 0, wk: int = 0) -> str:
     """The kernel that takes a shape: "short" (csrc/attention_short.cu: a
     whole head in shared memory; bf16, N <= SHORT_MAX_N, d in
-    _BF16_HEAD_DIMS and, with a bias, hk + wk <= SHORT_MAX_GRID) or "stream"
-    (csrc/attention_relpos.cu: the rest, float32 included). The shape alone
-    decides; a kernel that fails raises."""
-    if (dtype == torch.bfloat16 and N <= SHORT_MAX_N and d in _BF16_HEAD_DIMS
-            and hk + wk <= SHORT_MAX_GRID):
-        return "short"
-    return "stream"
+    _BF16_HEAD_DIMS and, with a bias, hk + wk <= SHORT_MAX_GRID), "long"
+    (csrc/attention_long.cu: the other bf16 shapes of those head dims, bias
+    grids of hk + wk <= LONG_MAX_GRID) or "stream" (csrc/attention_relpos.cu:
+    the rest, float32 included). The shape alone decides; a kernel that
+    fails raises."""
+    return next(dn for dn in DESIGNS if _takes(dn, dtype, N, d, hk, wk))
 
 
 def _resolve_design(design, dtype, N: int, d: int, hk: int = 0, wk: int = 0) -> str:
-    """`design`, or attention_design's choice when it is None; the short
-    kernel only for a shape it takes."""
-    fits = attention_design(dtype, N, d, hk, wk)
-    design = design or fits
-    if design not in ("short", "stream"):
+    """`design`, or attention_design's choice when it is None; a design only
+    for a shape its kernel takes."""
+    design = design or attention_design(dtype, N, d, hk, wk)
+    if design not in DESIGNS:
         raise ValueError(f"unknown attention design {design!r}")
-    if design == "short" and fits != "short":
-        raise ValueError(f"the short kernel does not take {dtype} N={N} d={d} on a {hk}x{wk} grid")
+    if not _takes(design, dtype, N, d, hk, wk):
+        raise ValueError(f"the {design} kernel does not take {dtype} N={N} d={d} on a {hk}x{wk} grid")
     return design
 
 
@@ -138,7 +181,8 @@ def _views(q, k, v):
 def launch_attention_relpos(q, k, v, rel_h, rel_w, hk: int, wk: int, design: str | None = None):
     """Run the rel-pos attention kernel for the windowed and the global
     layers: `design` (by default attention_design's choice for the shape)
-    "short" is csrc/attention_short.cu, "stream" csrc/attention_relpos.cu.
+    "short" is csrc/attention_short.cu, "long" csrc/attention_long.cu,
+    "stream" csrc/attention_relpos.cu.
 
     q, k, v: (B, N, nh, d) CUDA views with a unit last stride (slices of the
     qkv Dense output are fine); rel_h (B, nh, N, hk) and rel_w (B, nh, N, wk)
@@ -159,9 +203,9 @@ def launch_attention_relpos(q, k, v, rel_h, rel_w, hk: int, wk: int, design: str
         stream = torch.cuda.current_stream(q.device).cuda_stream
         tail = (B, N, nh, d, hk, wk, float(d ** -0.5))
         rel = (rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr())
-        if design == "short":
-            entry = "pope_attention_short_relpos"
-            err = lib.pope_attention_short_relpos(*ptrs, *rel, *strides, *tail, stream)
+        if design in ("short", "long"):
+            entry = f"pope_attention_{design}_relpos"
+            err = getattr(lib, entry)(*ptrs, *rel, *strides, *tail, stream)
         else:
             entry = "pope_attention_relpos"
             err = lib.pope_attention_relpos(*ptrs, *rel, *strides, *tail,
@@ -183,9 +227,9 @@ def launch_attention(q, k, v, design: str | None = None):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         tail = (B, N, nh, d, float(d ** -0.5))
-        if design == "short":
-            entry = "pope_attention_short"
-            err = lib.pope_attention_short(*ptrs, out.data_ptr(), *strides, *tail, stream)
+        if design in ("short", "long"):
+            entry = f"pope_attention_{design}"
+            err = getattr(lib, entry)(*ptrs, out.data_ptr(), *strides, *tail, stream)
         else:
             entry = "pope_attention"
             err = lib.pope_attention(*ptrs, out.data_ptr(), *strides, *tail,

@@ -6,15 +6,21 @@ versions.
 - `flash_attention`, bias-free, for DINOv2's blocks (port of
   pope_tpu/ops/flash_attention.py::flash_attention).
 
-Two hand-written CUDA designs serve both wrappers, picked by shape
+Three hand-written CUDA designs serve both wrappers, picked by shape
 (`cuda_kernels.attention_design`; each wrapper counts its launches per design
 in `launches_by_design`):
-- "stream" (csrc/attention_relpos.cu, shared with the windowed layers)
-  streams key/value tiles through an f32 online softmax and gathers the bias
-  rel_h[q, k // wk] + rel_w[q, k % wk] per tile, so the (N, N) logits never
-  reach device memory: SAM's global layers (N = 3072) and float32;
 - "short" (csrc/attention_short.cu) holds a whole head in shared memory and
-  its key row in registers: bf16, N <= 256, so DINOv2's 197 tokens.
+  its key row in registers: bf16, N <= 256, so DINOv2's 197 tokens;
+- "long" (csrc/attention_long.cu) streams 128-key tiles past 128-query
+  items (a TMA producer, two wgmma consumer warpgroups of 64 query rows,
+  each issuing S of key tile j with P V of tile j - 1 and running tile j's
+  softmax while P V runs) with an online softmax, the bias
+  rel_h[q, k // wk] + rel_w[q, k % wk] added in registers, so the (N, N)
+  logits never reach device memory: the other bf16 shapes, SAM's global
+  layers (N = 3072) among them;
+- "stream" (csrc/attention_relpos.cu, shared with the windowed layers) does
+  the same with mma.sync or f32 FMAs: float32 and the head dims the others
+  lack.
 Logits, softmax statistics and sums are f32; the scale is d^-1/2. In bf16
 the kernels round the softmax weights to bf16 for the p . v product on the
 tensor cores, where the plain version keeps them f32.
@@ -67,7 +73,7 @@ def flash_attention_relpos(q, k, v, rel_h, rel_w, hk: int, wk: int):
 
 
 flash_attention_relpos.launches = 0
-flash_attention_relpos.launches_by_design = {"short": 0, "stream": 0}
+flash_attention_relpos.launches_by_design = {"short": 0, "long": 0, "stream": 0}
 
 
 def flash_attention_plain(q, k, v):
@@ -100,4 +106,4 @@ def flash_attention(q, k, v):
 
 
 flash_attention.launches = 0
-flash_attention.launches_by_design = {"short": 0, "stream": 0}
+flash_attention.launches_by_design = {"short": 0, "long": 0, "stream": 0}

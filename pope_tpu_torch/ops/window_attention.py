@@ -13,8 +13,8 @@ On the card it runs one of two hand-written kernels, picked by shape
 (`cuda_kernels.attention_design`) and counted per design in
 `launches_by_design`: SAM's 14x14 windows in bf16 take csrc/attention_short.cu
 (a whole window-head in shared memory, the bias as a tensor-core product);
-float32 and larger windows take csrc/attention_relpos.cu, which the global
-layers' wrapper (ops/flash_attention.py) shares.
+larger bf16 windows csrc/attention_long.cu and float32 csrc/attention_relpos.cu,
+which the global layers' wrapper (ops/flash_attention.py) shares.
 """
 
 from __future__ import annotations
@@ -70,4 +70,4 @@ def windowed_attention_relpos(qkv, rel_h, rel_w, nh: int, d: int, hk: int, wk: i
 
 
 windowed_attention_relpos.launches = 0
-windowed_attention_relpos.launches_by_design = {"short": 0, "stream": 0}
+windowed_attention_relpos.launches_by_design = {"short": 0, "long": 0, "stream": 0}

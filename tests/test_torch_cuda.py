@@ -25,7 +25,7 @@ from pope_tpu_torch.config import (
 from pope_tpu_torch.models.dinov2 import DinoVisionTransformer
 from pope_tpu_torch.models.matcher import Matcher
 from pope_tpu_torch.models.sam import Sam
-from pope_tpu_torch.ops.cuda_kernels import launch_attention
+from pope_tpu_torch.ops.cuda_kernels import launch_attention, launch_attention_relpos
 from pope_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_plain,
@@ -175,15 +175,14 @@ def test_flash_attention_designs_by_shape(card, B, nh, N, d):
     """Bias-free bf16 attention on views of a (B, N, 3, nh, d) qkv tensor
     across the short kernel's limits (one pass up to N = 200, two to 256) and
     its ragged tails, with fewer and more heads than the card has SMs (the
-    persistent loop): the short kernel up to N = 256, the streaming one
-    above."""
+    persistent loop): the short kernel up to N = 256, the long one above."""
     g = torch.Generator(device=card).manual_seed(N * 100 + d)
     qkv = torch.randn(B, N, 3, nh, d, device=card, generator=g).to(torch.bfloat16)
     q, k, v = qkv.unbind(2)
     before = dict(flash_attention.launches_by_design)
     out = flash_attention(q, k, v)
     assert_matches_plain(out, flash_attention_plain(q, k, v))
-    assert_one_launch_of(flash_attention, before, "short" if N <= 256 else "stream")
+    assert_one_launch_of(flash_attention, before, "short" if N <= 256 else "long")
 
 
 @pytest.mark.parametrize("d", [32, 64, 80])
@@ -193,13 +192,13 @@ def test_relpos_designs_by_shape(card, BW, nh, hk, wk, d):
     """The rel-pos wrappers in bf16 on windows of hk x wk: the windowed one
     on its qkv layout, the global one on views of it. Grids of N <= 256 with
     hk + wk <= 32 take the short kernel (16x16 in two passes); 8x40 (N =
-    320) the streaming one."""
+    320) the long one."""
     g = torch.Generator(device=card).manual_seed(hk * 1000 + wk * 10 + d)
     N = hk * wk
     qkv = torch.randn(BW, N, 3 * nh * d, device=card, generator=g).to(torch.bfloat16)
     rel_h = (0.5 * torch.randn(BW, nh, N, hk, device=card, generator=g)).to(torch.bfloat16)
     rel_w = (0.5 * torch.randn(BW, nh, N, wk, device=card, generator=g)).to(torch.bfloat16)
-    design = "short" if N <= 256 else "stream"
+    design = "short" if N <= 256 else "long"
     before = dict(windowed_attention_relpos.launches_by_design)
     out = windowed_attention_relpos(qkv, rel_h, rel_w, nh, d, hk, wk)
     assert_matches_plain(out, windowed_attention_relpos_plain(qkv, rel_h, rel_w, nh, d, hk, wk))
@@ -219,6 +218,60 @@ def test_short_kernel_raises_on_what_it_does_not_take(card):
         launch_attention(*qkv.unbind(2), "short")
     with pytest.raises(ValueError, match="short kernel does not take"):
         launch_attention(*qkv[:, :196].float().unbind(2), "short")
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no-bias"])
+@pytest.mark.parametrize("d", [32, 64, 80])
+@pytest.mark.parametrize(
+    "hk,wk", [(1, 257), (8, 40), (3, 64), (8, 64), (20, 50), (45, 64), (48, 64)],
+    ids=["257", "320-8x40", "192-3x64", "512-8x64", "1000-ragged", "2880-45x64", "3072-48x64"],
+)
+@pytest.mark.parametrize("B,nh", [(1, 3), (2, 70)], ids=["3-heads", "140-heads"])
+def test_long_kernel_matches_plain(card, B, nh, hk, wk, d, bias):
+    """The long kernel (csrc/attention_long.cu) on views of a (B, N, 3, nh, d)
+    qkv tensor, on grids the short kernel does not take: with the rel-pos
+    bias on the grid (wk = 64: two whole key rows a 128-key tile, the bias
+    from re-laid words; other grids gathered; 1 x 257 staged by plain copies,
+    its rows not 16-byte multiples) and without it; ragged key and query
+    tails at 192, 257, 320, 1000 and 2880 (an odd number of 64-key rows:
+    the last tile's second key row masked); fewer and more heads than the
+    card has SMs. Every launch goes through the long design and matches the
+    plain version; without the bias, N = 192 is asked of the long design,
+    since the wrapper takes the short one there."""
+    g = torch.Generator(device=card).manual_seed(hk * 1000 + wk * 10 + d)
+    N = hk * wk
+    qkv = torch.randn(B, N, 3, nh, d, device=card, generator=g).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    if bias:
+        rel_h = (0.5 * torch.randn(B, nh, N, hk, device=card, generator=g)).to(torch.bfloat16)
+        rel_w = (0.5 * torch.randn(B, nh, N, wk, device=card, generator=g)).to(torch.bfloat16)
+        before = dict(flash_attention_relpos.launches_by_design)
+        out = flash_attention_relpos(q, k, v, rel_h, rel_w, hk, wk)
+        assert_matches_plain(out, flash_attention_relpos_plain(q, k, v, rel_h, rel_w, hk, wk))
+        assert_one_launch_of(flash_attention_relpos, before, "long")
+    elif N <= 256:
+        assert_matches_plain(launch_attention(q, k, v, "long"), flash_attention_plain(q, k, v))
+    else:
+        before = dict(flash_attention.launches_by_design)
+        out = flash_attention(q, k, v)
+        assert_matches_plain(out, flash_attention_plain(q, k, v))
+        assert_one_launch_of(flash_attention, before, "long")
+
+
+def test_long_kernel_raises_on_what_it_does_not_take(card):
+    """Asked for the long kernel, a shape it does not take raises: nothing
+    falls back to the streaming kernel or the plain version."""
+    qkv = torch.zeros(1, 600, 3, 2, 64, device=card, dtype=torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    with pytest.raises(ValueError, match="long kernel does not take"):
+        launch_attention(q.float(), k.float(), v.float(), "long")
+    rel_h = torch.zeros(1, 2, 600, 1, device=card, dtype=torch.bfloat16)
+    rel_w = torch.zeros(1, 2, 600, 600, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="long kernel does not take"):  # rel rows past its stages
+        launch_attention_relpos(q, k, v, rel_h, rel_w, 1, 600, "long")
+    odd = torch.zeros(1, 600, 3, 2, 48, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim must be one of"):
+        launch_attention(*odd.unbind(2), "long")
 
 
 def test_small_dinov2_and_matcher_on_card_match_cpu(card):

@@ -98,6 +98,30 @@ def test_flash_plain_matches_pallas(dtype, hk, wk):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_matches_pallas_over_key_tiles(dtype):
+    """A global grid of 4 x 64 keys streamed by the Pallas kernel in two
+    128-key tiles (two key rows each, the E_h / E_w expansion of each tile),
+    as the long kernel streams SAM's global layers; two heads, d = 80."""
+    B, nh, d, hk, wk = 1, 2, 80, 4, 64
+    N = hk * wk
+    rng = np.random.default_rng(6)
+    qkv = rng.standard_normal((B, N, 3, nh, d)).astype(np.float32)
+    rel_h = (rng.standard_normal((B, nh, N, hk)) * 0.5).astype(np.float32)
+    rel_w = (rng.standard_normal((B, nh, N, wk)) * 0.5).astype(np.float32)
+    heads = lambda a: a.transpose(0, 2, 1, 3).reshape(B * nh, N, -1)
+    ref = pallas_flash(
+        *(_j(heads(qkv[:, :, i]), dtype) for i in range(3)),
+        _j(rel_h.reshape(B * nh, N, hk), dtype), _j(rel_w.reshape(B * nh, N, wk), dtype),
+        hk, wk, q_tile=128, k_tile=128, interpret=True,
+    )
+    ref = np.asarray(jnp.asarray(ref, jnp.float32)).reshape(B, nh, N, d).transpose(0, 2, 1, 3)
+    t = _t(qkv, dtype)
+    out = flash_attention_relpos(t[:, :, 0], t[:, :, 1], t[:, :, 2], _t(rel_h, dtype), _t(rel_w, dtype), hk, wk)
+    assert out.shape == (B, N, nh * d)
+    _assert_close(out, ref.reshape(B, N, nh * d), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("N,d", [(197, 64), (50, 32)])
 def test_attention_plain_matches_pallas(dtype, N, d):
     """Bias-free attention at DINOv2's shape (N = 197 tokens, d = 64) and a
@@ -149,23 +173,30 @@ def test_window_and_flash_plain_agree_in_f32():
     [
         (torch.bfloat16, 196, 80, 14, 14, "short"),  # SAM ViT-H's windows
         (torch.bfloat16, 197, 64, 0, 0, "short"),  # DINOv2's crops
-        (torch.bfloat16, 3072, 80, 48, 64, "stream"),  # SAM ViT-H's global layers
+        (torch.bfloat16, 3072, 80, 48, 64, "long"),  # SAM ViT-H's global layers
+        (torch.bfloat16, 4096, 80, 64, 64, "long"),  # SAM's square 1024^2 grid
+        (torch.bfloat16, 512, 80, 8, 64, "long"),
         (torch.bfloat16, 1, 32, 0, 0, "short"),
         (torch.bfloat16, 200, 64, 0, 0, "short"),
         (torch.bfloat16, 201, 64, 0, 0, "short"),  # two passes of 128 keys
         (torch.bfloat16, 256, 80, 16, 16, "short"),
-        (torch.bfloat16, 257, 64, 0, 0, "stream"),
-        (torch.bfloat16, 320, 80, 8, 40, "stream"),
+        (torch.bfloat16, 257, 64, 0, 0, "long"),
+        (torch.bfloat16, 1000, 32, 0, 0, "long"),
+        (torch.bfloat16, 320, 80, 8, 40, "long"),
         (torch.bfloat16, 192, 80, 12, 16, "short"),
-        (torch.bfloat16, 200, 32, 1, 200, "stream"),  # a grid wider than the bias product takes
-        (torch.bfloat16, 196, 48, 14, 14, "stream"),  # a head dim without a short instantiation
+        (torch.bfloat16, 200, 32, 1, 200, "long"),  # a grid wider than the short kernel's bias product
+        (torch.bfloat16, 600, 64, 1, 600, "stream"),  # rel rows wider than the long kernel stages
+        (torch.bfloat16, 196, 48, 14, 14, "stream"),  # a head dim without a tensor-core instantiation
+        (torch.bfloat16, 3072, 48, 48, 64, "stream"),
         (torch.float32, 196, 80, 14, 14, "stream"),
+        (torch.float32, 3072, 80, 48, 64, "stream"),
     ],
 )
 def test_attention_design_by_shape(dtype, N, d, hk, wk, design):
     """The shape alone picks the kernel: bf16, N <= 256, d in (32, 64, 80)
-    and a bias grid of hk + wk <= 32 take the short kernel, the rest the
-    streaming one."""
+    and a bias grid of hk + wk <= 32 take the short kernel; the other bf16
+    shapes of those head dims with grids of hk + wk <= 500 the long one; the
+    rest, float32 included, the streaming one."""
     assert attention_design(dtype, N, d, hk, wk) == design
 
 
