@@ -42,7 +42,22 @@ Phases, each of which raises on failure (exit code != 0):
      and 4 global ones through the long kernel per SAM forward, 12 DINOv2
      launches through the short kernel per stage-2 call;
      then both are timed and profiled, and stage 1 and 2 run once more with
-     the AMG filters open.
+     the AMG filters open;
+  8. eval driver: bench.py's configs at full width (pope_tpu_torch/bench.py:
+     SAM ViT-H, DINOv2 ViT-S/14 and the matcher in bf16, seeded weights),
+     a LINEMOD-layout dataset of 16 pairs of 640x480 PNG frames on disk
+     (the port's make_dataset), pope_tpu_torch.eval.evaluate_dataset in
+     batches of 4 with two in flight, the counts set to 0 just before and
+     read just after: each batch launches the three kernels 28, 4 and 12
+     times; 16 records, R/t finite where solved; depth 1 gives the same
+     records as depth 2 on the first 2 batches, and run_pair, one pair at a
+     time, the same discrete fields. One batch then runs in series with
+     each part timed (decode + upload, stage 1, crop + DINOv2, matcher,
+     solver, download + records) and is profiled. Then
+     pope_tpu_torch.bench.main at
+     BENCH_REPS windows of 4 batches prints its JSON line (bench.py's keys,
+     MFU against the H100's bf16 peak, the card's name and power limit).
+     The image reader in use is in the eval_phase line.
 The last three lines are the `kernels` JSON line, the nvidia-smi line and
 {"ok": true, "device": {...}}. A copy of the results, the full profiles
 included, goes to build/chip_smoke.json (gitignored).
@@ -53,10 +68,12 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -102,14 +119,6 @@ PROFILER_OWN_EVENTS = ("Buffer Flush", "Activity Buffer Request")  # the tracer'
 # cuda_ms holds the card this many clocks (about 10 ms) before its start event,
 # so that the host has issued every timed call before the first one runs
 HOST_LEAD_CYCLES = 20_000_000
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def ex2_per_s() -> float:
@@ -800,16 +809,161 @@ def run_main_path(counters):
                  "flash_attention": launches2["flash_attention"]}
 
 
+EVAL_PAIRS_PER_BATCH, EVAL_BATCHES = 4, 4  # the eval-driver phase's dataset: 16 pairs of 640x480 frames
+BENCH_REPS = 3  # pope_tpu_torch.bench windows (of 4 batches) in this script; the bench's default is 5
+# a record's fields that must agree exactly between runs of the same pairs
+EVAL_DISCRETE = ("object", "identifier", "ok", "pre_bbox", "gt_bbox", "n_strong", "n_dropped_masks",
+                 "n_dropped_matches")
+# R/t errors of solved pairs in another batching: f32 rounding of other batch
+# shapes moves R and t in their last bits (tests/test_torch_eval.py)
+TOL_EVAL_DEG = 0.25
+
+
+def record_diffs(a, b, tol_deg=None) -> list:
+    """(pair, field) of two record lists that differ: exactly when tol_deg is
+    None, else discrete fields exactly and the R/t errors of solved pairs
+    within tol_deg (the match sets' sizes exactly)."""
+    if len(a) != len(b):
+        return [("count", len(a), len(b))]
+    out = []
+    for ra, rb in zip(a, b):
+        for k in ra:
+            if tol_deg is not None and k not in EVAL_DISCRETE:
+                continue
+            x, y = ra[k], rb[k]
+            same = np.array_equal(x, y, equal_nan=True) if isinstance(x, np.ndarray) else x == y
+            if not same:
+                out.append((ra["identifier"], k))
+        if tol_deg is not None:
+            if ra["ok"] and rb["ok"] and max(abs(ra["R_err"] - rb["R_err"]), abs(ra["t_err"] - rb["t_err"])) > tol_deg:
+                out.append((ra["identifier"], "R_err/t_err"))
+            if ra["epi_errs"].shape != rb["epi_errs"].shape:
+                out.append((ra["identifier"], "epi_errs"))
+    return out
+
+
+def eval_batch_times(models, paths, spec) -> dict:
+    """Wall ms of each part of one eval batch run in series
+    (runner.run_pairs, each part fenced by device syncs): decode + upload
+    (prepare_batch), stage 1 (generate_boxes_batch), stage 2's crop +
+    DINOv2 + top-k, matcher and solver, and the download + records
+    (finish_pairs); "other" is the rest (noise draw, selection, packing)."""
+    from pope_tpu_torch.pipeline import pose_pipeline as pp
+    from pope_tpu_torch.pipeline import runner
+
+    parts = [(runner, "prepare_batch", "decode_upload"), (models.amg, "generate_boxes_batch", "stage1"),
+             (pp, "retrieve_top_k", "crop_dinov2_topk"), (pp, "match_and_score", "matcher"),
+             (pp, "estimate_pose_ransac", "solver"), (runner, "finish_pairs", "download_records")]
+    acc = wall_ms_by_part(parts, lambda: runner.run_pairs(models, paths, spec))
+    acc["other"] = acc["total"] - sum(acc.get(label, 0.0) for _, _, label in parts)
+    return acc
+
+
+def run_eval_phase(counters, per_batch_counts):
+    """The eval driver at full width on the card: bench.py's configs (SAM
+    ViT-H, DINOv2 ViT-S/14 and the matcher in bf16, seeded weights), a
+    LINEMOD-layout dataset of EVAL_BATCHES x EVAL_PAIRS_PER_BATCH pairs of
+    640x480 PNG frames written by the port's make_dataset, evaluate_dataset
+    in batches of 4 with two in flight. Every batch must launch each kernel
+    per_batch_counts times; the records must be whole and finite where
+    solved; depth 1 and depth 2 must give identical records on the first 2
+    batches, and the serial run_pair the same discrete fields (R/t errors
+    within TOL_EVAL_DEG). Then pope_tpu_torch.bench at BENCH_REPS windows,
+    whose JSON line it prints."""
+    from pope_tpu_torch import bench
+    from pope_tpu_torch.data.image_io import reader
+    from pope_tpu_torch.eval import DATASETS, evaluate_dataset, iter_pairs, load_manifest
+    from pope_tpu_torch.pipeline import runner
+
+    B = EVAL_PAIRS_PER_BATCH
+    t0 = time.perf_counter()
+    models = bench.build_models()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    dispatch, finish = runner.dispatch_pairs, runner.finish_pairs
+    batches, records = [], []
+
+    def counting_dispatch(*args, **kwargs):
+        before = {name: f.launches for name, f in counters.items()}
+        out = dispatch(*args, **kwargs)
+        batches.append({name: f.launches - before[name] for name, f in counters.items()})
+        return out
+
+    def recording_finish(pending):
+        recs = finish(pending)
+        records.extend(recs)
+        return recs
+
+    row = {"reader": reader(), "configs": "bench.py's (bench_config)", "pairs": B * EVAL_BATCHES,
+           "batch": B, "load_s": load_s}
+    with tempfile.TemporaryDirectory() as tmp:
+        data_root, pairs_dir = bench.make_dataset(tmp, n_pairs=B * EVAL_BATCHES)
+
+        def evaluate(depth, max_pairs):
+            os.environ["POPE_PIPELINE_DEPTH"] = str(depth)
+            records.clear()
+            batches.clear()
+            tables = evaluate_dataset(models, "linemod", data_root, pairs_dir, batch_size=B,
+                                      max_pairs=max_pairs, progress=False)
+            return tables, list(records), list(batches)
+
+        runner.dispatch_pairs, runner.finish_pairs = counting_dispatch, recording_finish
+        try:
+            evaluate(2, B)  # warm: allocator, library handles, first launches
+            (tables, recs2, per_batch), ms, launches, _ = counted_run(
+                counters, lambda: evaluate(2, B * EVAL_BATCHES))
+            _, recs1, _ = evaluate(1, 2 * B)
+        finally:
+            runner.dispatch_pairs, runner.finish_pairs = dispatch, finish
+            os.environ.pop("POPE_PIPELINE_DEPTH", None)
+        spec = DATASETS["linemod"]
+        paths = list(iter_pairs(data_root, spec, load_manifest(pairs_dir, spec)))[: 2 * B]
+        serial = [runner.run_pair(models, p, spec) for p in paths]
+        row["batch_ms"] = eval_batch_times(models, paths[:B], spec)
+        row["profile"] = profile_call(lambda: runner.run_pairs(models, paths[:B], spec), row["batch_ms"]["total"])
+
+    if len(recs2) != B * EVAL_BATCHES or len({r["identifier"] for r in recs2}) != len(recs2):
+        raise AssertionError(f"eval driver: {len(recs2)} records for {B * EVAL_BATCHES} pairs")
+    bad = [r["identifier"] for r in recs2 if r["ok"] and not (np.isfinite(r["R"]).all() and np.isfinite(r["t"]).all())]
+    if bad:
+        raise AssertionError(f"eval driver: non-finite R/t for solved pairs {bad}")
+    if per_batch != [per_batch_counts] * EVAL_BATCHES or launches != {
+            k: v * EVAL_BATCHES for k, v in per_batch_counts.items()}:
+        raise AssertionError(f"eval driver launches per batch {per_batch} (in all {launches}), "
+                             f"expected {per_batch_counts} each")
+    depth_diffs = record_diffs(recs1, recs2[: 2 * B])
+    serial_exact = record_diffs(serial, recs2[: 2 * B])
+    serial_diffs = record_diffs(serial, recs2[: 2 * B], TOL_EVAL_DEG)
+    row.update({
+        "ms": ms, "pairs_per_s": B * EVAL_BATCHES / ms * 1e3, "launches": launches, "launches_per_batch": per_batch,
+        "ok": [r["ok"] for r in recs2], "n_strong": [r["n_strong"] for r in recs2],
+        "n_matches": [int(r["epi_errs"].size) for r in recs2], "pre_bbox": [r["pre_bbox"] for r in recs2],
+        "objects": list(tables), "depth1_vs_depth2_diffs": depth_diffs,
+        "serial_vs_batched_exact_diffs": serial_exact, "serial_vs_batched_diffs": serial_diffs,
+    })
+    print(json.dumps({"eval_phase": row}, default=str), flush=True)
+    if depth_diffs or serial_diffs:
+        raise AssertionError(f"eval driver: depth 1 vs 2 {depth_diffs}, serial vs batched {serial_diffs}")
+
+    row["bench"] = bench.main(n_reps=BENCH_REPS, models=models)
+    if row["bench"]["model_tflops_per_pair"] != 5.553:
+        raise AssertionError(f"bench FLOP budget {row['bench']['model_tflops_per_pair']} != bench.py's 5.553")
+    del models
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is false; it runs on a CUDA card")
+    from pope_tpu_torch.bench import card_name
     from pope_tpu_torch.ops import cuda_kernels
     from pope_tpu_torch.ops.flash_attention import flash_attention, flash_attention_relpos
     from pope_tpu_torch.ops.window_attention import windowed_attention_relpos
     from pope_tpu_torch.utils.device import resolve_device
 
     resolve_device(None)  # full-f32 products and convs, as the port's entry points set
-    smi = nvidia_smi()
+    smi = card_name()
     print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
     print(json.dumps({"device": kind, "count": torch.cuda.device_count(),
@@ -836,11 +990,13 @@ def main() -> int:
                 "flash_attention_relpos": flash_attention_relpos,
                 "flash_attention": flash_attention}
     main_path, launches = run_main_path(counters)
+    eval_phase = run_eval_phase(counters, launches)
 
     listed = []
     for name, row in kernels.items():
         listed.append({k: row[k] for k in ("name", "route", "source", "replaces")}
-                      | {"launches": launches[name]}
+                      | {"launches": launches[name],
+                         "eval_launches_per_batch": eval_phase["launches_per_batch"][0][name]}
                       | {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                              "library_ms", "previous_ms")}
                       | {"status": "ported"})
@@ -850,7 +1006,8 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps({
         "card": smi, "build_s": build_s, "ptxas": ptxas, "kernels": kernels, "reference": reference,
-        "stage2_reference": reference2, "solver": solver, "main_path": main_path, "summary": summary,
+        "stage2_reference": reference2, "solver": solver, "main_path": main_path, "eval": eval_phase,
+        "summary": summary,
     }, indent=1))
 
     print(json.dumps(summary), flush=True)

@@ -4,8 +4,9 @@ DINOv2 and the matcher.
 Without a checkpoint each tower gets seeded random weights, made on the
 device from a `torch.Generator` (seeds `seed`, `seed + 1`, `seed + 2`, as the
 JAX package keys them). A released checkpoint (`sam_vit_*.pth`,
-`dinov2_vits14_pretrain.pth`, the matcher's `.ckpt`) loads through the
-copied reference converter and the weights bridge.
+`dinov2_vits14_pretrain.pth`, the matcher's `.ckpt`) is checked against its
+key/shape manifest, then loads through the copied reference converter and
+the weights bridge.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from pope_tpu_torch.config import PipelineConfig, SamEncoderConfig
+from pope_tpu_torch.config import MatcherConfig, PipelineConfig, SamEncoderConfig
 from pope_tpu_torch.models.dinov2 import DinoVisionTransformer, convert_torch_dinov2_state
 from pope_tpu_torch.models.dinov2.model import LayerScale
 from pope_tpu_torch.models.matcher import Matcher, convert_torch_matcher_state
@@ -27,6 +28,7 @@ from pope_tpu_torch.models.sam.decoder import UpConvT
 from pope_tpu_torch.models.sam.encoder import LayerNorm2d
 from pope_tpu_torch.utils.bf16_storage import cast_sam_storage
 from pope_tpu_torch.utils.device import resolve_device
+from pope_tpu_torch.utils.state_manifest import check_state_dict
 from pope_tpu_torch.weights import dinov2_state_from_jax, matcher_state_from_jax, sam_state_from_jax
 
 SAM_CHECKPOINTS = {
@@ -125,10 +127,17 @@ def load_models(
     seed: int = 0,
     components: tuple = ("sam", "dinov2", "matcher"),
     device=None,
+    validate_checkpoints: bool = True,
 ) -> PopeModels:
     """Build SAM and its automatic mask generator, DINOv2 and the matcher on
     `device` (default CUDA; raises without a GPU unless device="cpu"),
-    loading the reference checkpoints when given."""
+    loading the reference checkpoints when given.
+
+    validate_checkpoints: check each checkpoint's key/shape inventory against
+    the released file's manifest before converting it
+    (utils/state_manifest.py), so that a mismatched file raises
+    StateDictMismatch instead of loading garbage. It applies where the config
+    is the released variant's; pass False for custom-architecture files."""
     unknown = set(components) - {"sam", "dinov2", "matcher"}
     if unknown:
         raise ValueError(f"unknown components {sorted(unknown)}")
@@ -139,7 +148,10 @@ def load_models(
         with torch.device(dev):
             sam = Sam(sam_cfg)
         if sam_checkpoint:
-            tree = convert_torch_sam_state(_load_torch_state(sam_checkpoint), depth=sam_cfg.encoder.depth)
+            sd = _load_torch_state(sam_checkpoint)
+            if validate_checkpoints:
+                check_state_dict(sd, f"sam_vit_{sam_type}")
+            tree = convert_torch_sam_state(sd, depth=sam_cfg.encoder.depth)
             sam.load_state_dict(sam_state_from_jax(tree), strict=True)
         else:
             init_sam_weights(sam, torch.Generator(device=dev).manual_seed(seed))
@@ -149,7 +161,16 @@ def load_models(
         with torch.device(dev):
             dinov2 = DinoVisionTransformer(config.dinov2).eval()
         if dinov2_checkpoint:
-            tree = convert_torch_dinov2_state(_load_torch_state(dinov2_checkpoint), depth=config.dinov2.depth)
+            sd = _load_torch_state(dinov2_checkpoint)
+            # only the released flat-key vits14 layout is checked; SSL-style
+            # student/teacher- or backbone.-wrapped files go straight to the
+            # converter's key normalisation
+            flat = not any(k in sd and isinstance(sd[k], dict) for k in ("student", "teacher")) and not any(
+                k.startswith(("backbone.", "module.")) for k in sd
+            )
+            if validate_checkpoints and flat and config.dinov2.depth == 12 and config.dinov2.embed_dim == 384:
+                check_state_dict(sd, "dinov2_vits14", extra_optional=("mask_token",))
+            tree = convert_torch_dinov2_state(sd, depth=config.dinov2.depth)
             dinov2.load_state_dict(dinov2_state_from_jax(tree), strict=True)
         else:
             init_dinov2_weights(dinov2, torch.Generator(device=dev).manual_seed(seed + 1))
@@ -157,7 +178,10 @@ def load_models(
         with torch.device(dev):
             matcher = Matcher(config.matcher).eval()
         if matcher_checkpoint:
-            variables = convert_torch_matcher_state(_load_torch_state(matcher_checkpoint))
+            sd = _load_torch_state(matcher_checkpoint)
+            if validate_checkpoints and config.matcher == MatcherConfig():
+                check_state_dict(sd, "matcher")
+            variables = convert_torch_matcher_state(sd)
             matcher.load_state_dict(matcher_state_from_jax(variables), strict=True)
         else:
             init_matcher_weights(matcher, torch.Generator(device=dev).manual_seed(seed + 2))

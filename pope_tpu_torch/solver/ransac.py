@@ -241,12 +241,19 @@ def _few_point_pose(p0, p1, vmaskf):
     return _select(R4, b), _select(t4, b), _select(Es, b), _select(ngood4, b)
 
 
+N_HYPS = 2048  # hypotheses per round (the JAX entry's default)
+
+
 def draw_gumbel(shape, generator: torch.Generator, device=None):
     """Standard Gumbel noise, -log(-log(U)) with U in [tiny, 1), as
-    jax.random.gumbel draws it."""
+    jax.random.gumbel draws it. The logs run in float64: on the CPU, two
+    float32 draws of one seed in one process were seen to differ in the last
+    bit of the inner log (cause not found), which the outer log magnifies
+    near U = 1 (up to 1e-4); in float64 such a bit does not survive the
+    rounding to float32, so a seed repeats its noise exactly."""
     tiny = torch.finfo(torch.float32).tiny
     u = torch.rand(shape, generator=generator, device=device).clamp_(min=tiny)
-    return -torch.log(-torch.log(u))
+    return (-torch.log(-torch.log(u.double()))).float()
 
 
 @torch.no_grad()
@@ -258,7 +265,7 @@ def estimate_pose_ransac(
     valid,
     noise: Union[torch.Tensor, torch.Generator],
     thresh_px: float = 0.5,
-    n_hyps: int = 2048,
+    n_hyps: int = N_HYPS,
     sample_size: int = 8,
     refit_iters: int = 1,
     n_rounds: int = 3,

@@ -331,3 +331,146 @@ def test_solver_on_card_matches_cpu(card):
     torch.testing.assert_close(out.R.cpu(), ref.R, atol=1e-3, rtol=0)
     torch.testing.assert_close(out.t.cpu(), ref.t, atol=1e-3, rtol=0)
     assert (out.inliers.cpu() != ref.inliers).sum() <= 2  # points on the threshold may flip
+
+
+@torch.no_grad()
+def _structure_decoder(sam):
+    """tests/test_amg_oracle.py's decoder surgery on the port's module:
+    identity upscaling, one-hot hypernetworks and a -0.5 bias, so the mask
+    logits have O(0.3) structure and their binarization is not sign noise."""
+    md = sam.mask_decoder
+    for up in (md.up_conv1, md.up_conv2):
+        n = min(up.kernel.shape[2:])
+        up.kernel.zero_()
+        up.kernel[:, :, torch.arange(n), torch.arange(n)] = 1.0
+        up.bias.zero_()
+    md.up_conv2.bias.fill_(-0.5)
+    md.up_ln.weight.fill_(1.0)
+    md.up_ln.bias.zero_()
+    i = 0
+    while hasattr(md, f"hyper_{i}"):
+        lin = getattr(md, f"hyper_{i}").lin2
+        lin.weight.zero_()
+        lin.bias.zero_()
+        lin.bias[(7 * i) % lin.bias.shape[0]] = 1.0
+        i += 1
+
+
+def _eval_dataset(root, n_pairs=4, h=96, w=128):
+    """LINEMOD layout: each prompt a window of a blob-and-rectangle scene,
+    its target a shifted, brightened window of the same scene."""
+    import json
+    import os
+
+    import cv2
+
+    from pope_tpu_torch.data.image_io import write_rgb
+
+    rng = np.random.default_rng(0)
+    base = os.path.join(root, "LM_dataset", "obj", "seq")
+    for sub in ("color", "color_full", "intrin", "intrin_ba", "poses_ba"):
+        os.makedirs(os.path.join(base, sub))
+    yy, xx = np.mgrid[0 : h + 24, 0 : w + 24].astype(np.float32)
+    pairs = []
+    for i in range(n_pairs):
+        img = np.full(yy.shape + (3,), 90.0, np.float32)
+        for _ in range(40):
+            cy, cx, s = rng.uniform(0, h), rng.uniform(0, w), rng.uniform(3, 9)
+            img += rng.uniform(-70, 70, 3) * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * s * s))[..., None]
+        for _ in range(4):
+            y0, x0 = rng.integers(0, h - 40), rng.integers(0, w - 50)
+            img[y0 : y0 + rng.integers(20, 40), x0 : x0 + rng.integers(25, 50)] += rng.uniform(-60, 60, 3)
+        dy, dx = rng.integers(0, 24, 2)
+        write_rgb(os.path.join(base, "color", f"{i}.png"), np.clip(img[:h, :w], 0, 255).astype(np.uint8))
+        write_rgb(os.path.join(base, "color_full", f"{100 + i}.png"),
+                  np.clip(img[dy : dy + h, dx : dx + w] * 1.1, 0, 255).astype(np.uint8))
+        K = np.array([[100.0, 0, w / 2], [0, 100, h / 2], [0, 0, 1]])
+        np.savetxt(os.path.join(base, "intrin_ba", f"{i}.txt"), K)
+        np.savetxt(os.path.join(base, "intrin", f"{100 + i}.txt"), K)
+        np.savetxt(os.path.join(base, "poses_ba", f"{i}.txt"), np.hstack([np.eye(3), [[0], [0], [0.6]]]))
+        R1, _ = cv2.Rodrigues(rng.uniform(-0.2, 0.2, 3))
+        np.savetxt(os.path.join(base, "poses_ba", f"{100 + i}.txt"), np.hstack([R1, [[0.03], [-0.01], [0.62]]]))
+        pairs.append(f"obj/seq/color/{i}.png-{100 + i}.png")
+    os.makedirs(os.path.join(root, "pairs"))
+    with open(os.path.join(root, "pairs", "LINEMOD-test.json"), "w") as f:
+        json.dump([{"0": pairs}], f)
+    return root, os.path.join(root, "pairs")
+
+
+def test_eval_driver_on_card_matches_cpu(card, tmp_path, monkeypatch):
+    """evaluate_dataset on a small f32 bundle (SAM at 2 blocks with a
+    structured decoder, DINOv2 at 2 blocks, the small matcher, a 4 px RANSAC
+    band) over 4 pairs of 96x128 frames on disk: on the card at depth 1 and
+    depth 2 the same records; run_pair and the CPU the same discrete fields
+    (ok, boxes, counts, match-set sizes) and R, t within 1e-3 (the solver's
+    card-vs-CPU limit above) where solved. The solver noise is drawn on the
+    CPU for both devices."""
+    import dataclasses
+
+    import pope_tpu_torch.eval.manifest as manifest
+    from pope_tpu_torch.config import AMGConfig, PipelineConfig
+    from pope_tpu_torch.eval import evaluate_dataset, iter_pairs, load_manifest
+    from pope_tpu_torch.models.sam import AutomaticMaskGenerator
+    from pope_tpu_torch.pipeline import PopeModels, runner
+
+    sam_cfg = SamConfig(
+        encoder=SamEncoderConfig(img_size=128, embed_dim=64, depth=2, num_heads=2, window_size=5,
+                                 global_attn_indexes=(1,), out_chans=32, dtype="float32", gelu="erf"),
+        prompt_embed_dim=32, image_embedding_size=8, decoder_num_heads=2, decoder_mlp_dim=64,
+        iou_head_hidden_dim=32, decoder_dtype="float32",
+    )
+    cfg = PipelineConfig(
+        sam=sam_cfg, dinov2=DinoV2Config(embed_dim=64, depth=2, num_heads=2),
+        matcher=MatcherConfig(
+            backbone=BackboneConfig(initial_dim=32, block_dims=(32, 48, 64)),
+            coarse=LoFTRStageConfig(d_model=64, d_ffn=64, nhead=4, layer_names=("self", "cross")),
+            fine=LoFTRStageConfig(d_model=32, d_ffn=32, nhead=4, layer_names=("self", "cross")),
+            match_coarse=CoarseMatchConfig(match_capacity=128, thr=0.0, border_rm=0),
+        ),
+        amg=AMGConfig(points_per_side=8, pred_iou_thresh=-0.25, stability_score_thresh=0.0, mask_capacity=8),
+        ransac_thresh_px=4.0,
+    )
+    sam = Sam(sam_cfg)
+    init_sam_weights(sam, torch.Generator().manual_seed(0))
+    _structure_decoder(sam)
+    dino = DinoVisionTransformer(cfg.dinov2).eval()
+    init_dinov2_weights(dino, torch.Generator().manual_seed(1))
+    matcher = Matcher(cfg.matcher).eval()
+    init_matcher_weights(matcher, torch.Generator().manual_seed(2))
+
+    def bundle(dev):
+        s = copy.deepcopy(sam)
+        return PopeModels(sam=s, amg=AutomaticMaskGenerator(s, cfg.amg, device=dev),
+                          dinov2=copy.deepcopy(dino).to(dev), matcher=copy.deepcopy(matcher).to(dev),
+                          config=cfg, device=torch.device(dev))
+
+    cpu, gpu = bundle("cpu"), bundle(card)
+    draw = runner.pair_noise
+    monkeypatch.setattr(runner, "pair_noise", lambda paths, n, r, device: draw(paths, n, r, "cpu").to(device))
+    monkeypatch.setitem(manifest.DATASETS, "linemod", dataclasses.replace(manifest.DATASETS["linemod"], crop_size=64))
+    data_root, pairs_dir = _eval_dataset(str(tmp_path))
+    got = []
+    finish = runner.finish_pairs
+    monkeypatch.setattr(runner, "finish_pairs", lambda p: got.append(finish(p)) or got[-1])
+
+    def records(models, depth):
+        monkeypatch.setenv("POPE_PIPELINE_DEPTH", str(depth))
+        got.clear()
+        evaluate_dataset(models, "linemod", data_root, pairs_dir, batch_size=2, progress=False)
+        return [r for batch in got for r in batch]
+
+    ref, card2, card1 = records(cpu, 2), records(gpu, 2), records(gpu, 1)
+    spec = manifest.DATASETS["linemod"]
+    serial = [runner.run_pair(gpu, p, spec) for p in iter_pairs(data_root, spec, load_manifest(pairs_dir, spec))]
+    assert len(ref) == 4 and any(r["ok"] for r in ref)
+    for a, b in zip(card1, card2):
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=f"{a['identifier']}/{k}")
+    discrete = ("identifier", "ok", "pre_bbox", "gt_bbox", "n_strong", "n_dropped_masks", "n_dropped_matches")
+    for other in (ref, serial):
+        for a, b in zip(card2, other):
+            assert {k: a[k] for k in discrete} == {k: b[k] for k in discrete}
+            assert a["epi_errs"].shape == b["epi_errs"].shape
+            if a["ok"]:
+                np.testing.assert_allclose(a["R"], b["R"], atol=1e-3, rtol=0)
+                np.testing.assert_allclose(a["t"], b["t"], atol=1e-3, rtol=0)
