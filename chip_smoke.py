@@ -22,7 +22,10 @@ Phases, each of which raises on failure (exit code != 0):
      The streaming design (the previous one at each shape) is checked and
      timed too, in turns with the main path's (previous, new, new,
      previous). Each time is the card's: the calls are queued behind a
-     sleep on the card, so the host's time per call does not enter it;
+     sleep on the card, so the host's time per call does not enter it.
+     Kernels 1 and 2 are also held and timed at the serving path's square
+     64x64 token grid (one frame: 25 windows, N = 4096), and the long
+     kernel's launcher reports the Q and K/V stages it picks at both grids;
   4. reference: a small SAM (ViT-H width, 2 blocks, f32) encodes and decodes
      on the card and on the CPU, where the port runs its plain versions
      (which the CPU test suite holds against pope_tpu); the two must agree;
@@ -43,7 +46,16 @@ Phases, each of which raises on failure (exit code != 0):
      launches through the short kernel per stage-2 call;
      then both are timed and profiled, and stage 1 and 2 run once more with
      the AMG filters open;
-  8. eval driver: bench.py's configs at full width (pope_tpu_torch/bench.py:
+  8. serving (run_serve_phase), with the main path's models: SamPredictor
+     on a 640x480 frame (set_image on the square frame, the counts set to 0
+     just before and read just after: 28 short + 4 long launches; predict
+     with points and a box, predict_batched of 16 boxes whose row 0 must be
+     predict's), the WebDemo against the predictor's best multimask slot and
+     its ms per click and per HTTP /predict, and the PoseService at B=4:
+     one batch's launches (28, 4, 12), a full batch equal to
+     runner.run_pairs on the same frames and names, a single request's
+     latency and 8 concurrent requests' p50/p90, requests/s and batch fill;
+  9. eval driver: bench.py's configs at full width (pope_tpu_torch/bench.py:
      SAM ViT-H, DINOv2 ViT-S/14 and the matcher in bf16, seeded weights),
      a LINEMOD-layout dataset of 16 pairs of 640x480 PNG frames on disk
      (the port's make_dataset), pope_tpu_torch.eval.evaluate_dataset in
@@ -58,8 +70,10 @@ Phases, each of which raises on failure (exit code != 0):
      BENCH_REPS windows of 4 batches prints its JSON line (bench.py's keys,
      MFU against the H100's bf16 peak, the card's name and power limit).
      The image reader in use is in the eval_phase line.
-The last three lines are the `kernels` JSON line, the nvidia-smi line and
-{"ok": true, "device": {...}}. A copy of the results, the full profiles
+The last three lines are the `kernels` JSON line (each kernel's launches on
+the main path, per eval batch and on the serving path, its times and bound,
+and for kernels 1 and 2 the same at the square grid), the nvidia-smi line
+and {"ok": true, "device": {...}}. A copy of the results, the full profiles
 included, goes to build/chip_smoke.json (gitignored).
 """
 
@@ -76,6 +90,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -112,6 +127,7 @@ MAX_INLIER_FLIPS = 2
 MAX_R_ERR_DEG, MAX_T_ERR_DEG = 5.0, 15.0
 LINEMOD_K = ((572.4114, 0.0, 325.2611), (0.0, 573.57043, 242.04899), (0.0, 0.0, 1.0))
 
+SAM_H_HEADS, SAM_H_HEAD_DIM, SAM_WINDOW = 16, 80, 14  # SAM ViT-H's attention
 SHORT_SOURCE = "pope_tpu_torch/csrc/attention_short.cu"
 LONG_SOURCE = "pope_tpu_torch/csrc/attention_long.cu"
 DEV = "cuda"  # where the stage-2 phases and the main path run
@@ -208,7 +224,7 @@ def kernel_phase(name, replaces, source, kernel, plain, library, args, reps, nby
 
 
 def run_kernel_phases():
-    from pope_tpu_torch.ops.cuda_kernels import launch_attention, launch_attention_relpos
+    from pope_tpu_torch.ops.cuda_kernels import launch_attention, launch_attention_relpos, long_layout
     from pope_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_plain,
@@ -227,50 +243,60 @@ def run_kernel_phases():
     ex2_rate = ex2_per_s()
     rows = {}
 
-    # kernel 1: 28 windowed layers; 4 frames x 20 windows of 14x14, 16 heads, d=80
-    BW, nh, d, ws = 80, 16, 80, 14
-    N, C = ws * ws, nh * d
-    qkv = torch.randn(BW, N, 3 * C, device=dev, generator=g).to(bf16)
-    rel_h = (0.5 * torch.randn(BW, nh, N, ws, device=dev, generator=g)).to(bf16)
-    rel_w = (0.5 * torch.randn(BW, nh, N, ws, device=dev, generator=g)).to(bf16)
-    q, k, v = (t.transpose(1, 2) for t in qkv.view(BW, N, 3, nh, d).unbind(2))
-    mask = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(BW, nh, N, N)
-    args = (qkv, rel_h, rel_w, nh, d, ws, ws)
-
     def windowed_stream(qkv, rel_h, rel_w, nh, d, hk, wk):
         return launch_attention_relpos(*_split_qkv(qkv, nh, d), rel_h, rel_w, hk, wk, "stream")
 
-    rows["windowed_attention_relpos"] = kernel_phase(
-        "windowed_attention_relpos", "pope_tpu/ops/window_attention.py:80", SHORT_SOURCE,
-        windowed_attention_relpos, windowed_attention_relpos_plain,
-        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
-        args, reps=20,
-        nbytes=2 * (qkv.numel() + rel_h.numel() + rel_w.numel() + BW * N * C),
-        flops=4.0 * BW * nh * N * N * d, exps=BW * nh * N * N, ex2_rate=ex2_rate,
-        previous=windowed_stream,
-    )
-    del qkv, rel_h, rel_w, q, k, v, mask
+    def windowed_row(key, BW, previous):
+        """Kernel 1 on BW windows of 14x14, 16 heads, d = 80."""
+        nh, d, ws, N = SAM_H_HEADS, SAM_H_HEAD_DIM, SAM_WINDOW, SAM_WINDOW ** 2
+        C = nh * d
+        qkv = torch.randn(BW, N, 3 * C, device=dev, generator=g).to(bf16)
+        rel_h = (0.5 * torch.randn(BW, nh, N, ws, device=dev, generator=g)).to(bf16)
+        rel_w = (0.5 * torch.randn(BW, nh, N, ws, device=dev, generator=g)).to(bf16)
+        q, k, v = (t.transpose(1, 2) for t in qkv.view(BW, N, 3, nh, d).unbind(2))
+        mask = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(BW, nh, N, N)
+        rows[key] = kernel_phase(
+            "windowed_attention_relpos", "pope_tpu/ops/window_attention.py:80", SHORT_SOURCE,
+            windowed_attention_relpos, windowed_attention_relpos_plain,
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+            (qkv, rel_h, rel_w, nh, d, ws, ws), reps=20,
+            nbytes=2 * (qkv.numel() + rel_h.numel() + rel_w.numel() + BW * N * C),
+            flops=4.0 * BW * nh * N * N * d, exps=BW * nh * N * N, ex2_rate=ex2_rate,
+            previous=previous,
+        )
 
-    # kernel 2: 4 global layers; 4 frames x 48x64 tokens, 16 heads, d=80
-    B, H, W = 4, 48, 64
-    N = H * W
-    qkv = torch.randn(B, N, 3, nh, d, device=dev, generator=g).to(bf16)
-    qn, kn, vn = qkv.unbind(2)
-    rel_h = (0.5 * torch.randn(B, nh, N, H, device=dev, generator=g)).to(bf16)
-    rel_w = (0.5 * torch.randn(B, nh, N, W, device=dev, generator=g)).to(bf16)
-    mask = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(B, nh, N, N)
-    q, k, v = (t.transpose(1, 2) for t in (qn, kn, vn))
-    args = (qn, kn, vn, rel_h, rel_w, H, W)
-    rows["flash_attention_relpos"] = kernel_phase(
-        "flash_attention_relpos", "pope_tpu/ops/flash_attention.py:140", LONG_SOURCE,
-        flash_attention_relpos, flash_attention_relpos_plain,
-        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
-        args, reps=10,
-        nbytes=2 * (qkv.numel() + rel_h.numel() + rel_w.numel() + B * N * C),
-        flops=4.0 * B * nh * N * N * d, exps=B * nh * N * N, ex2_rate=ex2_rate,
-        previous=lambda *a: launch_attention_relpos(*a, "stream"),
-    )
-    del qkv, rel_h, rel_w, q, k, v, mask
+    def global_row(key, B, H, W, reps, previous):
+        """Kernel 2 on B frames of an H x W token grid, 16 heads, d = 80."""
+        nh, d, N = SAM_H_HEADS, SAM_H_HEAD_DIM, H * W
+        C = nh * d
+        qkv = torch.randn(B, N, 3, nh, d, device=dev, generator=g).to(bf16)
+        qn, kn, vn = qkv.unbind(2)
+        rel_h = (0.5 * torch.randn(B, nh, N, H, device=dev, generator=g)).to(bf16)
+        rel_w = (0.5 * torch.randn(B, nh, N, W, device=dev, generator=g)).to(bf16)
+        mask = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(B, nh, N, N)
+        q, k, v = (t.transpose(1, 2) for t in (qn, kn, vn))
+        rows[key] = kernel_phase(
+            "flash_attention_relpos", "pope_tpu/ops/flash_attention.py:140", LONG_SOURCE,
+            flash_attention_relpos, flash_attention_relpos_plain,
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+            (qn, kn, vn, rel_h, rel_w, H, W), reps=reps,
+            nbytes=2 * (qkv.numel() + rel_h.numel() + rel_w.numel() + B * N * C),
+            flops=4.0 * B * nh * N * N * d, exps=B * nh * N * N, ex2_rate=ex2_rate,
+            previous=previous,
+        )
+        rows[key]["long_layout"] = long_layout(d, H, W)  # the launcher's Q and K/V stages
+
+    # kernel 1: 28 windowed layers; 4 frames x 20 windows of 14x14 (the rect
+    # 48x64 grid pads to 56x70)
+    windowed_row("windowed_attention_relpos", 80, windowed_stream)
+    # kernel 2: 4 global layers; 4 frames x 48x64 tokens
+    global_row("flash_attention_relpos", 4, 48, 64, 10, lambda *a: launch_attention_relpos(*a, "stream"))
+    # the serving path's square frame (SamPredictor.set_image): one frame of
+    # 64x64 tokens; kernel 1 on its 25 windows (the grid pads to 70x70)
+    windowed_row("windowed_attention_relpos_square", 25, None)
+    global_row("flash_attention_relpos_square", 1, 64, 64, 20, None)
+    print(json.dumps({"long_layout": {key: rows[key]["long_layout"] for key in
+                                      ("flash_attention_relpos", "flash_attention_relpos_square")}}), flush=True)
 
     # kernel 3: DINOv2 ViT-S/14's 12 blocks in the retrieval forward; 4 pairs
     # x (64 candidate crops + the prompt), 14x14 patches + cls, 6 heads, d=64
@@ -806,7 +832,259 @@ def run_main_path(counters):
     print(json.dumps({"main_path_stage2": stage2}), flush=True)
     row = {"load_s": load_s, "stage1": stage1, "stage2": stage2}
     return row, {**{k: launches1[k] for k in ("windowed_attention_relpos", "flash_attention_relpos")},
-                 "flash_attention": launches2["flash_attention"]}
+                 "flash_attention": launches2["flash_attention"]}, models
+
+
+SERVE_B, SERVE_CONCURRENT = 4, 8  # the pose service's batch; the requests sent at once
+SERVE_CROP = 256  # the service's crop size (cli serve-pose's default)
+# predict_batched's row 0 against predict of the same box: the bf16 decoder at
+# another prompt batch rounds differently (tests/test_torch_decoder.py's bf16
+# limit on O(1) logits), binary masks agree on MIN_MASK_AGREE of the pixels
+TOL_BATCH_ROW = 0.06
+MIN_MASK_AGREE = 0.99
+TOL_DEMO_SCORE = 1e-3  # the demo's score against the predictor's best slot (tests/test_web_demo.py)
+
+
+class _Pair(NamedTuple):
+    """What runner.run_pairs reads of a manifest pair besides its files."""
+
+    pair_name: str
+    object_label: str = "serve"
+    box3d: str = ""
+
+
+class _Spec(NamedTuple):
+    crop_size: int
+
+
+def check_masks(name, out, K, hw, low_hw, n=None):
+    """A predictor output: (masks, iou, low-res) of the expected shapes, finite."""
+    masks, iou, low = out
+    lead = (K,) if n is None else (n, K)
+    if (masks.shape, iou.shape, low.shape) != (lead + hw, lead, lead + low_hw) or masks.dtype != bool:
+        raise AssertionError(f"{name}: shapes {masks.shape} {iou.shape} {low.shape}")
+    if not (np.isfinite(iou).all() and np.isfinite(low).all()):
+        raise AssertionError(f"{name}: non-finite outputs")
+
+
+def service_vs_records(results, recs) -> list:
+    """(name, field) where a service result and run_pairs's record differ."""
+    out = []
+    for res, rec in zip(results, recs):
+        same = {
+            "ok": res["ok"] == rec["ok"], "R": np.array_equal(res["R"], rec["R"], equal_nan=True),
+            "t": np.array_equal(res["t"], rec["t"], equal_nan=True), "pre_bbox": res["pre_bbox"].tolist() == rec["pre_bbox"],
+            "n_matches": res["mkpts0"].shape[0] == rec["epi_errs"].size,
+            **{k: res[k] == rec[k] for k in ("n_strong", "n_dropped_masks", "n_dropped_matches")},
+        }
+        out += [(res["name"], k) for k, ok in same.items() if not ok]
+    return out
+
+
+def run_serve_phase(counters, models):
+    """The serving path at full width on the card, with the main path's models
+    (SAM ViT-H in bf16, DINOv2, the matcher; seeded weights):
+      - SamPredictor.set_image on a 640x480 frame, encoded on the square 1024
+        frame (a 64x64 token grid), the counts set to 0 just before and read
+        just after: 28 windowed launches through the short kernel, 4 global
+        ones through the long kernel; predict with points and with a box,
+        predict_batched of 16 boxes, whose row 0 must be predict's;
+      - WebDemo: at a capacity of 2 (a click and the pad point) a click's
+        mask and score against the predictor's best multimask slot; ms per
+        click at the default capacity of 8, and over HTTP (POST /predict);
+      - PoseService at B=4 on 640x480 frames: the launches of one batch (28,
+        4 and 12), one full batch's results equal to runner.run_pairs on the
+        same frames and names, a single request's latency, 8 concurrent
+        requests' p50/p90 latency, requests/s and batch fill, and the
+        worker's host ms in dispatch (which waits on the solver's sync) and in
+        finish."""
+    import threading
+    import urllib.request
+
+    from pope_tpu_torch.models.sam.predictor import SamPredictor
+    from pope_tpu_torch.pipeline import pose_pipeline as pp
+    from pope_tpu_torch.pipeline import runner
+    from pope_tpu_torch.serve import PoseService, WebDemo, make_demo_server
+
+    enc = models.sam.config.encoder
+    n_global = len(enc.global_attn_indexes)
+    grid = enc.img_size // enc.patch_size
+    encode_counts = {"windowed_attention_relpos": enc.depth - n_global, "flash_attention_relpos": n_global,
+                     "flash_attention": 0}
+    encode_designs = {"windowed_attention_relpos": designs(short=enc.depth - n_global),
+                      "flash_attention_relpos": designs(long=n_global), "flash_attention": designs()}
+    frame = frames(5, n=1)[0]
+    hw = frame.shape[:2]
+    row = {"frame": list(frame.shape)}
+
+    # the predictor
+    predictor = SamPredictor(models.sam, device=models.device)
+    predictor.set_image(frame)  # warm: allocator, library handles
+    feats, first_ms, launches, by_design = counted_run(counters, lambda: predictor.set_image(frame))
+    if launches != encode_counts or by_design != encode_designs:
+        raise AssertionError(f"set_image launches {launches} {by_design} != {encode_counts} {encode_designs}")
+    if tuple(feats.shape) != (1, grid, grid, models.sam.config.prompt_embed_dim) or not torch.isfinite(feats).all():
+        raise AssertionError(f"set_image embedding {tuple(feats.shape)}")
+    set_image_ms = timed_runs(lambda: predictor.set_image(frame), 5)
+    pt, lbl = np.array([[320.0, 240.0]]), np.array([1])
+    box = np.array([200.0, 120.0, 460.0, 380.0])
+    out = predictor.predict(point_coords=pt, point_labels=lbl)
+    low_hw = (4 * grid, 4 * grid)
+    check_masks("predict (points)", out, 3, hw, low_hw)
+    check_masks("predict (box)", predictor.predict(box=box, multimask_output=False), 1, hw, low_hw)
+    rng = np.random.default_rng(6)
+    xy = rng.uniform([0, 0], [480, 320], (16, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(60, 160, (16, 2))], 1)
+    batched = predictor.predict_batched(boxes=boxes)
+    check_masks("predict_batched", batched, 3, hw, low_hw, n=16)
+    one = predictor.predict(box=boxes[0])
+    row0 = {"low_res_max_abs": float(np.abs(batched[2][0] - one[2]).max()),
+            "iou_max_abs": float(np.abs(batched[1][0] - one[1]).max()),
+            "mask_agree": float((batched[0][0] == one[0]).mean())}
+    predict_ms = [timed_runs(lambda: predictor.predict(point_coords=pt, point_labels=lbl), 1)[0] for _ in range(10)]
+    batched_ms = timed_runs(lambda: predictor.predict_batched(boxes=boxes), 3)
+    row["predictor"] = {
+        "set_image_first_ms": first_ms, "set_image_ms": set_image_ms, "set_image_median_ms": statistics.median(set_image_ms),
+        "launches": launches, "launches_by_design": by_design, "embedding": list(feats.shape),
+        "predict_points_median_ms": statistics.median(predict_ms), "predict_batched_16_median_ms": statistics.median(batched_ms),
+        "iou_points": out[1].tolist(), "batched_row0_vs_predict": row0,
+        "tol": {"low_res": TOL_BATCH_ROW, "mask_agree": MIN_MASK_AGREE},
+        "set_image_profile": profile_call(lambda: predictor.set_image(frame), statistics.median(set_image_ms)),
+    }
+    print(json.dumps({"serve_predictor": row["predictor"]}), flush=True)
+    if not (row0["low_res_max_abs"] <= TOL_BATCH_ROW and row0["iou_max_abs"] <= TOL_BATCH_ROW
+            and row0["mask_agree"] >= MIN_MASK_AGREE):
+        raise AssertionError(f"predict_batched row 0 vs predict: {row0}")
+
+    # the web demo
+    masks, iou, _ = out
+    best = int(np.argmax(iou))
+    demo2 = WebDemo(models.sam, frame, max_points=2, device=models.device)
+    mask2, score2 = demo2.predict(pt.tolist(), lbl.tolist())
+    demo2.close()
+    demo = WebDemo(models.sam, frame, device=models.device)
+    clicks = rng.uniform([0, 0], [640, 480], (21, 2))
+    demo.predict(clicks[:1].tolist(), [1])  # warm
+    click_ms = []
+    for c in clicks[1:]:
+        t0 = time.perf_counter()
+        mask, _ = demo.predict([c.tolist()], [1])
+        click_ms.append((time.perf_counter() - t0) * 1e3)
+    srv = make_demo_server(demo, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    http_ms = []
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}/predict"
+        for c in clicks[:11]:
+            body = json.dumps({"points": [c.tolist()], "labels": [1]}).encode()
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(urllib.request.Request(url, data=body), timeout=60) as resp:
+                reply = json.loads(resp.read())
+            http_ms.append((time.perf_counter() - t0) * 1e3)
+            if "mask_png" not in reply:
+                raise AssertionError(f"/predict: {reply}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    click_profile = profile_call(lambda: demo.predict([clicks[0].tolist()], [1]), statistics.median(click_ms))
+    demo.close()
+    row["web_demo"] = {
+        "capacity2_vs_best_slot": {"mask_agree": float((mask2 == masks[best]).mean()),
+                                   "score_abs_err": abs(score2 - float(iou[best]))},
+        "tol": {"mask_agree": MIN_MASK_AGREE, "score": TOL_DEMO_SCORE},
+        "mask_shape": list(mask.shape), "click_ms": click_ms, "click_median_ms": statistics.median(click_ms),
+        "click_profile": click_profile,
+        "http_predict_ms": http_ms[1:], "http_predict_median_ms": statistics.median(http_ms[1:]),
+    }
+    print(json.dumps({"serve_web_demo": row["web_demo"]}), flush=True)
+    err = row["web_demo"]["capacity2_vs_best_slot"]
+    if not (err["mask_agree"] >= MIN_MASK_AGREE and err["score_abs_err"] <= TOL_DEMO_SCORE and mask.shape == hw):
+        raise AssertionError(f"web demo vs the predictor's best slot: {err}")
+    del demo2, demo, predictor
+    torch.cuda.empty_cache()
+
+    # the pose service
+    K = np.asarray(LINEMOD_K, np.float32)
+    prompts, targets = frames(7, n=SERVE_CONCURRENT), frames(8, n=SERVE_CONCURRENT)
+    svc = PoseService(models, crop_size=SERVE_CROP, batch_size=SERVE_B)
+    host_ms = {"dispatch": [], "finish": []}
+
+    def timed(label, fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            host_ms[label].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    svc._dispatch, svc._finish = timed("dispatch", svc._dispatch), timed("finish", svc._finish)
+    request = lambda i, name: svc.submit(prompts[i], targets[i], K, K, name=name)
+    try:
+        request(0, "warm").result(timeout=600)
+        _, _, batch_launches, batch_designs = counted_run(counters, lambda: request(0, "serve-0").result(timeout=600))
+        single_ms = []
+        for i in range(3):
+            t0 = time.perf_counter()
+            request(i, f"single-{i}").result(timeout=600)
+            single_ms.append((time.perf_counter() - t0) * 1e3)
+        # where a single request's time goes: the parts of the worker's
+        # dispatch fenced by device syncs, then one traced request
+        parts = [(runner, "upload_frames", "upload"), (models.amg, "generate_boxes_batch", "stage1"),
+                 (pp, "retrieve_top_k", "crop_dinov2_topk"), (pp, "match_and_score", "matcher"),
+                 (pp, "estimate_pose_ransac", "solver")]
+        parts_ms = wall_ms_by_part(parts, lambda: request(1, "parts").result(timeout=600))
+        parts_ms["other"] = parts_ms["total"] - sum(parts_ms.get(label, 0.0) for _, _, label in parts)
+        pose_profile = profile_call(lambda: request(2, "profiled").result(timeout=600), statistics.median(single_ms))
+        # one full batch against run_pairs on the same frames and names
+        names = [f"pair-{i}" for i in range(SERVE_B)]
+        results = [f.result(timeout=600) for f in [request(i, n) for i, n in enumerate(names)]]
+        eye = np.eye(4, dtype=np.float32)
+        dev = runner.upload_frames(prompts[:SERVE_B], targets[:SERVE_B], np.stack([K] * SERVE_B),
+                                   np.stack([K] * SERVE_B), models.device)
+        recs = runner.run_pairs(models, [_Pair(n) for n in names], _Spec(SERVE_CROP),
+                                hosts=[(prompts[i], targets[i], K, K, eye, eye) for i in range(SERVE_B)], dev=dev)
+        diffs = service_vs_records(results, recs)
+        # concurrent requests
+        before = svc.stats()
+        done = {}
+        t0 = time.perf_counter()
+        futs = [request(i, f"conc-{i}") for i in range(SERVE_CONCURRENT)]
+        for i, f in enumerate(futs):
+            f.add_done_callback(lambda _, i=i: done.__setitem__(i, time.perf_counter()))
+        conc = [f.result(timeout=600) for f in futs]
+        t_end = max(done[i] for i in range(SERVE_CONCURRENT))
+        after = svc.stats()
+    finally:
+        svc.shutdown(drain=False)
+    lat = [(done[i] - t0) * 1e3 for i in range(SERVE_CONCURRENT)]
+    slots = (after["requests"] + after["padded_slots"]) - (before["requests"] + before["padded_slots"])
+    pose_counts = {"windowed_attention_relpos": enc.depth - n_global, "flash_attention_relpos": n_global,
+                   "flash_attention": models.config.dinov2.depth}
+    pose_designs = {**encode_designs, "flash_attention": designs(short=models.config.dinov2.depth)}
+    row["pose_service"] = {
+        "batch": SERVE_B, "crop_size": SERVE_CROP, "max_wait_ms": svc.max_wait_s * 1e3,
+        "launches_per_batch": batch_launches, "launches_by_design": batch_designs,
+        "single_request_ms": single_ms, "single_request_median_ms": statistics.median(single_ms),
+        "single_request_parts_ms": parts_ms, "single_request_profile": pose_profile,
+        "concurrent": {"requests": SERVE_CONCURRENT, "latency_ms": lat, "p50_ms": float(np.percentile(lat, 50)),
+                       "p90_ms": float(np.percentile(lat, 90)), "requests_per_s": SERVE_CONCURRENT / (t_end - t0),
+                       "batches": after["batches"] - before["batches"],
+                       "batch_fill": (after["requests"] - before["requests"]) / slots},
+        "worker_host_ms": {k: {"median": statistics.median(v), "all": v} for k, v in host_ms.items()},
+        "stats": after, "vs_run_pairs_diffs": diffs,
+        "outputs": [{"ok": r["ok"], "n_matches": int(r["mkpts0"].shape[0]), "pre_bbox": r["pre_bbox"].tolist()}
+                    for r in results],
+    }
+    print(json.dumps({"serve_pose_service": row["pose_service"]}, default=str), flush=True)
+    if batch_launches != pose_counts or batch_designs != pose_designs:
+        raise AssertionError(f"pose batch launches {batch_launches} {batch_designs} != {pose_counts} {pose_designs}")
+    if diffs:
+        raise AssertionError(f"pose service vs run_pairs: {diffs}")
+    bad = [r["name"] for r in results + conc if r["R"].shape != (3, 3) or r["t"].shape != (3,)
+           or r["ok"] and not (np.isfinite(r["R"]).all() and np.isfinite(r["t"]).all())]
+    if bad or len(conc) != SERVE_CONCURRENT:
+        raise AssertionError(f"pose service: misshapen results, or non-finite R/t where solved: {bad}")
+    return row, {"set_image": launches, "pose_batch": batch_launches}
 
 
 EVAL_PAIRS_PER_BATCH, EVAL_BATCHES = 4, 4  # the eval-driver phase's dataset: 16 pairs of 640x480 frames
@@ -989,24 +1267,33 @@ def main() -> int:
     counters = {"windowed_attention_relpos": windowed_attention_relpos,
                 "flash_attention_relpos": flash_attention_relpos,
                 "flash_attention": flash_attention}
-    main_path, launches = run_main_path(counters)
+    main_path, launches, models = run_main_path(counters)
+    serve, serve_launches = run_serve_phase(counters, models)
+    del models
+    torch.cuda.empty_cache()
     eval_phase = run_eval_phase(counters, launches)
 
+    timing = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     listed = []
-    for name, row in kernels.items():
-        listed.append({k: row[k] for k in ("name", "route", "source", "replaces")}
-                      | {"launches": launches[name],
-                         "eval_launches_per_batch": eval_phase["launches_per_batch"][0][name]}
-                      | {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                             "library_ms", "previous_ms")}
-                      | {"status": "ported"})
+    for name in counters:
+        row = kernels[name]
+        entry = ({k: row[k] for k in ("name", "route", "source", "replaces")}
+                 | {"launches": launches[name],
+                    "eval_launches_per_batch": eval_phase["launches_per_batch"][0][name],
+                    "serve_launches": {path: n[name] for path, n in serve_launches.items()}}
+                 | {k: row[k] for k in timing + ("previous_ms",)})
+        square = kernels.get(f"{name}_square")
+        if square is not None:  # the serving path's square 64x64 grid, B=1
+            entry["square_64x64"] = {k: square[k] for k in timing}
+        listed.append(entry | {"status": "ported"})
     summary = {"kernels": listed, "not_ported": []}
 
     out = Path(__file__).resolve().parent / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps({
         "card": smi, "build_s": build_s, "ptxas": ptxas, "kernels": kernels, "reference": reference,
-        "stage2_reference": reference2, "solver": solver, "main_path": main_path, "eval": eval_phase,
+        "stage2_reference": reference2, "solver": solver, "main_path": main_path, "serve": serve,
+        "eval": eval_phase,
         "summary": summary,
     }, indent=1))
 

@@ -494,24 +494,33 @@ __global__ void __launch_bounds__(LONG_NT, 1)
   }
 }
 
-template <int D, int BIAS>
-cudaError_t launch_long_d(const View& q, const View& k, const View& v, LongArgs a, cudaStream_t stream) {
-  constexpr int DK = D / 16;
-  const int N = a.N;
-  a.rh_alloc = BIAS != NO_BIAS ? (TQ * a.hk * 2 + 15) / 16 * 16 : 0;
-  const int rw_alloc = BIAS != NO_BIAS ? (TQ * a.wk * 2 + 15) / 16 * 16 : 0;
-  a.q_stage_bytes = (DK * TQ * SLAB_ROW + a.rh_alloc + rw_alloc + 1023) / 1024 * 1024;
-  a.kv_stage_bytes = 2 * DK * TK * SLAB_ROW;
-  const int fixed = 1024 + 16 * (MAX_Q_STAGES + MAX_KV_STAGES);  // alignment slack, the mbarriers
-  a.q_stages = a.kv_stages = 0;
-  for (int qs = MAX_Q_STAGES; qs >= 1 && a.q_stages == 0; --qs)
+// The shared-memory layout at head dim d with an hk x wk bias grid (0 x 0: no
+// bias): the Q stage (an item's Q slabs and rel rows, in 1024-byte units) and
+// K/V stage sizes, and the most Q stages, then K/V stages, that fit in
+// SMEM_LIMIT beside the alignment slack and the mbarriers. Returns the dynamic
+// shared memory in bytes, or 0 when not even one Q and two K/V stages fit.
+int long_layout(int d, int hk, int wk, LongArgs* a) {
+  const int dk = d / 16;
+  a->rh_alloc = hk > 0 ? (TQ * hk * 2 + 15) / 16 * 16 : 0;
+  const int rw_alloc = wk > 0 ? (TQ * wk * 2 + 15) / 16 * 16 : 0;
+  a->q_stage_bytes = (dk * TQ * SLAB_ROW + a->rh_alloc + rw_alloc + 1023) / 1024 * 1024;
+  a->kv_stage_bytes = 2 * dk * TK * SLAB_ROW;
+  const int fixed = 1024 + 16 * (MAX_Q_STAGES + MAX_KV_STAGES);
+  a->q_stages = a->kv_stages = 0;
+  for (int qs = MAX_Q_STAGES; qs >= 1 && a->q_stages == 0; --qs)
     for (int kvs = MAX_KV_STAGES; kvs >= 2; --kvs)
-      if (qs * a.q_stage_bytes + kvs * a.kv_stage_bytes + fixed <= SMEM_LIMIT) {
-        a.q_stages = qs, a.kv_stages = kvs;
+      if (qs * a->q_stage_bytes + kvs * a->kv_stage_bytes + fixed <= SMEM_LIMIT) {
+        a->q_stages = qs, a->kv_stages = kvs;
         break;
       }
-  if (a.q_stages == 0) return cudaErrorInvalidValue;
-  const int smem = a.q_stages * a.q_stage_bytes + a.kv_stages * a.kv_stage_bytes + fixed;
+  return a->q_stages == 0 ? 0 : a->q_stages * a->q_stage_bytes + a->kv_stages * a->kv_stage_bytes + fixed;
+}
+
+template <int D, int BIAS>
+cudaError_t launch_long_d(const View& q, const View& k, const View& v, LongArgs a, cudaStream_t stream) {
+  const int N = a.N;
+  const int smem = long_layout(D, BIAS != NO_BIAS ? a.hk : 0, BIAS != NO_BIAS ? a.wk : 0, &a);
+  if (smem == 0) return cudaErrorInvalidValue;
   if (BIAS != NO_BIAS) {
     const uintptr_t p = (uintptr_t)a.rel_h | (uintptr_t)a.rel_w;
     a.rel_bulk = p % 16 == 0 && ((int64_t)N * a.hk * 2) % 16 == 0 && ((int64_t)N * a.wk * 2) % 16 == 0;
@@ -570,6 +579,17 @@ extern "C" int pope_attention_long_relpos(const void* q, const void* k, const vo
   a.B = B, a.N = N, a.nh = nh, a.hk = hk, a.wk = wk, a.scale = scale;
   return launch_long({q, sq_b, sq_n, sq_h}, {k, sk_b, sk_n, sk_h}, {v, sv_b, sv_n, sv_h}, a, d, true,
                      static_cast<cudaStream_t>(stream));
+}
+
+// The shared-memory layout the launcher picks at head dim d on an hk x wk bias
+// grid (0 x 0: the bias-free kernel): Q stages, K/V stages and the dynamic
+// shared memory in bytes. Returns 0, or cudaErrorInvalidValue when nothing
+// fits.
+extern "C" int pope_attention_long_layout(int d, int hk, int wk, int* q_stages, int* kv_stages, int* smem) {
+  LongArgs a{};
+  *smem = long_layout(d, hk, wk, &a);
+  *q_stages = a.q_stages, *kv_stages = a.kv_stages;
+  return *smem == 0 ? (int)cudaErrorInvalidValue : 0;
 }
 
 // The bias-free long kernel (flash_attention above N = 256), bf16 only.

@@ -188,12 +188,14 @@ class MaskDecoder(nn.Module):
         self.iou_head = HyperMLP(C, iou_head_hidden_dim, self.num_mask_tokens, iou_head_depth, dtype)
 
     def forward(self, image_embeddings, image_pe, sparse_prompt, dense_prompt,
-                multimask_output: bool = True, subsample: int = 1):
+                multimask_output: bool = True, subsample: int = 1, return_all_tokens: bool = False):
         """image_embeddings: (1 or B, h, w, C); image_pe: (h, w, C);
         sparse_prompt: (B, N, C); dense_prompt: (1 or B, h, w, C).
         Returns (masks (B, K, 4h, 4w), iou_pred (B, K)), K = 3 with
         multimask_output else 1; subsample=4 gives the exact stride-4
-        subsample of the masks, (B, K, h, w)."""
+        subsample of the masks, (B, K, h, w). return_all_tokens=True returns
+        all 4 mask tokens unsliced (the prompt head's surface, whose
+        single-mask selection needs token 0 and the multimask slots)."""
         if subsample not in (1, 4):
             raise ValueError(f"subsample must be 1 or 4, got {subsample}")
         C = self.iou_token.shape[-1]
@@ -218,6 +220,8 @@ class MaskDecoder(nn.Module):
         )  # (B, K, C/8)
         masks = torch.einsum("bkc,bhwc->bkhw", hyper, up)
         iou_pred = self.iou_head(iou_out)
+        if return_all_tokens:
+            return masks, iou_pred
         if multimask_output:
             return masks[:, 1:], iou_pred[:, 1:]
         return masks[:, :1], iou_pred[:, :1]

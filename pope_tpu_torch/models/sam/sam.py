@@ -32,6 +32,23 @@ def rect_frame(input_hw: Tuple[int, int], patch_size: int = 16) -> Tuple[int, in
     return up(h), up(w)
 
 
+def apply_coords(coords, orig_hw: Tuple[int, int], long_side: int = 1024):
+    """Rescale (..., 2) xy pixel coords (a tensor or an array) from the
+    original frame to the resized-longest-side frame; returns f32."""
+    old_h, old_w = orig_hw
+    new_h, new_w = resize_longest_side(old_h, old_w, long_side)
+    coords = torch.as_tensor(coords, dtype=torch.float32)
+    return coords * torch.tensor([new_w / old_w, new_h / old_h], dtype=torch.float32, device=coords.device)
+
+
+def apply_boxes(boxes, orig_hw: Tuple[int, int], long_side: int = 1024):
+    """Rescale (..., 4) XYXY boxes to the resized-longest-side frame: each box
+    is a pair of corner points under apply_coords."""
+    boxes = torch.as_tensor(boxes, dtype=torch.float32)
+    pts = apply_coords(boxes.reshape(*boxes.shape[:-1], 2, 2), orig_hw, long_side)
+    return pts.reshape(boxes.shape)
+
+
 class Sam(nn.Module):
     def __init__(self, config: SamConfig = SamConfig()):
         super().__init__()
@@ -84,6 +101,14 @@ class Sam(nn.Module):
             image_embeddings, self.prompt_encoder.get_dense_pe(embed_hw), sparse, dense,
             multimask_output=multimask_output, subsample=subsample,
         )
+
+    def forward(self, images_resized, input_hw: Tuple[int, int], points, labels,
+                multimask_output: bool = True):
+        """(B, H', W', 3) longest-side-resized RGB frames and their (B, N, 2)
+        prompts in the resized frame -> (low-res masks, iou_pred), on the
+        square frame: preprocess, encode, decode."""
+        emb = self.encode_image(self.preprocess(images_resized, input_hw))
+        return self.decode(emb, points, labels, multimask_output=multimask_output)
 
 
 def postprocess_masks(low_res_masks, input_hw, original_hw,

@@ -108,10 +108,24 @@ def library() -> ctypes.CDLL:
         lib.pope_attention_long_relpos.restype = i32
         lib.pope_attention_long.argtypes = lib.pope_attention_short.argtypes
         lib.pope_attention_long.restype = i32
+        lib.pope_attention_long_layout.argtypes = [i32] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3
+        lib.pope_attention_long_layout.restype = i32
         lib.pope_cuda_error_string.argtypes = [i32]
         lib.pope_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def long_layout(d: int, hk: int = 0, wk: int = 0) -> dict:
+    """The shared-memory layout csrc/attention_long.cu's launcher picks at
+    head dim d on an hk x wk bias grid (0 x 0: no bias): its Q stages, K/V
+    stages and dynamic shared memory in bytes."""
+    lib = library()
+    q_stages, kv_stages, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = lib.pope_attention_long_layout(d, hk, wk, ctypes.byref(q_stages), ctypes.byref(kv_stages),
+                                         ctypes.byref(smem))
+    _raise_on(err, "pope_attention_long_layout", lib)
+    return {"q_stages": q_stages.value, "kv_stages": kv_stages.value, "smem_bytes": smem.value}
 
 
 def _check_qkv(q, k, v, others=()):

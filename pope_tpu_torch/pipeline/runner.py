@@ -217,31 +217,34 @@ class Pending(NamedTuple):
     done: Optional[torch.cuda.Event]
 
 
-def prepare_batch(paths_list, device=None):
-    """Host side of one batch: decode the files and START the uploads.
-
-    Runs in the loader's prefetch thread so that disk IO and the host-to-
-    device copies overlap the previous batch's device compute. On CUDA the
-    frames and intrinsics go through pinned memory and upload on a copy
+def upload_frames(img0, img1, K0, K1, device=None) -> Uploaded:
+    """START the uploads of one batch's (B, H, W, 3) uint8 frames and (B, 3, 3)
+    intrinsics. On CUDA they go through pinned memory and upload on a copy
     stream of their own (a copy issued on the default stream would queue
     behind the compute); `Uploaded.ready` marks their end. device=None means
-    CUDA (raises without a GPU). Returns (hosts, Uploaded)."""
+    CUDA (raises without a GPU)."""
     dev = resolve_device(device)
-    hosts = [_load_pair_host(p) for p in paths_list]
-    arrays = (
-        np.stack([h[0] for h in hosts]).astype(np.uint8),
-        np.stack([h[1] for h in hosts]).astype(np.uint8),
-        np.stack([h[2] for h in hosts]),
-        np.stack([h[3] for h in hosts]),
-    )
+    arrays = (np.asarray(img0, np.uint8), np.asarray(img1, np.uint8),
+              np.asarray(K0, np.float32), np.asarray(K1, np.float32))
     if dev.type != "cuda":
-        return hosts, Uploaded(*(torch.from_numpy(a).to(dev) for a in arrays), None)
+        return Uploaded(*(torch.from_numpy(a).to(dev) for a in arrays), None)
     copy_stream = torch.cuda.Stream(device=dev)
     with torch.cuda.stream(copy_stream):
         tensors = [torch.from_numpy(a).pin_memory().to(dev, non_blocking=True) for a in arrays]
         ready = torch.cuda.Event()
         ready.record(copy_stream)
-    return hosts, Uploaded(*tensors, ready)
+    return Uploaded(*tensors, ready)
+
+
+def prepare_batch(paths_list, device=None):
+    """Host side of one batch: decode the files and START the uploads
+    (upload_frames). Runs in the loader's prefetch thread so that disk IO and
+    the host-to-device copies overlap the previous batch's device compute.
+    device=None means CUDA (raises without a GPU). Returns (hosts,
+    Uploaded)."""
+    dev = resolve_device(device)
+    hosts = [_load_pair_host(p) for p in paths_list]
+    return hosts, upload_frames(*(np.stack([h[i] for h in hosts]) for i in range(4)), dev)
 
 
 def dispatch_pairs(models, paths_list, spec, noise=None, hosts=None, dev=None) -> Pending:

@@ -474,3 +474,122 @@ def test_eval_driver_on_card_matches_cpu(card, tmp_path, monkeypatch):
             if a["ok"]:
                 np.testing.assert_allclose(a["R"], b["R"], atol=1e-3, rtol=0)
                 np.testing.assert_allclose(a["t"], b["t"], atol=1e-3, rtol=0)
+
+
+def _small_sam_cfg():
+    return SamConfig(
+        encoder=SamEncoderConfig(img_size=128, embed_dim=64, depth=2, num_heads=2, window_size=5,
+                                 global_attn_indexes=(1,), out_chans=32, dtype="float32", gelu="erf"),
+        prompt_embed_dim=32, image_embedding_size=8, decoder_num_heads=2, decoder_mlp_dim=64,
+        iou_head_hidden_dim=32, decoder_dtype="float32",
+    )
+
+
+def _frame(seed, h=96, w=128):
+    """Blobs under rectangles, uint8 RGB."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.full((h, w, 3), 90.0, np.float32)
+    for _ in range(30):
+        cy, cx, s = rng.uniform(0, h), rng.uniform(0, w), rng.uniform(3, 9)
+        img += rng.uniform(-70, 70, 3) * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * s * s))[..., None]
+    for _ in range(3):
+        y0, x0 = rng.integers(0, h - 40), rng.integers(0, w - 50)
+        img[y0 : y0 + 30, x0 : x0 + 40] += rng.uniform(-60, 60, 3)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("rect", [False, True], ids=["square", "rect"])
+def test_predictor_on_card_matches_cpu(card, rect):
+    """SamPredictor of a small f32 SAM (structured decoder) on the card and on
+    the CPU: the embedding, points / box / batched predictions (low-res
+    logits and iou within 1e-4, binary masks on 0.99 of the pixels)."""
+    from pope_tpu_torch.models.sam.predictor import SamPredictor
+
+    sam = Sam(_small_sam_cfg())
+    init_sam_weights(sam, torch.Generator().manual_seed(0))
+    _structure_decoder(sam)
+    cpu, gpu = SamPredictor(sam, rect, device="cpu"), SamPredictor(copy.deepcopy(sam), rect, device=card)
+    img = _frame(1)
+    cpu.set_image(img)
+    gpu.set_image(img)
+    assert gpu.features.device.type == card.type
+    torch.testing.assert_close(gpu.features.cpu(), cpu.features, atol=1e-4, rtol=0)
+    boxes = np.array([[10.0, 8.0, 90.0, 70.0], [40.0, 20.0, 120.0, 90.0]])
+    calls = [("predict", dict(point_coords=np.array([[60.0, 40.0]]), point_labels=np.array([1]))),
+             ("predict", dict(box=boxes[0], multimask_output=False)),
+             ("predict_batched", dict(boxes=boxes))]
+    for fn, kw in calls:
+        (m_c, i_c, l_c), (m_g, i_g, l_g) = getattr(cpu, fn)(**kw), getattr(gpu, fn)(**kw)
+        np.testing.assert_allclose(l_g, l_c, atol=1e-4, rtol=0)
+        np.testing.assert_allclose(i_g, i_c, atol=1e-4, rtol=0)
+        assert m_g.shape == m_c.shape and (m_g == m_c).mean() >= 0.99
+
+
+def test_pose_service_on_card_equals_run_pairs(card):
+    """The pose service at B=2 on the card: each result equals runner.run_pairs
+    on the card on the same frames and names (a full batch and a padded
+    one), with the small bundle of the eval-driver test above."""
+    from typing import NamedTuple
+
+    from pope_tpu_torch.config import AMGConfig, PipelineConfig
+    from pope_tpu_torch.models.sam import AutomaticMaskGenerator
+    from pope_tpu_torch.pipeline import PopeModels, runner
+    from pope_tpu_torch.serve import PoseService
+
+    cfg = PipelineConfig(
+        sam=_small_sam_cfg(), dinov2=DinoV2Config(embed_dim=64, depth=2, num_heads=2),
+        matcher=MatcherConfig(
+            backbone=BackboneConfig(initial_dim=32, block_dims=(32, 48, 64)),
+            coarse=LoFTRStageConfig(d_model=64, d_ffn=64, nhead=4, layer_names=("self", "cross")),
+            fine=LoFTRStageConfig(d_model=32, d_ffn=32, nhead=4, layer_names=("self", "cross")),
+            match_coarse=CoarseMatchConfig(match_capacity=128, thr=0.0, border_rm=0),
+        ),
+        amg=AMGConfig(points_per_side=8, pred_iou_thresh=-0.25, stability_score_thresh=0.0, mask_capacity=8),
+        ransac_thresh_px=4.0,
+    )
+    sam = Sam(cfg.sam)
+    init_sam_weights(sam, torch.Generator().manual_seed(0))
+    _structure_decoder(sam)
+    dino = DinoVisionTransformer(cfg.dinov2).eval()
+    init_dinov2_weights(dino, torch.Generator().manual_seed(1))
+    matcher = Matcher(cfg.matcher).eval()
+    init_matcher_weights(matcher, torch.Generator().manual_seed(2))
+    sam, dino, matcher = sam.to(card), dino.to(card), matcher.to(card)
+    models = PopeModels(sam=sam, amg=AutomaticMaskGenerator(sam, cfg.amg, device=card), dinov2=dino,
+                        matcher=matcher, config=cfg, device=card)
+
+    class Pair(NamedTuple):
+        pair_name: str
+        object_label: str = "obj"
+        box3d: str = ""
+
+    class Spec(NamedTuple):
+        crop_size: int
+
+    K = np.array([[100.0, 0, 64], [0, 100, 48], [0, 0, 1]], np.float32)
+    frames = [(_frame(10 + i), _frame(20 + i)) for i in range(3)]
+    svc = PoseService(models, crop_size=64, batch_size=2, max_wait_ms=300.0)
+    try:
+        futs = [svc.submit(f0, f1, K, K, name=f"pair-{i}") for i, (f0, f1) in enumerate(frames)]
+        results = [f.result(timeout=600) for f in futs]
+        stats = svc.stats()
+    finally:
+        svc.shutdown(drain=False)
+    assert stats["requests"] == 3 and stats["batches"] == 2 and stats["padded_slots"] == 1
+    eye = np.eye(4, dtype=np.float32)
+
+    def run_pairs(idx):
+        dev = runner.upload_frames(np.stack([frames[i][0] for i in idx]), np.stack([frames[i][1] for i in idx]),
+                                   np.stack([K] * len(idx)), np.stack([K] * len(idx)), card)
+        return runner.run_pairs(models, [Pair(f"pair-{i}") for i in idx], Spec(64),
+                                hosts=[(*frames[i], K, K, eye, eye) for i in idx], dev=dev)
+
+    recs = run_pairs([0, 1]) + run_pairs([2, 2])[:1]
+    for res, rec in zip(results, recs):
+        assert res["name"] == rec["identifier"] and res["ok"] == rec["ok"]
+        assert res["pre_bbox"].tolist() == rec["pre_bbox"]
+        np.testing.assert_array_equal(res["R"], rec["R"])
+        np.testing.assert_array_equal(res["t"], rec["t"])
+        assert res["n_strong"] == rec["n_strong"] and res["mkpts0"].shape[0] == rec["epi_errs"].size
+    assert any(r["mkpts0"].shape[0] for r in results)

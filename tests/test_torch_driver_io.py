@@ -325,7 +325,9 @@ names = ["pope_tpu_torch"] + [m.name for m in pkgutil.walk_packages(pope_tpu_tor
 names += ["pope_tpu_torch.tools.ablate_kernels", "pope_tpu_torch.tools.launch_overhead", "chip_smoke"]
 for name in names:
     importlib.import_module(name)
-assert "pope_tpu_torch.bench" in names and "pope_tpu_torch.cli" in names
+serving = ["pope_tpu_torch.serve", "pope_tpu_torch.serve.pose_service", "pope_tpu_torch.serve.web_demo",
+           "pope_tpu_torch.export", "pope_tpu_torch.models.sam.predictor"]
+assert "pope_tpu_torch.bench" in names and "pope_tpu_torch.cli" in names and set(serving) <= set(names)
 leaked = [m for m in sys.modules if m.split(".")[0] in BANNED]
 assert not leaked, leaked
 print(len(names))
@@ -333,9 +335,9 @@ print(len(names))
 
 
 def test_port_imports_nothing_of_jax():
-    """Every module of pope_tpu_torch (its bench and CLI included), its tools
-    and chip_smoke.py import in a process that refuses jax, flax and
-    pope_tpu."""
+    """Every module of pope_tpu_torch (its bench, CLI, serving modules,
+    prompt head and predictor included), its tools and chip_smoke.py import
+    in a process that refuses jax, flax and pope_tpu."""
     out = subprocess.run([sys.executable, "-c", _BOUNDARY], cwd=REPO, capture_output=True, text=True,
                          timeout=300, env={**os.environ, "PYTHONPATH": str(REPO)})
     assert out.returncode == 0, out.stderr[-3000:]
