@@ -24,8 +24,11 @@ Phases, each of which raises on failure (exit code != 0):
      previous). Each time is the card's: the calls are queued behind a
      sleep on the card, so the host's time per call does not enter it.
      Kernels 1 and 2 are also held and timed at the serving path's square
-     64x64 token grid (one frame: 25 windows, N = 4096), and the long
-     kernel's launcher reports the Q and K/V stages it picks at both grids;
+     64x64 token grid (one frame: 25 windows, N = 4096), kernel 2 at the
+     multi-crop sweep's 52x64 grid (one crop, N = 3328) and kernel 3 through
+     the long bias-free design at demo-dinov2's N = 1025 (one image, a
+     masked key tail); the long kernel's launcher reports the Q and K/V
+     stages it picks at the three grids;
   4. reference: a small SAM (ViT-H width, 2 blocks, f32) encodes and decodes
      on the card and on the CPU, where the port runs its plain versions
      (which the CPU test suite holds against pope_tpu); the two must agree;
@@ -55,7 +58,19 @@ Phases, each of which raises on failure (exit code != 0):
      one batch's launches (28, 4, 12), a full batch equal to
      runner.run_pairs on the same frames and names, a single request's
      latency and 8 concurrent requests' p50/p90, requests/s and batch fill;
-  9. eval driver: bench.py's configs at full width (pope_tpu_torch/bench.py:
+  9. records (run_records_phase), with the main path's models and the AMG
+     filters open, the counts set to 0 just before each step and read just
+     after: generate on a 640x480 frame (28 short + 4 long launches, the
+     median ms split into encode, decode + filters + cut, download and host
+     cleanup); generate_batch of 4 frames with and without the logits, each
+     image's valid candidates as generate gives them alone; generate_records
+     at crop_n_layers 0 and 1 (28 + 4 and 140 + 20 launches), every RLE
+     decoding to its segmentation; run_amg over 2 frames in both output
+     modes, the COCO JSON decoding back to the PNG masks; the demo-sam,
+     demo-dinov2 (12 long bias-free launches at N = 1025) and demo-3dbbox
+     (28 + 4 + 24 short) commands, their images' shapes; and a small f32
+     SAM's records on the card against the CPU;
+ 10. eval driver: bench.py's configs at full width (pope_tpu_torch/bench.py:
      SAM ViT-H, DINOv2 ViT-S/14 and the matcher in bf16, seeded weights),
      a LINEMOD-layout dataset of 16 pairs of 640x480 PNG frames on disk
      (the port's make_dataset), pope_tpu_torch.eval.evaluate_dataset in
@@ -71,8 +86,9 @@ Phases, each of which raises on failure (exit code != 0):
      MFU against the H100's bf16 peak, the card's name and power limit).
      The image reader in use is in the eval_phase line.
 The last three lines are the `kernels` JSON line (each kernel's launches on
-the main path, per eval batch and on the serving path, its times and bound,
-and for kernels 1 and 2 the same at the square grid), the nvidia-smi line
+the main path, per eval batch, on the serving path and on the records path,
+its times and bound, and the same at the square grid for kernels 1 and 2,
+at the crop grid for kernel 2 and at N = 1025 for kernel 3), the nvidia-smi line
 and {"ok": true, "device": {...}}. A copy of the results, the full profiles
 included, goes to build/chip_smoke.json (gitignored).
 """
@@ -295,8 +311,13 @@ def run_kernel_phases():
     # 64x64 tokens; kernel 1 on its 25 windows (the grid pads to 70x70)
     windowed_row("windowed_attention_relpos_square", 25, None)
     global_row("flash_attention_relpos_square", 1, 64, 64, 20, None)
+    # the multi-crop sweep's crops of a 640x480 frame (generate_records with
+    # crop_n_layers=1): each 321-322 x 401-402 px, resized to about 820x1024,
+    # padded to a 52x64 token grid
+    global_row("flash_attention_relpos_crop", 1, 52, 64, 20, None)
     print(json.dumps({"long_layout": {key: rows[key]["long_layout"] for key in
-                                      ("flash_attention_relpos", "flash_attention_relpos_square")}}), flush=True)
+                                      ("flash_attention_relpos", "flash_attention_relpos_square",
+                                       "flash_attention_relpos_crop")}}), flush=True)
 
     # kernel 3: DINOv2 ViT-S/14's 12 blocks in the retrieval forward; 4 pairs
     # x (64 candidate crops + the prompt), 14x14 patches + cls, 6 heads, d=64
@@ -307,6 +328,22 @@ def run_kernel_phases():
     q, k, v = (t.transpose(1, 2) for t in (qn, kn, vn))
     rows["flash_attention"] = kernel_phase(
         "flash_attention", "pope_tpu/ops/flash_attention.py:114", SHORT_SOURCE,
+        flash_attention, flash_attention_plain,
+        lambda: F.scaled_dot_product_attention(q, k, v),
+        (qn, kn, vn), reps=20,
+        nbytes=2 * (qkv.numel() + B * N * C),
+        flops=4.0 * B * nh * N * N * d, exps=B * nh * N * N, ex2_rate=ex2_rate,
+        previous=lambda q, k, v: launch_attention(q, k, v, "stream"),
+    )
+    # kernel 3 through the long bias-free design: demo-dinov2's 448x448 input,
+    # a 32x32 patch grid + cls (N = 1025, a masked key tail), one image; the
+    # streaming design timed beside it
+    B, N = 1, 1025
+    qkv = torch.randn(B, N, 3, nh, d, device=dev, generator=g).to(bf16)
+    qn, kn, vn = qkv.unbind(2)
+    q, k, v = (t.transpose(1, 2) for t in (qn, kn, vn))
+    rows["flash_attention_n1025"] = kernel_phase(
+        "flash_attention", "pope_tpu/ops/flash_attention.py:114", LONG_SOURCE,
         flash_attention, flash_attention_plain,
         lambda: F.scaled_dot_product_attention(q, k, v),
         (qn, kn, vn), reps=20,
@@ -1087,6 +1124,284 @@ def run_serve_phase(counters, models):
     return row, {"set_image": launches, "pose_batch": batch_launches}
 
 
+RECORDS_REPS = 5  # timed generate calls
+# an image of generate_batch against generate on it alone: the encoder's
+# GEMMs round another batch size differently in bf16 (batch invariance is
+# not bitwise, ROADMAP Queue 3), which can move a mask edge by one low-res
+# cell, 640 / 256 = 2.5 px of a 640x480 frame, and let two candidates of
+# near-equal score trade slots; the valid candidates' prompts must agree
+TOL_CELL_PX = 2.5
+MIN_RECORD_IOU = 0.99  # card vs CPU, the f32 small SAM: one record's full-resolution masks
+TOL_RECORD_SCORE = 1e-3  # card vs CPU, f32: predicted IoU and stability of one record
+
+
+def structure_decoder(sam) -> None:
+    """tests/test_torch_common.py::structure_decoder on a port Sam: identity
+    upscaling, one-hot hypernetworks, a -0.5 bias, so that a mask logit is
+    GELU(one embedding channel) - 0.5, with O(0.3) structure instead of an
+    untrained decoder's sign noise around zero."""
+    md = sam.mask_decoder
+    with torch.no_grad():
+        for name in ("up_conv1", "up_conv2"):
+            conv = getattr(md, name)
+            conv.kernel.zero_()
+            for j in range(min(conv.kernel.shape[2], conv.kernel.shape[3])):
+                conv.kernel[:, :, j, j] = 1.0
+            conv.bias.zero_()
+        md.up_conv2.bias.fill_(-0.5)
+        md.up_ln.weight.fill_(1.0)
+        md.up_ln.bias.zero_()
+        for i in range(md.num_mask_tokens):
+            lin = getattr(md, f"hyper_{i}").lin2
+            lin.weight.zero_()
+            lin.bias.zero_()
+            lin.bias[(7 * i) % lin.bias.shape[0]] = 1.0
+
+
+def valid_rows(res) -> np.ndarray:
+    """The valid candidates' (point_idx, box) rows of a host result, sorted."""
+    rows = np.concatenate([res.point_idx[res.valid, None].astype(np.float64), res.boxes[res.valid]], 1)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def batch_vs_alone(out, alone) -> dict:
+    """One image of generate_batch against generate on it alone."""
+    same_slots = bool(np.array_equal(out.valid, alone.valid) and np.array_equal(out.point_idx, alone.point_idx))
+    a, b = valid_rows(out), valid_rows(alone)
+    same_prompts = a.shape == b.shape and bool(np.array_equal(a[:, 0], b[:, 0]))
+    box_err = float(np.abs(a[:, 1:] - b[:, 1:]).max(initial=0.0)) if same_prompts else None
+    return {"same_slots": same_slots, "same_prompts": same_prompts, "box_max_abs_px": box_err,
+            "valid": int(out.valid.sum())}
+
+
+def check_records(name, recs, hw) -> None:
+    """Records of one frame: whole, the RLE decoding (native library) to the
+    segmentation."""
+    from pope_tpu_torch import native
+
+    if not recs:
+        raise AssertionError(f"{name}: no records")
+    for r in recs:
+        seg = r["segmentation"]
+        if seg.shape != hw or seg.dtype != bool or r["area"] != int(seg.sum()):
+            raise AssertionError(f"{name}: record of shape {seg.shape} {seg.dtype}, area {r['area']}")
+        if not np.array_equal(native.rle_decode(r["rle"]), seg):
+            raise AssertionError(f"{name}: an RLE does not decode to its segmentation")
+
+
+def records_card_vs_cpu() -> dict:
+    """The reference phase's small SAM (ViT-H width, 2 blocks, f32) with the
+    structured decoder through generate_records on the card and on the CPU,
+    the same weights and frame, filters open: the same records, boxes within
+    one low-res cell, masks by IoU."""
+    from pope_tpu_torch.config import AMGConfig, SamConfig, SamEncoderConfig
+    from pope_tpu_torch.models.sam import AutomaticMaskGenerator, Sam
+    from pope_tpu_torch.pipeline.api import init_sam_weights
+
+    cfg = SamConfig(
+        encoder=SamEncoderConfig(img_size=256, depth=2, global_attn_indexes=(1,), dtype="float32", gelu="erf"),
+        image_embedding_size=16, decoder_dtype="float32",
+    )
+    cpu = Sam(cfg)
+    init_sam_weights(cpu, torch.Generator().manual_seed(1))
+    structure_decoder(cpu)
+    gpu = copy.deepcopy(cpu)
+    amg_cfg = AMGConfig(pred_iou_thresh=-1e9, stability_score_thresh=0.0)
+    frame = frames(11, n=1)[0]
+    ref = AutomaticMaskGenerator(cpu, amg_cfg, device="cpu").generate_records(frame)
+    out = AutomaticMaskGenerator(gpu, amg_cfg, device=DEV).generate_records(frame)
+    check_records("card vs CPU", out, frame.shape[:2])
+    row = {"records": len(out), "cpu_records": len(ref), "min_mask_iou": None, "bbox_max_abs_px": None,
+           "score_max_abs": None, "same_rle": 0}
+    if len(out) == len(ref):
+        ious, boxes, scores = [], [], []
+        for r, q in zip(out, ref):
+            a, b = r["segmentation"], q["segmentation"]
+            ious.append(float((a & b).sum() / max((a | b).sum(), 1)))
+            boxes.append(float(np.abs(np.subtract(r["bbox"], q["bbox"])).max()))
+            scores.append(max(abs(r["predicted_iou"] - q["predicted_iou"]),
+                              abs(r["stability_score"] - q["stability_score"])))
+            row["same_rle"] += r["rle"] == q["rle"]
+            if r["crop_box"] != q["crop_box"] or r["point_coords"] != q["point_coords"]:
+                raise AssertionError(f"card vs CPU records: crop box or point {r['crop_box']} {q['crop_box']} "
+                                     f"{r['point_coords']} {q['point_coords']}")
+        row.update(min_mask_iou=min(ious), bbox_max_abs_px=max(boxes), score_max_abs=max(scores))
+    row["tol"] = {"mask_iou": MIN_RECORD_IOU, "bbox_px": TOL_CELL_PX, "score": TOL_RECORD_SCORE}
+    return row
+
+
+def run_records_phase(counters, models):
+    """The records path and its tools at full width on the card, with the
+    main path's models (SAM ViT-H bf16, DINOv2, the matcher; seeded weights)
+    and the AMG filters open; the counts set to 0 just before each step and
+    read just after:
+      1. generate on a 640x480 frame: 28 short + 4 long launches,
+         masks_low_res (64, 192, 256), a valid slot; the median of
+         RECORDS_REPS calls split into encode, decode + filters + cut,
+         download and host cleanup;
+      2. generate_batch of 4 frames, keep_logits False and True: one encoder
+         forward; each image's valid candidates as generate gives them alone;
+      3. generate_records at crop_n_layers 0 and 1 (1 + 4 encodes, the crops
+         on a 52x64 token grid): 28 + 4 and 140 + 20 launches; every RLE
+         decodes (native library) to its segmentation; steps 2 and 3 also
+         with the structured decoder (a copy of SAM), whose masks are not
+         all frame-filling;
+      4. run_amg (the structured decoder) over 2 frames in both output
+         modes: the PNG folders, the metadata.csv files, the COCO JSON
+         decoding back to the PNG masks;
+      5. the demo-sam, demo-dinov2 (a 32x32 grid: 12 long bias-free launches
+         at N = 1025) and demo-3dbbox (28 + 4 + 24 short) commands into a
+         temporary directory, their images' shapes;
+      6. the f32 small SAM's records on the card against the CPU."""
+    from pope_tpu_torch import cli, native
+    from pope_tpu_torch.data.image_io import write_rgb
+    from pope_tpu_torch.models.sam import AutomaticMaskGenerator
+    from pope_tpu_torch.models.sam import amg as amg_module
+    from pope_tpu_torch.pipeline.amg_cli import coco_decode_rle, run_amg
+
+    t0 = time.perf_counter()
+    native.library()
+    row = {"native_build_s": time.perf_counter() - t0}
+    enc = models.sam.config.encoder
+    n_global = len(enc.global_attn_indexes)
+    n_win, n_dino = enc.depth - n_global, models.config.dinov2.depth
+    counts = lambda w=0, g=0, f=0: {"windowed_attention_relpos": w, "flash_attention_relpos": g, "flash_attention": f}
+    by_design = lambda w=0, g=0, f=designs(): {"windowed_attention_relpos": designs(short=w),
+                                               "flash_attention_relpos": designs(long=g), "flash_attention": f}
+    launches = {}
+
+    def counted(name, fn, want, want_designs):
+        out, ms, got, got_designs = counted_run(counters, fn)
+        launches[name] = got
+        if got != want or got_designs != want_designs:
+            raise AssertionError(f"{name}: launches {got} {got_designs} != {want} {want_designs}")
+        return out, ms
+
+    open_cfg = dataclasses.replace(models.amg.cfg, pred_iou_thresh=-1e9, stability_score_thresh=0.0)
+    amg = AutomaticMaskGenerator(models.sam, open_cfg, device=models.device)
+    frame = frames(9, n=1)[0]
+    hw = frame.shape[:2]
+
+    # 1. generate
+    amg.generate(frame)  # warm
+    res, first_ms = counted("generate", lambda: amg.generate(frame), counts(n_win, n_global), by_design(n_win, n_global))
+    cap = open_cfg.mask_capacity
+    if res.masks_low_res.shape != (cap, 192, 256) or not res.valid.any() or not np.isfinite(res.boxes).all():
+        raise AssertionError(f"generate: masks {res.masks_low_res.shape}, {int(res.valid.sum())} valid")
+    parts = ((amg, "_encode", "encode"), (amg, "_generate_impl", "decode_filters_cut"), (amg.sam, "decode", "decode"),
+             (amg_module, "download_result", "download"), (amg_module, "postprocess_small_regions_host", "cleanup"))
+    runs = [wall_ms_by_part(parts, lambda: amg.generate(frame)) for _ in range(RECORDS_REPS)]
+    row["generate"] = {
+        "first_ms": first_ms, "valid": int(res.valid.sum()), "n_dropped": int(res.n_dropped),
+        "masks_low_res": list(res.masks_low_res.shape), "ms": [r["total"] for r in runs],
+        "median_ms": {k: statistics.median(r[k] for r in runs) for k in runs[0]},
+    }
+    print(json.dumps({"records_generate": row["generate"]}), flush=True)
+
+    # steps 2 and 3 also run on a copy of SAM with the structured decoder: the
+    # seeded decoder's masks fill the frame, and NMS leaves one of them
+    sam_structured = copy.deepcopy(models.sam)
+    structure_decoder(sam_structured)
+    variants = {"seeded": models.sam, "structured": sam_structured}
+    row["generate_batch"], row["generate_records"] = {}, {}
+    batch = frames(10, n=4)
+    for variant, sam in variants.items():
+        # 2. generate_batch of 4 frames against each frame alone
+        gen = amg if variant == "seeded" else AutomaticMaskGenerator(sam, open_cfg, device=models.device)
+        alone = [gen.generate(f) for f in batch]
+        for keep in (False, True):
+            key = f"{variant}_{'logits' if keep else 'binary'}"
+            outs, ms = counted(f"generate_batch_{key}", lambda: gen.generate_batch(batch, keep_logits=keep),
+                               counts(n_win, n_global), by_design(n_win, n_global))
+            cmp = [batch_vs_alone(o, a) for o, a in zip(outs, alone)]
+            row["generate_batch"][key] = {"ms": ms, "vs_alone": cmp}
+            if not all(c["same_prompts"] and c["box_max_abs_px"] <= TOL_CELL_PX for c in cmp):
+                raise AssertionError(f"generate_batch ({key}) vs generate alone: {cmp}")
+
+        # 3. generate_records, single crop and the multi-crop sweep
+        for layers in (0, 1):
+            gen = AutomaticMaskGenerator(sam, dataclasses.replace(open_cfg, crop_n_layers=layers),
+                                         device=models.device)
+            gen.generate_records(frame)  # warm: the sweep's layer generators
+            n = 1 if layers == 0 else 5
+            name = f"records_crop{layers}" + ("" if variant == "seeded" else "_structured")
+            recs, ms = counted(name, lambda: gen.generate_records(frame),
+                               counts(n * n_win, n * n_global), by_design(n * n_win, n * n_global))
+            check_records(f"generate_records ({variant}, crop_n_layers={layers})", recs, hw)
+            row["generate_records"][f"{variant}_crop_n_layers_{layers}"] = {
+                "ms": ms, "records": len(recs), "crop_boxes": sorted({tuple(r["crop_box"]) for r in recs})}
+    print(json.dumps({"records_batch_and_records": {k: row[k] for k in ("generate_batch", "generate_records")}}),
+          flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # 4. the amg tool in both output modes
+        (tmp / "in").mkdir()
+        for i, f in enumerate(frames(12, n=2)):
+            write_rgb(str(tmp / "in" / f"frame{i}.png"), f)
+        open_models = dataclasses.replace(
+            models, amg=AutomaticMaskGenerator(sam_structured, open_cfg, device=models.device))
+        t0 = time.perf_counter()
+        done = run_amg(open_models, str(tmp / "in"), str(tmp / "png"))
+        png_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_amg(open_models, str(tmp / "in"), str(tmp / "json"), convert_to_rle=True)
+        json_s = time.perf_counter() - t0
+        import cv2
+
+        masks_per_image = []
+        for i in range(len(done)):
+            folder = tmp / "png" / f"frame{i}"
+            with open(folder / "metadata.csv") as fh:
+                n_rows = len(fh.read().splitlines()) - 1
+            with open(tmp / "json" / f"frame{i}.json") as fh:
+                anns = json.load(fh)
+            if not (len(done) == 2 and n_rows == len(anns) > 0):
+                raise AssertionError(f"run_amg: {len(done)} images, {n_rows} metadata rows, {len(anns)} annotations")
+            for j, ann in enumerate(anns):
+                png = cv2.imread(str(folder / f"{j}.png"), cv2.IMREAD_UNCHANGED)
+                if png is None or not np.array_equal(native.rle_decode(coco_decode_rle(ann["segmentation"])), png > 0):
+                    raise AssertionError(f"run_amg: frame{i} mask {j}: the COCO RLE does not decode to the PNG")
+            masks_per_image.append(len(anns))
+        row["amg_tool"] = {"png_folder_s": png_s, "coco_json_s": json_s, "masks": masks_per_image}
+        del open_models, sam_structured, variants
+
+        # 5. the demos through the CLI
+        prompt, target = frames(13, n=2)
+        write_rgb(str(tmp / "prompt.png"), prompt)
+        write_rgb(str(tmp / "target.png"), target)
+        np.savetxt(tmp / "prompt.txt", np.hstack([np.eye(3), [[0.0], [0.0], [0.5]]]))
+        np.savetxt(tmp / "target.txt", np.hstack([np.eye(3), [[0.05], [0.0], [0.6]]]))
+        demos = {
+            "demo_sam": (["demo-sam", "--image", str(tmp / "target.png"), "--out", str(tmp / "sam.png")],
+                         counts(n_win, n_global), by_design(n_win, n_global), {"sam.png": (480, 640, 3)}),
+            "demo_dinov2": (["demo-dinov2", "--image", str(tmp / "target.png"), "--out", str(tmp / "dino.jpg")],
+                            counts(f=n_dino), by_design(f=designs(long=n_dino)), {"dino.jpg": (448, 448, 3)}),
+            "demo_3dbbox": (["demo-3dbbox", "--prompt", str(tmp / "prompt.png"), "--target", str(tmp / "target.png"),
+                             "--out-query", str(tmp / "query.png"), "--out-bbox", str(tmp / "bbox.png")],
+                            counts(n_win, n_global, 2 * n_dino), by_design(n_win, n_global, designs(short=2 * n_dino)),
+                            {"query.png": (256, 512, 3), "bbox.png": (480, 640, 3)}),
+        }
+        row["demos"] = {}
+        for name, (argv, want, want_designs, images) in demos.items():
+            _, ms = counted(name, lambda: cli.main(argv), want, want_designs)
+            shapes = {f: cv2.imread(str(tmp / f)).shape for f in images}
+            row["demos"][name] = {"ms_with_load": ms, "images": shapes}
+            if shapes != images:
+                raise AssertionError(f"{name}: images {shapes} != {images}")
+    torch.cuda.empty_cache()
+
+    # 6. card against CPU
+    row["card_vs_cpu"] = records_card_vs_cpu()
+    row["launches"] = launches
+    print(json.dumps({"records_phase": row}, default=str), flush=True)
+    err = row["card_vs_cpu"]
+    if not (err["records"] == err["cpu_records"] and err["min_mask_iou"] >= MIN_RECORD_IOU
+            and err["bbox_max_abs_px"] <= TOL_CELL_PX and err["score_max_abs"] <= TOL_RECORD_SCORE):
+        raise AssertionError(f"records, card vs CPU: {err}")
+    return row, launches
+
+
 EVAL_PAIRS_PER_BATCH, EVAL_BATCHES = 4, 4  # the eval-driver phase's dataset: 16 pairs of 640x480 frames
 BENCH_REPS = 3  # pope_tpu_torch.bench windows (of 4 batches) in this script; the bench's default is 5
 # a record's fields that must agree exactly between runs of the same pairs
@@ -1269,6 +1584,7 @@ def main() -> int:
                 "flash_attention": flash_attention}
     main_path, launches, models = run_main_path(counters)
     serve, serve_launches = run_serve_phase(counters, models)
+    records, records_launches = run_records_phase(counters, models)
     del models
     torch.cuda.empty_cache()
     eval_phase = run_eval_phase(counters, launches)
@@ -1282,9 +1598,18 @@ def main() -> int:
                     "eval_launches_per_batch": eval_phase["launches_per_batch"][0][name],
                     "serve_launches": {path: n[name] for path, n in serve_launches.items()}}
                  | {k: row[k] for k in timing + ("previous_ms",)})
+        entry["records_launches"] = {path: n[name] for path, n in records_launches.items()}
         square = kernels.get(f"{name}_square")
         if square is not None:  # the serving path's square 64x64 grid, B=1
             entry["square_64x64"] = {k: square[k] for k in timing}
+        crop = kernels.get(f"{name}_crop")
+        if crop is not None:  # the multi-crop sweep's 52x64 grid, B=1
+            entry["crop_52x64"] = {k: crop[k] for k in timing} | {
+                "source": crop["source"], "launches": records_launches["records_crop1"][name]}
+        long_n = kernels.get(f"{name}_n1025")
+        if long_n is not None:  # demo-dinov2's 1025 tokens through the long design, B=1
+            entry["n1025"] = {k: long_n[k] for k in timing} | {
+                "source": long_n["source"], "launches": records_launches["demo_dinov2"][name]}
         listed.append(entry | {"status": "ported"})
     summary = {"kernels": listed, "not_ported": []}
 
@@ -1293,6 +1618,7 @@ def main() -> int:
     (out / "chip_smoke.json").write_text(json.dumps({
         "card": smi, "build_s": build_s, "ptxas": ptxas, "kernels": kernels, "reference": reference,
         "stage2_reference": reference2, "solver": solver, "main_path": main_path, "serve": serve,
+        "records": records,
         "eval": eval_phase,
         "summary": summary,
     }, indent=1))

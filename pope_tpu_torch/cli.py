@@ -3,6 +3,10 @@ other subcommands come with their slices).
 
 Usage:
   python -m pope_tpu_torch.cli eval --dataset linemod --data-root data --pairs-dir data/pairs
+  python -m pope_tpu_torch.cli amg --input images/ --output masks/ [--convert-to-rle]
+  python -m pope_tpu_torch.cli demo-sam --image target.png
+  python -m pope_tpu_torch.cli demo-dinov2 --image target.png
+  python -m pope_tpu_torch.cli demo-3dbbox --prompt prompt.png --target target.png
   python -m pope_tpu_torch.cli demo-web --image frame.png --port 8081
   python -m pope_tpu_torch.cli serve-pose --batch-size 4 --port 8082
 
@@ -58,6 +62,92 @@ def cmd_eval(args):
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump(per_obj, f, indent=2)
+
+
+def cmd_demo_dinov2(args):
+    """visual_dinov2.py: DINOv2's patch-PCA heatmap of one image."""
+    from pope_tpu_torch.pipeline import load_models
+    from pope_tpu_torch.pipeline.demos import demo_dinov2_heatmap
+
+    models = load_models(dinov2_checkpoint=args.dinov2_checkpoint, components=("dinov2",), device=args.device)
+    demo_dinov2_heatmap(models, args.image, args.out)
+    print(f"wrote {args.out}")
+
+
+def cmd_demo_sam(args):
+    """visual_sam.py: the automatic masks of one image, rendered."""
+    from pope_tpu_torch.pipeline import load_models
+    from pope_tpu_torch.pipeline.demos import demo_sam_masks
+
+    models = load_models(sam_checkpoint=args.sam_checkpoint, sam_type=args.sam_type, components=("sam",),
+                         device=args.device)
+    demo_sam_masks(models, args.image, args.out)
+    print(f"wrote {args.out}")
+
+
+AMG_FLAGS = ("points_per_side", "pred_iou_thresh", "stability_score_thresh", "box_nms_thresh",
+             "min_mask_region_area", "mask_capacity", "crop_n_layers", "crop_nms_thresh")
+
+
+def cmd_amg(args):
+    """scripts/amg.py: mask generation over an image or a directory, writing
+    a PNG folder + metadata.csv or a COCO-RLE json per image."""
+    import dataclasses
+
+    from pope_tpu_torch.config import PipelineConfig
+    from pope_tpu_torch.pipeline import load_models
+    from pope_tpu_torch.pipeline.amg_cli import run_amg
+
+    cfg = PipelineConfig()
+    overrides = {k: getattr(args, k) for k in AMG_FLAGS if getattr(args, k) is not None}
+    if overrides:
+        cfg = dataclasses.replace(cfg, amg=dataclasses.replace(cfg.amg, **overrides))
+    models = load_models(config=cfg, sam_checkpoint=args.sam_checkpoint, sam_type=args.sam_type,
+                         components=("sam",), device=args.device)
+    done = run_amg(models, args.input, args.output, convert_to_rle=args.convert_to_rle)
+    print(f"processed {len(done)} image(s) -> {args.output}")
+
+
+# visual_3dbbox.py:19-41's demo intrinsics and object extents
+DEMO_K0 = ((2442.28864, 0.0, 449.114027), (0.0, 2447.23383, -110.724309), (0.0, 0.0, 1.0))
+DEMO_K1 = ((572.4114, 0.0, 325.2611), (0.0, 573.57043, 242.04899), (0.0, 0.0, 1.0))
+DEMO_EXTENTS = (0.03793430, 0.03879960, 0.04588450)
+
+
+def cmd_demo_3dbbox(args):
+    """visual_3dbbox.py: one (prompt, target) pair -> query_result.png and
+    3D_BBox.png. K0 / K1 / the box default to the reference demo's values;
+    the poses load from prompt.txt / target.txt beside the prompt image."""
+    import os
+
+    import numpy as np
+
+    from pope_tpu_torch.pipeline import load_models
+    from pope_tpu_torch.pipeline.demos import demo_3dbbox
+
+    K0 = np.loadtxt(args.k0) if args.k0 else np.array(DEMO_K0)
+    K1 = np.loadtxt(args.k1) if args.k1 else np.array(DEMO_K1)
+    if args.box3d:
+        corners = np.loadtxt(args.box3d)
+    else:
+        x, y, z = DEMO_EXTENTS
+        corners = np.array([[-x, -y, -z], [-x, -y, z], [-x, y, z], [-x, y, -z],
+                            [x, -y, -z], [x, -y, z], [x, y, z], [x, y, -z]])
+    d = os.path.dirname(args.prompt)
+    prompt_pose = np.loadtxt(args.prompt_pose or os.path.join(d, "prompt.txt"))
+    tgt_path = args.target_pose or os.path.join(d, "target.txt")
+    target_pose = np.loadtxt(tgt_path) if os.path.exists(tgt_path) else None
+
+    models = load_models(
+        sam_checkpoint=args.sam_checkpoint,
+        sam_type=args.sam_type,
+        dinov2_checkpoint=args.dinov2_checkpoint,
+        matcher_checkpoint=args.matcher_checkpoint,
+        device=args.device,
+    )
+    demo_3dbbox(models, args.prompt, args.target, K0, K1, prompt_pose, corners,
+                target_pose=target_pose, out_query=args.out_query, out_bbox=args.out_bbox)
+    print(f"wrote {args.out_query} and {args.out_bbox}")
 
 
 def cmd_demo_web(args):
@@ -128,6 +218,51 @@ def main(argv=None):
     pe.add_argument("--json-out", default=None)
     _add_model_args(pe)
     pe.set_defaults(fn=cmd_eval)
+
+    pd = sub.add_parser("demo-dinov2", help="patch-PCA heatmap demo")
+    pd.add_argument("--image", required=True)
+    pd.add_argument("--out", default="headmap.jpg")
+    pd.add_argument("--dinov2-checkpoint", default=None)
+    pd.add_argument("--device", default=None, help="torch device, default cuda")
+    pd.set_defaults(fn=cmd_demo_dinov2)
+
+    ps = sub.add_parser("demo-sam", help="automatic mask generation demo")
+    ps.add_argument("--image", required=True)
+    ps.add_argument("--out", default="LINEMOD_mask.png")
+    _add_model_args(ps)
+    ps.set_defaults(fn=cmd_demo_sam)
+
+    pa = sub.add_parser(
+        "amg",
+        help="batch automatic mask generation (scripts/amg.py: PNG folder + metadata.csv per image, "
+        "or COCO-RLE json with --convert-to-rle)",
+    )
+    pa.add_argument("--input", required=True, help="image file or directory")
+    pa.add_argument("--output", required=True, help="output directory")
+    pa.add_argument("--convert-to-rle", action="store_true")
+    pa.add_argument("--points-per-side", type=int, default=None)
+    pa.add_argument("--pred-iou-thresh", type=float, default=None)
+    pa.add_argument("--stability-score-thresh", type=float, default=None)
+    pa.add_argument("--box-nms-thresh", type=float, default=None)
+    pa.add_argument("--min-mask-region-area", type=int, default=None)
+    pa.add_argument("--mask-capacity", type=int, default=None)
+    pa.add_argument("--crop-n-layers", type=int, default=None)
+    pa.add_argument("--crop-nms-thresh", type=float, default=None)
+    _add_model_args(pa)
+    pa.set_defaults(fn=cmd_amg)
+
+    pb = sub.add_parser("demo-3dbbox", help="single-pair pipeline + 3-D bbox render")
+    pb.add_argument("--prompt", required=True, help="prompt image path")
+    pb.add_argument("--target", required=True, help="target image path")
+    pb.add_argument("--k0", default=None, help="prompt intrinsics txt (default: reference demo K0)")
+    pb.add_argument("--k1", default=None, help="target intrinsics txt (default: reference demo K1)")
+    pb.add_argument("--box3d", default=None, help="8x3 bbox corners txt (default: reference demo extents)")
+    pb.add_argument("--prompt-pose", default=None, help="prompt pose txt (default: prompt.txt beside --prompt)")
+    pb.add_argument("--target-pose", default=None, help="target pose txt (default: target.txt beside --prompt)")
+    pb.add_argument("--out-query", default="query_result.png")
+    pb.add_argument("--out-bbox", default="3D_BBox.png")
+    _add_model_args(pb)
+    pb.set_defaults(fn=cmd_demo_3dbbox)
 
     pw = sub.add_parser("demo-web", help="interactive segmentation web demo (browser)")
     pw.add_argument("--image", required=True)

@@ -9,6 +9,7 @@ from pope_tpu_torch.geometry.affine import (
 )
 from pope_tpu_torch.geometry.epipolar import normalize_keypoints, sampson_distance, triangulate_midpoint
 from pope_tpu_torch.geometry.pose import (
+    project_points,
     relative_pose_error,
     rotation_angle_deg,
     skew,

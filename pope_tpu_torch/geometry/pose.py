@@ -1,10 +1,24 @@
-"""Pose algebra: the cross-product matrix the solver builds E = [t]x R from,
-and the angular errors the metrics use (port of the matching functions of
-pope_tpu/geometry/pose.py). Batched on leading dimensions, f32."""
+"""Pose algebra: projection of 3-D points, the cross-product matrix the
+solver builds E = [t]x R from, and the angular errors the metrics use (port
+of the matching functions of pope_tpu/geometry/pose.py). Batched on leading
+dimensions, f32."""
 
 from __future__ import annotations
 
 import torch
+
+
+def project_points(pts, RT, K):
+    """Project (N, 3) points through a (3, 4) [R|t] and a (3, 3) K: ((N, 2)
+    pixels, (N,) depths), the depth held at least 1e-4 away from zero with
+    its sign kept."""
+    pts, RT, K = (torch.as_tensor(x, dtype=torch.float32) for x in (pts, RT, K))
+    cam = pts @ RT[:, :3].T + RT[:, 3:].T
+    pix = cam @ K.T
+    dpt = pix[:, 2]
+    small = dpt.abs() < 1e-4
+    dpt = torch.where(small & (dpt >= 0), 1e-4, torch.where(small & (dpt < 0), -1e-4, dpt))
+    return pix[:, :2] / dpt[:, None], dpt
 
 
 def skew(v):

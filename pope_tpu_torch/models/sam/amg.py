@@ -1,31 +1,54 @@
-"""Automatic mask generation, the eval path (port of
-pope_tpu/models/sam/amg.py: `_generate_impl`, `_amg_boxes`,
-`generate_boxes_batch`, `postprocess_small_regions_device`).
+"""Automatic mask generation (port of pope_tpu/models/sam/amg.py).
 
-Grid prompts -> chunked multimask decode -> IoU and stability filters ->
-mask -> box -> NMS -> top-`mask_capacity` cut -> small-region cleanup, with
-fixed-capacity outputs. The JAX package's `vmap` over images is a batch
-dimension here (the decode loops over images, because each image's prompts
-share its embedding); its `lax.map` over prompt chunks is a Python loop.
+Two paths over one device program (grid prompts -> chunked multimask decode
+-> IoU and stability filters -> mask -> box -> NMS -> top-`mask_capacity`
+cut, with fixed-capacity outputs):
+- the eval path, `generate_boxes_batch`: the stride-4 subsampled decode and
+  the small-region cleanup on the device; boxes and validity stay there;
+- the records path, `generate` / `generate_batch` / `generate_records`: the
+  full-resolution decode, one download per batch, the small-region cleanup
+  of each image on the host (the native library, one thread per image), and
+  the reference's mask records with RLE; with `crop_n_layers > 0` the
+  reference's multi-crop sweep on the host over per-crop device programs.
+The JAX package's `vmap` over images is a batch dimension here (the decode
+loops over images, because each image's prompts share its embedding); its
+`lax.map` over prompt chunks is a Python loop. Its bit-packed mask download
+exists for its TPU link and has no counterpart: bool masks are downloaded.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import logging
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from pope_tpu_torch import native
 from pope_tpu_torch.config import AMGConfig
-from pope_tpu_torch.models.sam.sam import MASK_THRESHOLD, rect_frame, resize_longest_side
+from pope_tpu_torch.models.sam.sam import MASK_THRESHOLD, postprocess_masks, rect_frame, resize_longest_side
 from pope_tpu_torch.ops.components import clean_mask
-from pope_tpu_torch.ops.masks import batched_mask_to_box, build_point_grid, calculate_stability_score
+from pope_tpu_torch.ops.masks import (
+    batched_mask_to_box,
+    build_all_layer_point_grids,
+    build_point_grid,
+    calculate_stability_score,
+    generate_crop_boxes,
+    is_box_near_crop_edge_np,
+)
 from pope_tpu_torch.ops.nms import nms
 from pope_tpu_torch.ops.resize import resize_bilinear_antialias
 from pope_tpu_torch.utils.device import resolve_device
 
+logger = logging.getLogger(__name__)
+
 
 class AMGResult(NamedTuple):
+    """Candidates of a batch, (B, C, ...) tensors on the device, or of one
+    image, (C, ...) host numpy arrays on the records path."""
+
     masks_low_res: torch.Tensor  # (B, C, h, w) logits over the encode frame
     boxes: torch.Tensor  # (B, C, 4) XYXY in original image coords
     iou_preds: torch.Tensor  # (B, C)
@@ -35,12 +58,21 @@ class AMGResult(NamedTuple):
     n_dropped: torch.Tensor  # (B,) NMS survivors cut by mask_capacity
     point_idx: torch.Tensor  # (B, C) prompt index of each candidate
 
+    @property
+    def boxes_xywh(self):
+        """boxes as XYWH, a tensor or a numpy array as boxes is."""
+        b = self.boxes
+        xp = torch if torch.is_tensor(b) else np
+        return xp.stack([b[..., 0], b[..., 1], b[..., 2] - b[..., 0], b[..., 3] - b[..., 1]], -1)
+
 
 class AutomaticMaskGenerator:
     """AMG over a Sam module.
 
         amg = AutomaticMaskGenerator(sam, amg_cfg)          # on the card
         boxes_xywh, valid, n_dropped = amg.generate_boxes_batch(frames)
+        result = amg.generate(image_rgb)                    # host arrays
+        records = amg.generate_records(image_rgb)           # mask records
 
     device=None runs on CUDA and raises without a GPU; pass device="cpu" to
     run on the CPU. The module is moved to the device."""
@@ -53,6 +85,7 @@ class AutomaticMaskGenerator:
         self._grid01 = torch.as_tensor(
             build_point_grid(cfg.points_per_side), dtype=torch.float32, device=self.device
         )
+        self._layer_gens = {}  # the multi-crop sweep's sub-generator of each crop layer
 
     def _frame_hw(self, in_h: int, in_w: int):
         """Encode frame for a resized content extent: the patch-aligned rect
@@ -162,6 +195,182 @@ class AutomaticMaskGenerator:
         xywh = torch.cat([boxes[..., :2], boxes[..., 2:] - boxes[..., :2]], dim=-1)
         return xywh, valid, res.n_dropped
 
+    # ---- the records path ----
+
+    def _amg_full(self, images):
+        """The device side of generate_batch on (B, H, W, 3) uint8 frames:
+        encode, full-resolution decode, filters, NMS and the capacity cut.
+        Returns the (B, C, ...) result and the resized content extent."""
+        images = torch.as_tensor(images, device=self.device)
+        orig_h, orig_w = images.shape[1:3]
+        in_h, in_w = resize_longest_side(orig_h, orig_w, self.sam_cfg.encoder.img_size)
+        embs = self._encode(images, in_h, in_w)
+        return self._generate_impl(embs, in_h, in_w, orig_h, orig_w), (in_h, in_w)
+
+    @torch.no_grad()
+    def generate_from_embeddings(self, embeddings, orig_hw, input_hw) -> AMGResult:
+        """AMG of one image from its (1, gh, gw, C) embedding, no cleanup:
+        the device result without the batch dimension."""
+        emb = torch.as_tensor(embeddings, device=self.device)
+        if emb.ndim != 4 or emb.shape[0] != 1:
+            raise ValueError(f"expected one image's (1, gh, gw, C) embedding, got {tuple(emb.shape)}")
+        res = self._generate_impl(emb, int(input_hw[0]), int(input_hw[1]), int(orig_hw[0]), int(orig_hw[1]))
+        return AMGResult(*(x[0] for x in res))
+
+    def generate(self, image_rgb) -> AMGResult:
+        """The records path on one (H, W, 3) RGB uint8 frame, mask logits
+        kept (mask records and demos upsample them)."""
+        return self.generate_batch([image_rgb], keep_logits=True)[0]
+
+    @torch.no_grad()
+    def generate_batch(self, images_rgb, keep_logits: bool = False) -> list:
+        """The records path over same-shape frames (a list of (H, W, 3) RGB
+        uint8 frames or a (B, H, W, 3) array or tensor): one device program,
+        one download, then each image's small-region cleanup on the host,
+        in threads. Returns one host AMGResult of (C, ...) numpy arrays per
+        image.
+
+        keep_logits=False downloads the binarized masks only: masks_low_res
+        then holds +-1 pseudo-logits. keep_logits=True downloads the f32
+        logits, so that records and demos upsample the true boundaries."""
+        if isinstance(images_rgb, (list, tuple)):
+            images_rgb = np.stack([np.asarray(im, np.uint8) for im in images_rgb])
+        orig_hw = tuple(images_rgb.shape[1:3])
+        res, in_hw = self._amg_full(images_rgb)
+        host = download_result(res, keep_logits)
+        frame_hw = self._frame_hw(*in_hw)
+        min_area = self.cfg.min_mask_region_area
+
+        def finish(i):
+            masks = host.masks_low_res[i]
+            binm = masks > MASK_THRESHOLD if keep_logits else masks
+            r = AMGResult(
+                masks_low_res=masks if keep_logits else np.where(binm, 1.0, -1.0).astype(np.float32),
+                boxes=host.boxes[i], iou_preds=host.iou_preds[i], stability=host.stability[i],
+                areas=host.areas[i], valid=host.valid[i], n_dropped=host.n_dropped[i],
+                point_idx=host.point_idx[i],
+            )
+            if min_area > 0:
+                r = postprocess_small_regions_host(
+                    r, min_area, orig_hw, self.cfg.box_nms_thresh, binmasks=binm,
+                    input_hw=in_hw, frame_px_hw=frame_hw,
+                )
+            return r
+
+        n = len(host.valid)
+        if n > 1 and min_area > 0:
+            # the native cleanup releases the GIL: one thread per image
+            with ThreadPoolExecutor(max_workers=min(n, 8)) as pool:
+                return list(pool.map(finish, range(n)))
+        return [finish(i) for i in range(n)]
+
+    def generate_records(self, image_rgb) -> list:
+        """The reference's mask records of one (H, W, 3) RGB uint8 frame: the
+        single-crop path when cfg.crop_n_layers is 0 (POPE's configuration),
+        else the multi-crop sweep. A capacity overflow is logged."""
+        image = np.asarray(image_rgb, np.uint8)
+        if self.cfg.crop_n_layers > 0:
+            return self._generate_multicrop_records(image)
+        res = self.generate(image)
+        n_dropped = int(res.n_dropped)
+        if n_dropped > 0:
+            logger.warning("%d masks over mask_capacity were dropped (raise AMGConfig.mask_capacity)", n_dropped)
+        in_hw = resize_longest_side(*image.shape[:2], self.sam_cfg.encoder.img_size)
+        return amg_records(res, image.shape[:2], in_hw, point_grid01=self._grid01, device=self.device)
+
+    def _layer_generator(self, layer: int) -> "AutomaticMaskGenerator":
+        """The multi-crop sweep's generator of one crop layer, built once: its
+        layer's grid, every candidate kept (capacity pps^2 * 3), NMS and the
+        small-region cleanup left to the sweep."""
+        if layer not in self._layer_gens:
+            cfg = self.cfg
+            # the >= 1 clamp of build_all_layer_point_grids, so that this grid
+            # and grids[layer] (point provenance) have the same size
+            pps = max(int(cfg.points_per_side / (cfg.crop_n_points_downscale_factor**layer)), 1)
+            sub_cfg = dataclasses.replace(
+                cfg, points_per_side=pps, box_nms_thresh=1.5, min_mask_region_area=0,
+                mask_capacity=pps * pps * 3, crop_n_layers=0,
+            )
+            self._layer_gens[layer] = AutomaticMaskGenerator(self.sam, sub_cfg, device=self.device)
+        return self._layer_gens[layer]
+
+    @torch.no_grad()
+    def _generate_multicrop_records(self, image: np.ndarray) -> list:
+        """crop_n_layers > 0, the reference's sweep: per crop, grid prompts ->
+        filters -> crop-edge filter -> NMS -> uncrop at full resolution; then
+        NMS across crops preferring smaller crops, and the full-resolution
+        small-region cleanup with a re-NMS preferring untouched masks."""
+        cfg = self.cfg
+        oh, ow = image.shape[:2]
+        crop_boxes, layer_idxs = generate_crop_boxes((oh, ow), cfg.crop_n_layers, cfg.crop_overlap_ratio)
+        grids = build_all_layer_point_grids(cfg.points_per_side, cfg.crop_n_layers,
+                                            cfg.crop_n_points_downscale_factor)
+        masks_all, boxes_all, iou_all, stab_all, pts_all, cbox_all = [], [], [], [], [], []
+        for crop_box, layer in zip(crop_boxes, layer_idxs):
+            x0, y0, x1, y1 = crop_box
+            sub = np.ascontiguousarray(image[y0:y1, x0:x1])
+            ch, cw = sub.shape[:2]
+            # true logits: the reference thresholds after upsampling to the crop
+            res = self._layer_generator(layer).generate_batch([sub], keep_logits=True)[0]
+            boxes, iou = res.boxes, res.iou_preds  # crop coords
+            valid = res.valid & ~is_box_near_crop_edge_np(boxes, crop_box, [0, 0, ow, oh])
+            keep = _nms_host(boxes, iou, cfg.box_nms_thresh, valid)
+            if not keep.any():
+                continue
+            idx = np.nonzero(keep)[0]
+            in_hw = resize_longest_side(ch, cw, self.sam_cfg.encoder.img_size)
+            logits = torch.from_numpy(res.masks_low_res[idx]).to(self.device)
+            up = (postprocess_masks(logits[None], in_hw, (ch, cw))[0] > MASK_THRESHOLD).cpu().numpy()
+            full = np.zeros((len(idx), oh, ow), bool)
+            full[:, y0:y1, x0:x1] = up
+            masks_all.append(full)
+            boxes_all.append(boxes[idx] + np.asarray([x0, y0, x0, y0], np.float32))
+            iou_all.append(iou[idx])
+            stab_all.append(res.stability[idx])
+            pt = grids[layer][res.point_idx[idx]] * np.asarray([cw, ch], np.float32)
+            pts_all.append(pt + np.asarray([x0, y0], np.float32))
+            cbox_all.append(np.tile(np.asarray(crop_box, np.float32), (len(idx), 1)))
+        if not masks_all:
+            return []
+        masks, boxes, iou, stab, pts, cboxes = (
+            np.concatenate(a) for a in (masks_all, boxes_all, iou_all, stab_all, pts_all, cbox_all)
+        )
+
+        if len(crop_boxes) > 1:
+            # prefer masks from smaller crops
+            areas = (cboxes[:, 2] - cboxes[:, 0]) * (cboxes[:, 3] - cboxes[:, 1])
+            keep = _nms_host(boxes, (1.0 / np.maximum(areas, 1.0)).astype(np.float32),
+                             cfg.crop_nms_thresh, np.ones(len(boxes), bool))
+            masks, boxes, iou, stab, pts, cboxes = (a[keep] for a in (masks, boxes, iou, stab, pts, cboxes))
+
+        if cfg.min_mask_region_area > 0:
+            changed = np.zeros(len(masks), bool)
+            for i in range(len(masks)):
+                m, ch1 = native.remove_small_regions(masks[i], cfg.min_mask_region_area, "holes")
+                m, ch2 = native.remove_small_regions(m, cfg.min_mask_region_area, "islands")
+                masks[i] = m
+                changed[i] = ch1 or ch2
+            boxes = _mask_to_box_np(masks)
+            keep = _nms_host(boxes, np.where(changed, 0.0, 1.0).astype(np.float32),
+                             max(cfg.box_nms_thresh, cfg.crop_nms_thresh), masks.any((-2, -1)))
+            masks, boxes, iou, stab, pts, cboxes = (a[keep] for a in (masks, boxes, iou, stab, pts, cboxes))
+
+        records = []
+        for i in range(len(masks)):
+            x0, y0, x1, y1 = boxes[i]
+            cx0, cy0, cx1, cy1 = cboxes[i]
+            records.append({
+                "segmentation": masks[i],
+                "rle": native.rle_encode(masks[i]),
+                "area": int(masks[i].sum()),
+                "bbox": [float(x0), float(y0), float(x1 - x0), float(y1 - y0)],
+                "predicted_iou": float(iou[i]),
+                "stability_score": float(stab[i]),
+                "point_coords": [[float(pts[i, 0]), float(pts[i, 1])]],
+                "crop_box": [float(cx0), float(cy0), float(cx1 - cx0), float(cy1 - cy0)],
+            })
+        return records
+
 
 def _low_res_frame_maps(low_hw, orig_hw, input_hw, frame_px_hw, device):
     """Coordinate and area maps for a low-res mask grid that covers
@@ -206,3 +415,115 @@ def postprocess_small_regions_device(
     scores = torch.where(changed, 0.0, 1.0)
     keep = nms(boxes, scores, box_nms_thresh, valid=valid)
     return boxes, keep & valid
+
+
+def download_result(res: AMGResult, keep_logits: bool) -> AMGResult:
+    """A (B, C, ...) device result as host numpy arrays; masks_low_res holds
+    the f32 logits with keep_logits, else the bool binarization."""
+    masks = res.masks_low_res.float() if keep_logits else res.masks_low_res > MASK_THRESHOLD
+    return AMGResult(
+        masks_low_res=masks.cpu().numpy(),
+        boxes=res.boxes.cpu().numpy(),
+        iou_preds=res.iou_preds.float().cpu().numpy(),
+        stability=res.stability.cpu().numpy(),
+        areas=res.areas.cpu().numpy(),
+        valid=res.valid.cpu().numpy(),
+        n_dropped=res.n_dropped.cpu().numpy(),
+        point_idx=res.point_idx.cpu().numpy(),
+    )
+
+
+def _mask_to_box_np(masks: np.ndarray) -> np.ndarray:
+    """batched_mask_to_box of host masks: (C, H, W) bool -> (C, 4) f32."""
+    return batched_mask_to_box(torch.from_numpy(np.ascontiguousarray(masks))).numpy()
+
+
+def _nms_host(boxes: np.ndarray, scores: np.ndarray, thresh: float, valid: np.ndarray) -> np.ndarray:
+    """Greedy NMS on the host (the native library) in which invalid
+    candidates suppress nothing, as ops.nms.nms(valid=...)."""
+    keep = np.zeros(len(boxes), bool)
+    idx = np.nonzero(valid)[0]
+    if len(idx):
+        keep[idx] = native.nms_cpu(boxes[idx], scores[idx], thresh)
+    return keep
+
+
+def postprocess_small_regions_host(
+    result: AMGResult, min_area: int, orig_hw, box_nms_thresh: float = 0.35,
+    binmasks: Optional[np.ndarray] = None, input_hw=None, frame_px_hw=None,
+) -> AMGResult:
+    """The small-region cleanup of one image's host result: fill holes and
+    drop islands below min_area (original-image pixels, rescaled to the
+    low-res grid) with the native library, recompute every box, and re-run
+    NMS preferring untouched masks. binmasks: the (C, h, w) binarization of
+    masks_low_res, if already at hand; input_hw / frame_px_hw as
+    postprocess_small_regions_device takes them."""
+    masks = np.asarray(result.masks_low_res) > MASK_THRESHOLD if binmasks is None else np.asarray(binmasks, bool)
+    valid = np.asarray(result.valid)
+    input_hw = orig_hw if input_hw is None else input_hw
+    frame_px_hw = input_hw if frame_px_hw is None else frame_px_hw
+    to_input, lim, inv, scale = _low_res_frame_maps(masks.shape[-2:], orig_hw, input_hw, frame_px_hw, "cpu")
+    to_input, lim, inv = (a.numpy() for a in (to_input, lim, inv))
+    min_area_low = max(int(round(min_area * scale)), 1)
+
+    changed = np.zeros(len(masks), bool)
+    out_masks = masks.copy()
+    for i in np.nonzero(valid)[0]:
+        m, ch1 = native.remove_small_regions(masks[i], min_area_low, "holes")
+        m, ch2 = native.remove_small_regions(m, min_area_low, "islands")
+        out_masks[i] = m
+        changed[i] = ch1 or ch2
+
+    boxes = (np.clip(_mask_to_box_np(out_masks) * to_input, 0.0, lim) * inv).astype(np.float32)
+    keep = _nms_host(boxes, np.where(changed, 0.0, 1.0).astype(np.float32), box_nms_thresh, valid)
+    # changed masks become +-1 logits
+    logits = np.where(changed[:, None, None], np.where(out_masks, 1.0, -1.0),
+                      np.asarray(result.masks_low_res)).astype(np.float32)
+    return AMGResult(
+        masks_low_res=logits,
+        boxes=boxes,
+        iou_preds=np.asarray(result.iou_preds),
+        stability=np.asarray(result.stability),
+        areas=(out_masks.sum((-2, -1)) / scale).astype(np.float32),
+        valid=keep & valid,
+        n_dropped=result.n_dropped,
+        point_idx=result.point_idx,
+    )
+
+
+def amg_records(result: AMGResult, orig_hw, input_hw, point_grid01=None, device=None) -> list:
+    """One image's host result as the reference's mask records, one dict per
+    valid candidate: "segmentation" ((H, W) bool at the original size),
+    "rle" (uncompressed, column-major), "area", "bbox" (XYWH),
+    "predicted_iou", "stability_score", "crop_box" (the whole image) and,
+    given the [0, 1] prompt grid, "point_coords". The masks are upsampled on
+    `device` (default CUDA; raises without a GPU unless device="cpu")."""
+    dev = resolve_device(device)
+    ok = np.asarray(result.valid)
+    idx = np.nonzero(ok)[0]
+    logits = torch.as_tensor(np.asarray(result.masks_low_res, np.float32)[idx], device=dev)
+    with torch.no_grad():
+        masks_full = (postprocess_masks(logits[None], input_hw, orig_hw)[0] > MASK_THRESHOLD).cpu().numpy()
+    boxes = np.asarray(result.boxes)
+    ious = np.asarray(result.iou_preds)
+    stab = np.asarray(result.stability)
+    pts = None
+    if result.point_idx is not None and point_grid01 is not None:
+        grid = point_grid01.cpu().numpy() if torch.is_tensor(point_grid01) else np.asarray(point_grid01)
+        pts = grid[np.asarray(result.point_idx)] * np.asarray([orig_hw[1], orig_hw[0]], np.float32)[None]
+    records = []
+    for seg, i in zip(masks_full, idx):
+        x0, y0, x1, y1 = boxes[i]
+        rec = {
+            "segmentation": seg,
+            "rle": native.rle_encode(seg),
+            "area": int(seg.sum()),
+            "bbox": [float(x0), float(y0), float(x1 - x0), float(y1 - y0)],
+            "predicted_iou": float(ious[i]),
+            "stability_score": float(stab[i]),
+            "crop_box": [0.0, 0.0, float(orig_hw[1]), float(orig_hw[0])],
+        }
+        if pts is not None:
+            rec["point_coords"] = [[float(pts[i, 0]), float(pts[i, 1])]]
+        records.append(rec)
+    return records

@@ -214,12 +214,15 @@ class PipelineExecutor:
 
     def estimate_pair(self, image0_rgb01, image1_rgb01, K0, K1, amg_result, ref_cls, noise) -> PairResult:
         """One (prompt, target) pair given its AMG candidates (boxes_xywh,
-        valid[, n_dropped]) and the prompt's cls token; noise
-        (n_rounds, n_hyps, M) or a torch.Generator. Fields without the pair
+        valid[, n_dropped]: the eval path's device tensors or a records-path
+        host result of numpy arrays) and the prompt's cls token; noise
+        (n_rounds, n_hyps, M) or a torch.Generator on the models' device.
+        Every input moves to the models' device. Fields without the pair
         dimension."""
-        one = lambda x: None if x is None else torch.as_tensor(x)[None]
+        dev = self.models.device
+        one = lambda x: None if x is None else torch.as_tensor(x, device=dev)[None]
         if torch.is_tensor(noise):
-            noise = noise[None]
+            noise = noise.to(dev)[None]
         res = self.build_batched()(
             one(image0_rgb01), one(image1_rgb01), one(K0), one(K1), one(amg_result.boxes_xywh),
             one(amg_result.valid), one(ref_cls), noise, one(getattr(amg_result, "n_dropped", None)),

@@ -593,3 +593,49 @@ def test_pose_service_on_card_equals_run_pairs(card):
         np.testing.assert_array_equal(res["t"], rec["t"])
         assert res["n_strong"] == rec["n_strong"] and res["mkpts0"].shape[0] == rec["epi_errs"].size
     assert any(r["mkpts0"].shape[0] for r in results)
+
+
+@pytest.mark.parametrize("crop_n_layers", [0, 1])
+def test_records_path_on_card_matches_cpu(card, crop_n_layers):
+    """The records path of a small f32 SAM (structured decoder, filters open)
+    on the card and on the CPU: generate's valid candidates and boxes, and
+    generate_records' records (the same count, crop boxes and points; boxes
+    within 1e-3 px; masks by IoU >= 0.99, the RLE decoding to each)."""
+    from pope_tpu_torch import native
+    from pope_tpu_torch.config import AMGConfig
+    from pope_tpu_torch.models.sam import AutomaticMaskGenerator
+
+    sam = Sam(_small_sam_cfg())
+    init_sam_weights(sam, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        _structure_decoder(sam)
+    cfg = AMGConfig(points_per_side=8, pred_iou_thresh=-1e9, stability_score_thresh=0.0,
+                    crop_n_layers=crop_n_layers, min_mask_region_area=100)
+    cpu = AutomaticMaskGenerator(sam, cfg, device="cpu")
+    gpu = AutomaticMaskGenerator(copy.deepcopy(sam), cfg, device=card)
+    img = _frame(2, 192, 256)
+    if crop_n_layers == 0:
+        a, b = cpu.generate(img), gpu.generate(img)
+        np.testing.assert_array_equal(b.valid, a.valid)
+        np.testing.assert_array_equal(b.point_idx[a.valid], a.point_idx[a.valid])
+        np.testing.assert_allclose(b.boxes[a.valid], a.boxes[a.valid], atol=1e-3, rtol=0)
+    ref, out = cpu.generate_records(img), gpu.generate_records(img)
+    assert len(out) == len(ref) > 0
+    for r, q in zip(out, ref):
+        assert r["crop_box"] == q["crop_box"] and r["point_coords"] == q["point_coords"]
+        np.testing.assert_allclose(r["bbox"], q["bbox"], atol=1e-3, rtol=0)
+        seg, ref_seg = r["segmentation"], q["segmentation"]
+        assert (seg & ref_seg).sum() >= 0.99 * (seg | ref_seg).sum()
+        assert np.array_equal(native.rle_decode(r["rle"]), seg)
+
+
+def test_native_library_builds_here(card):
+    """The host library compiles on the card's machine (g++ from
+    native/pope_native.cpp) and round-trips an RLE."""
+    from pope_tpu_torch import native
+    from pope_tpu_torch.ops.masks import mask_to_rle
+
+    mask = np.random.default_rng(0).random((31, 45)) < 0.3
+    assert native.available()
+    assert native.rle_encode(mask) == mask_to_rle(mask)
+    assert np.array_equal(native.rle_decode(native.rle_encode(mask)), mask)
