@@ -85,10 +85,23 @@ Phases, each of which raises on failure (exit code != 0):
      BENCH_REPS windows of 4 batches prints its JSON line (bench.py's keys,
      MFU against the H100's bf16 peak, the card's name and power limit).
      The image reader in use is in the eval_phase line.
+ 11. matcher training (run_train_phase): a small matcher's two train steps
+     on the card against the CPU from the same weights and batch; then
+     MatcherConfig() in f32 at B=4 on 480x640 planar pairs of known depth
+     and pose, 2 warm-up and 10 timed steps on one batch (ms per step split
+     into supervision + forward, backward and clip + optimizer, the losses
+     of every step, finite and the 10th below the 1st, peak memory, the
+     FLOPs of a step, one profiled step and its idle share), the
+     backbone's forward + backward with and without cuDNN, and `cli
+     train-matcher` on a ScanNet-layout scene written with cv2 (2 epochs,
+     top-k checkpoints, then --resume to 3 epochs); the counts set to 0 just
+     before the steps and the CLI runs and read just after: none of the
+     three kernels launches.
 The last three lines are the `kernels` JSON line (each kernel's launches on
-the main path, per eval batch, on the serving path and on the records path,
-its times and bound, and the same at the square grid for kernels 1 and 2,
-at the crop grid for kernel 2 and at N = 1025 for kernel 3), the nvidia-smi line
+the main path, per eval batch, on the serving path, on the records path and
+on the training path, its times and bound, and the same at the square grid
+for kernels 1 and 2, at the crop grid for kernel 2 and at N = 1025 for
+kernel 3), the nvidia-smi line
 and {"ok": true, "device": {...}}. A copy of the results, the full profiles
 included, goes to build/chip_smoke.json (gitignored).
 """
@@ -573,6 +586,81 @@ def frames(seed: int, n: int = 4, h: int = 480, w: int = 640) -> np.ndarray:
         img += rng.normal(0, 4, img.shape)
         out[i] = np.clip(img, 0, 255).astype(np.uint8)
     return out
+
+
+SCANNET_K = ((577.87, 0.0, 319.5), (0.0, 577.87, 239.5), (0.0, 0.0, 1.0))  # ScanNet's 640x480 depth camera
+
+
+def texture(rng, h: int, w: int, n_blobs: int = 60) -> np.ndarray:
+    """A smooth random grayscale texture in [0, 1]: a sum of Gaussian blobs
+    (something for the matcher to match)."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.zeros((h, w), np.float32)
+    scale = max(h, w) / 160
+    for _ in range(n_blobs):
+        cy, cx = rng.uniform(0, h), rng.uniform(0, w)
+        sd, a = rng.uniform(3, 12) * scale, rng.uniform(-1, 1)
+        img += a * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * sd * sd))
+    return (img - img.min()) / (img.max() - img.min())
+
+
+def planar_items(seed: int, n: int, h: int = 480, w: int = 640, shift_px: int = 50) -> list:
+    """Training items of known depth and pose, as the JAX tests' SynthScene
+    builds them at 64x64: a fronto-parallel plane at depth 2 seen by two
+    cameras a pure x-translation apart. Here image 1 is image 0's texture
+    moved by the translation's disparity (shift_px), so the GT warps hold
+    for the pixels too."""
+    rng = np.random.default_rng(seed)
+    K = np.array(SCANNET_K, np.float32)
+    T = np.eye(4, dtype=np.float32)
+    T[0, 3] = -shift_px * 2.0 / K[0, 0]  # x1 = x0 - f * b / z
+    items = []
+    for i in range(n):
+        tex = texture(rng, h, w + shift_px)
+        items.append({
+            "image0": tex[None, :, :w].copy(), "image1": tex[None, :, shift_px:].copy(),
+            "depth0": np.full((h, w), 2.0, np.float32), "depth1": np.full((h, w), 2.0, np.float32),
+            "T_0to1": T, "T_1to0": np.linalg.inv(T).astype(np.float32), "K0": K, "K1": K,
+            "pair_name": f"plane{seed}/{i}",
+        })
+    return items
+
+
+def write_scannet_scene(root, n_frames: int = 4, shift_px: int = 40, seed: int = 0) -> dict:
+    """A ScanNet-layout scene written with cv2 under `root`: scene0000_00/
+    color/<i>.jpg (gray frames, PNG-encoded: lossless), depth/<i>.png
+    (16-bit, mm), pose/<i>.txt (cam2world), an intrinsics npz and train /
+    val npz pair indices. Frame i is a 640x480 window of one wide texture
+    moved i * shift_px to the left, seen by a camera i baselines to the right
+    of frame 0's over a plane at 2 m, so the poses, depths and pixels agree.
+    Returns the CLI's paths."""
+    import cv2
+
+    root = Path(root)
+    scene = root / "scene0000_00"
+    for sub in ("color", "depth", "pose"):
+        (scene / sub).mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    h, w = 480, 640
+    tex = (texture(rng, h, w + shift_px * (n_frames - 1)) * 255).astype(np.uint8)
+    K = np.array(SCANNET_K)
+    baseline = shift_px * 2.0 / K[0, 0]
+    for i in range(n_frames):
+        ok, png = cv2.imencode(".png", np.ascontiguousarray(tex[:, i * shift_px:i * shift_px + w]))
+        (scene / "color" / f"{i}.jpg").write_bytes(png.tobytes())
+        cv2.imwrite(str(scene / "depth" / f"{i}.png"), np.full((h, w), 2000, np.uint16))
+        pose = np.eye(4)
+        pose[0, 3] = i * baseline
+        np.savetxt(scene / "pose" / f"{i}.txt", pose)
+    np.savez(root / "intrinsics.npz", scene0000_00=K)
+
+    def index(name, pairs):
+        np.savez(root / name, name=np.array([[0, 0, a, b] for a, b in pairs]), score=np.full(len(pairs), 0.6))
+        return str(root / name)
+
+    pairs = [(a, b) for a in range(n_frames) for b in range(a + 1, n_frames)]
+    return {"data_root": str(root), "intrinsic_path": str(root / "intrinsics.npz"),
+            "train_npz": index("train.npz", pairs[1:]), "val_npz": index("val.npz", pairs[:2])}
 
 
 def kernel_category(name: str) -> str:
@@ -1402,6 +1490,193 @@ def run_records_phase(counters, models):
     return row, launches
 
 
+TRAIN_B = 4  # pairs per training step at full width (cli train-matcher's default batch)
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+# card vs CPU, two steps of a small matcher, f32: the losses to rtol 1e-3;
+# each parameter's first-step gradient to 2e-2 of its norm (a ReLU input
+# within the two devices' rounding of 0 takes another side and moves a
+# tensor's gradient by up to 1e-2 of its norm; the CPU tests measured
+# pope_tpu against the port); the weights within 4 lr after two Adam steps
+# (a near-zero gradient whose sign flips moves a weight by up to 2 lr a
+# step); the BatchNorm statistics to rtol 1e-2
+TOL_TRAIN_LOSS, TOL_TRAIN_GRAD, TOL_TRAIN_STATS = 1e-3, 2e-2, 1e-2
+TRAIN_LR = 6e-3 * TRAIN_B / 64  # TrainMatcherConfig's canonical lr scaled to the batch
+
+
+def train_batch(items, dev) -> dict:
+    from pope_tpu_torch.train.matcher_driver import collate_pairs
+
+    return {k: torch.from_numpy(v).to(dev) for k, v in collate_pairs(items).items()}
+
+
+def train_card_vs_cpu() -> dict:
+    """Two train steps of a small matcher (ResNet-FPN 32/48/64, coarse d 64,
+    2 layers, fine d 32, capacity 128) on B=2 planar pairs of 96x128, on the
+    card and on the CPU from the same weights and batch."""
+    from pope_tpu_torch.config import BackboneConfig, CoarseMatchConfig, LoFTRStageConfig, MatcherConfig
+    from pope_tpu_torch.models.matcher import Matcher
+    from pope_tpu_torch.pipeline.api import init_matcher_weights
+    from pope_tpu_torch.train import trainer
+    from pope_tpu_torch.train.optim import OptimConfig
+
+    cfg = MatcherConfig(
+        backbone=BackboneConfig(initial_dim=32, block_dims=(32, 48, 64)),
+        coarse=LoFTRStageConfig(d_model=64, d_ffn=64, nhead=4, layer_names=("self", "cross")),
+        fine=LoFTRStageConfig(d_model=32, d_ffn=32, nhead=4, layer_names=("self", "cross")),
+        match_coarse=CoarseMatchConfig(match_capacity=128),
+    )
+    items = planar_items(11, 2, h=96, w=128, shift_px=16)
+    cpu = Matcher(cfg)
+    init_matcher_weights(cpu, torch.Generator().manual_seed(12))
+    runs = {}
+    for dev, model in (("cpu", cpu), (DEV, copy.deepcopy(cpu).to(DEV))):
+        state = trainer.init_matcher_train_state(model, OptimConfig(lr=1e-3, warmup_steps=0), grad_clip=0.5)
+        batch, grads, losses = train_batch(items, dev), [], []
+        apply = trainer.apply_gradients
+
+        def spy(st):
+            grads.append({n: p.grad.detach().cpu().clone() for n, p in st.model.named_parameters()})
+            apply(st)
+
+        trainer.apply_gradients = spy
+        try:
+            for _ in range(2):
+                losses.append({k: v.item() for k, v in trainer.matcher_train_step(state, batch).items()})
+        finally:
+            trainer.apply_gradients = apply
+        runs[dev] = (losses, grads[0], {k: v.cpu() for k, v in model.state_dict().items()})
+    (l_c, g_c, w_c), (l_g, g_g, w_g) = runs["cpu"], runs[DEV]
+    errs = {
+        "loss_rel": max(abs(a[k] - b[k]) / abs(a[k]) for a, b in zip(l_c, l_g) for k in a),
+        "grad_rel_norm": max(((g_g[n] - g).norm() / g.norm()).item() for n, g in g_c.items() if g.norm() > 0),
+        "weights_lr": max((w_g[n] - w).abs().max().item() for n, w in w_c.items() if "running_" not in n) / 1e-3,
+        "stats_rel": max(((w_g[n] - w).abs() / w.abs().clamp(min=1e-3)).max().item()
+                         for n, w in w_c.items() if "running_" in n),
+        "losses_cpu": l_c, "losses_card": l_g,
+    }
+    if not (errs["loss_rel"] < TOL_TRAIN_LOSS and errs["grad_rel_norm"] < TOL_TRAIN_GRAD
+            and errs["weights_lr"] <= 4.0 and errs["stats_rel"] < TOL_TRAIN_STATS):
+        raise AssertionError(f"train steps, card vs CPU disagree: {errs}")
+    return errs
+
+
+def backbone_train_ms(matcher, images) -> dict:
+    """Wall ms of the matcher backbone's forward + backward on the training
+    frames, as training runs it (convs outside cuDNN, both ways) and with
+    cuDNN's own algorithm choice, one call each after a warm-up call."""
+    from pope_tpu_torch.models.matcher.backbone import without_cudnn
+
+    def step(use_cudnn):
+        c, f = matcher.backbone(images) if not use_cudnn else matcher.backbone._forward(images)
+        loss = c.square().mean() + f.square().mean()
+        if use_cudnn:
+            loss.backward()
+        else:
+            with without_cudnn():
+                loss.backward()
+        matcher.zero_grad(set_to_none=True)
+
+    out = {}
+    for name, use_cudnn in (("port", False), ("cudnn", True)):
+        step(use_cudnn)
+        out[name] = timed_runs(lambda: step(use_cudnn), 1)[0]
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_train_phase(counters) -> dict:
+    """Matcher training on the card: MatcherConfig() in f32 at B=4 on
+    480x640 planar pairs (2 warm-up + 10 timed steps on one batch, split
+    into supervision + forward, backward, clip + optimizer; peak memory; one
+    profiled step; the FLOPs of a step), the backbone's forward + backward
+    with and without cuDNN, a small matcher's two steps against the CPU, and
+    `cli train-matcher` on a ScanNet-layout scene (2 epochs, then --resume to
+    3). The kernels' launch counts are set to 0 before the full-width steps
+    and the CLI run and read after: no attention kernel lies on this path."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from pope_tpu_torch import cli
+    from pope_tpu_torch.config import MatcherConfig
+    from pope_tpu_torch.models.matcher import Matcher
+    from pope_tpu_torch.pipeline.api import init_matcher_weights
+    from pope_tpu_torch.train import trainer
+    from pope_tpu_torch.train.optim import OptimConfig
+
+    row = {"config": "MatcherConfig() f32", "batch": TRAIN_B, "frame": [480, 640]}
+    row["card_vs_cpu"] = train_card_vs_cpu()
+
+    matcher = Matcher(MatcherConfig())
+    init_matcher_weights(matcher, torch.Generator().manual_seed(66))
+    matcher.to(DEV)
+    state = trainer.init_matcher_train_state(matcher, OptimConfig(lr=TRAIN_LR, warmup_steps=0), grad_clip=0.5)
+    batch = train_batch(planar_items(21, TRAIN_B), DEV)
+    losses, parts = [], []
+
+    def steps():
+        for k in range(TRAIN_WARMUP + TRAIN_STEPS):
+            box = {}
+            acc = wall_ms_by_part([(trainer, "train_loss", "supervision_forward"),
+                                   (trainer, "apply_gradients", "clip_optimizer")],
+                                  lambda: box.update(trainer.matcher_train_step(state, batch)))
+            losses.append({k2: v.item() for k2, v in box.items()})
+            if k >= TRAIN_WARMUP:
+                parts.append(acc)
+
+    torch.cuda.reset_peak_memory_stats()
+    _, row["steps_wall_ms"], launches, _ = counted_run(counters, steps)
+    row["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    med = lambda key: statistics.median(p[key] for p in parts)
+    row["ms_per_step"] = med("total")
+    row["parts_ms"] = {"supervision_forward": med("supervision_forward"), "clip_optimizer": med("clip_optimizer"),
+                       "backward": statistics.median(p["total"] - p["supervision_forward"] - p["clip_optimizer"]
+                                                     for p in parts)}
+    row["losses"] = losses
+    first, tenth = losses[0]["loss"], losses[9]["loss"]
+    if not (all(np.isfinite(list(m.values())).all() for m in losses) and tenth < first):
+        raise AssertionError(f"training losses not finite or not falling: {losses}")
+    with FlopCounterMode(display=False) as flops:
+        trainer.matcher_train_step(state, batch)
+    row["tflop_per_step"] = flops.get_total_flops() / 1e12
+    row["tflop_per_s"] = row["tflop_per_step"] / (row["ms_per_step"] / 1e3)
+    row["profile"] = profile_call(lambda: trainer.matcher_train_step(state, batch), row["ms_per_step"])
+    images = torch.cat([batch["image0"], batch["image1"]])
+    row["backbone_fwd_bwd_ms"] = backbone_train_ms(matcher, images)
+    del state, matcher, batch, images
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_scannet_scene(Path(tmp) / "scans", n_frames=4, shift_px=40)
+        ckpt, hist = str(Path(tmp) / "ckpt"), str(Path(tmp) / "history.json")
+        base = ["train-matcher", "--data-source", "scannet", "--data-root", paths["data_root"],
+                "--train-npz", paths["train_npz"], "--val-npz", paths["val_npz"],
+                "--intrinsic-path", paths["intrinsic_path"], "--batch-size", "2",
+                "--n-samples-per-subset", "4", "--ckpt-dir", ckpt, "--history-out", hist]
+        cli_runs = {}
+        for name, extra in (("epochs_2", ["--epochs", "2"]), ("resume_3", ["--epochs", "3", "--resume"])):
+            _, ms, cli_launches, _ = counted_run(counters, lambda: cli.main(base + extra))
+            with open(hist) as f:
+                history = json.load(f)
+            with open(Path(ckpt) / "index.json") as f:
+                index = json.load(f)
+            cli_runs[name] = {"ms": ms, "launches": cli_launches, "epochs": [h["epoch"] for h in history],
+                              "train_loss": [h["train_loss"] for h in history],
+                              "auc@10": [h["auc@10"] for h in history], "index": index,
+                              "dirs": sorted(os.listdir(ckpt))}
+            launches = {k: launches[k] + cli_launches[k] for k in launches}
+        row["cli"] = cli_runs
+    two, resumed = cli_runs["epochs_2"], cli_runs["resume_3"]
+    best = {b["name"] for b in resumed["index"]["best"]}
+    if not (two["epochs"] == [0, 1] and resumed["epochs"] == [2] and resumed["index"]["epoch"] == 3
+            and 1 <= len(best) <= 5 and best <= set(resumed["dirs"]) and "last" in resumed["dirs"]
+            and np.isfinite(two["train_loss"] + resumed["train_loss"]).all()):
+        raise AssertionError(f"cli train-matcher: {cli_runs}")
+    row["launches"] = launches
+    if any(launches.values()):
+        raise AssertionError(f"attention kernels launched on the training path: {launches}")
+    print(json.dumps({"train_phase": row}, default=str), flush=True)
+    return row
+
+
 EVAL_PAIRS_PER_BATCH, EVAL_BATCHES = 4, 4  # the eval-driver phase's dataset: 16 pairs of 640x480 frames
 BENCH_REPS = 3  # pope_tpu_torch.bench windows (of 4 batches) in this script; the bench's default is 5
 # a record's fields that must agree exactly between runs of the same pairs
@@ -1588,6 +1863,7 @@ def main() -> int:
     del models
     torch.cuda.empty_cache()
     eval_phase = run_eval_phase(counters, launches)
+    train = run_train_phase(counters)
 
     timing = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     listed = []
@@ -1599,6 +1875,7 @@ def main() -> int:
                     "serve_launches": {path: n[name] for path, n in serve_launches.items()}}
                  | {k: row[k] for k in timing + ("previous_ms",)})
         entry["records_launches"] = {path: n[name] for path, n in records_launches.items()}
+        entry["train_launches"] = train["launches"][name]
         square = kernels.get(f"{name}_square")
         if square is not None:  # the serving path's square 64x64 grid, B=1
             entry["square_64x64"] = {k: square[k] for k in timing}
@@ -1620,6 +1897,7 @@ def main() -> int:
         "stage2_reference": reference2, "solver": solver, "main_path": main_path, "serve": serve,
         "records": records,
         "eval": eval_phase,
+        "train": train,
         "summary": summary,
     }, indent=1))
 

@@ -9,6 +9,8 @@ Usage:
   python -m pope_tpu_torch.cli demo-3dbbox --prompt prompt.png --target target.png
   python -m pope_tpu_torch.cli demo-web --image frame.png --port 8081
   python -m pope_tpu_torch.cli serve-pose --batch-size 4 --port 8082
+  python -m pope_tpu_torch.cli train-matcher --data-source scannet --data-root scans \
+      --train-npz train.npz --val-npz val.npz --intrinsic-path intrinsics.npz --ckpt-dir ckpt
 
 Runs on the CUDA card unless `--device cpu` is given; without a GPU the
 default raises.
@@ -197,6 +199,14 @@ def cmd_serve_pose(args):
         service.shutdown(drain=False)
 
 
+def cmd_train_matcher(args):
+    """The LoFTR matcher's training on multi-scene data with auc@10-monitored
+    top-k checkpoints (scripts/train.py)."""
+    from pope_tpu_torch.train.matcher_driver import train_main
+
+    train_main(args)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="pope_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -283,6 +293,34 @@ def main(argv=None):
     pv.add_argument("--crop-size", type=int, default=256)
     _add_model_args(pv)
     pv.set_defaults(fn=cmd_serve_pose)
+
+    ptm = sub.add_parser(
+        "train-matcher",
+        help="train the LoFTR matcher on multi-scene data with auc@10-monitored checkpointing "
+        "(scripts/train.py equivalent)",
+    )
+    ptm.add_argument("--data-source", default="megadepth", choices=["megadepth", "scannet"])
+    ptm.add_argument("--data-root", required=True)
+    ptm.add_argument("--train-npz", nargs="+", required=True, help="one npz scene index per training scene")
+    ptm.add_argument("--val-npz", nargs="+", required=True)
+    ptm.add_argument("--intrinsic-path", default=None, help="scannet per-scene intrinsics npz")
+    ptm.add_argument("--min-overlap-score", type=float, default=0.4)
+    ptm.add_argument("--img-resize", type=int, default=840, help="megadepth longest-side resize (IMG_RESIZE)")
+    ptm.add_argument("--depth-max-size", type=int, default=2000)
+    ptm.add_argument("--batch-size", type=int, default=4, help="global batch per step (lr scales with it)")
+    ptm.add_argument("--epochs", type=int, default=30)
+    ptm.add_argument("--n-samples-per-subset", type=int, default=200)
+    ptm.add_argument("--canonical-lr", type=float, default=6e-3)
+    ptm.add_argument("--warmup-steps", type=int, default=4800)
+    ptm.add_argument("--epi-err-thr", type=float, default=5e-4, help="5e-4 for ScanNet, 1e-4 for MegaDepth")
+    ptm.add_argument("--dp", type=int, default=1, help="data-parallel size (not ported yet: must be 1)")
+    ptm.add_argument("--tp", type=int, default=1, help="tensor-parallel size (not ported yet: must be 1)")
+    ptm.add_argument("--ckpt-dir", default=None)
+    ptm.add_argument("--resume", action="store_true", help="continue from <ckpt-dir>/last at the saved epoch")
+    ptm.add_argument("--history-out", default=None, help="write the per-epoch train/val metric history json")
+    ptm.add_argument("--seed", type=int, default=66)
+    ptm.add_argument("--device", default=None, help="torch device, default cuda")
+    ptm.set_defaults(fn=cmd_train_matcher)
 
     args = ap.parse_args(argv)
     args.fn(args)

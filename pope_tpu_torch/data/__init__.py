@@ -1,3 +1,4 @@
-"""Input pipeline: threaded host-side prefetch and frame IO."""
+"""Input pipeline: threaded host-side prefetch, device prefetch, frame IO,
+and the matcher-training scene datasets."""
 
-from pope_tpu_torch.data.loader import ThreadedLoader
+from pope_tpu_torch.data.loader import DevicePrefetcher, ThreadedLoader

@@ -1,19 +1,21 @@
-"""Host-side prefetch for the eval driver (port of pope_tpu/data/loader.py's
-ThreadedLoader, without JAX).
+"""Host-side prefetch (port of pope_tpu/data/loader.py, without JAX).
 
 Reference behavior: pose/pose_utils.py:99-155 `data_prefetcher` overlaps
 host loading with device compute. Here a thread (or a pool of them) decodes
 and uploads batches ahead of the consumer; the eval driver's `prepare_batch`
 issues its host-to-device copies on a copy stream of its own from that
-thread (pipeline/runner.py). The JAX package's DevicePrefetcher serves only
-the training paths and comes with them.
+thread (pipeline/runner.py). DevicePrefetcher, which the matcher-training
+driver uses, uploads dicts of host arrays one batch ahead the same way.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, Iterable, Iterator, Optional
+from typing import Callable, Dict, Iterable, Iterator, Optional
+
+import numpy as np
+import torch
 
 
 class _Raise:
@@ -130,3 +132,47 @@ class ThreadedLoader:
             if isinstance(out, _Raise):
                 raise out.exc
             yield out
+
+
+class DevicePrefetcher:
+    """Wraps an iterator of {name: numpy array} batches and uploads each one
+    batch ahead of the consumer: batch k + 1's upload is issued before batch
+    k is handed out. On CUDA a batch goes through pinned host memory on a
+    copy stream of its own, and the consumer's stream waits on that stream's
+    event before it gets the tensors (as pipeline/runner.py's upload_frames
+    does); on the CPU the arrays become tensors in place."""
+
+    def __init__(self, batches: Iterable, device):
+        self._batches = batches
+        self._device = torch.device(device)
+
+    def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+        pending = None
+        for batch in self._batches:
+            ahead = self._put(batch)
+            if pending is not None:
+                yield self._ready(*pending)
+            pending = ahead
+        if pending is not None:
+            yield self._ready(*pending)
+
+    def _put(self, batch):
+        if self._device.type != "cuda":
+            return {k: torch.from_numpy(np.asarray(v)).to(self._device) for k, v in batch.items()}, None
+        stream = torch.cuda.Stream(device=self._device)
+        with torch.cuda.stream(stream):
+            out = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory().to(self._device, non_blocking=True)
+                   for k, v in batch.items()}
+            done = torch.cuda.Event()
+            done.record(stream)
+        return out, done
+
+    def _ready(self, batch, done):
+        if done is not None:
+            # the tensors were allocated on the copy stream: tell the
+            # allocator that the consumer's stream uses them
+            stream = torch.cuda.current_stream(self._device)
+            stream.wait_event(done)
+            for t in batch.values():
+                t.record_stream(stream)
+        return batch

@@ -1,5 +1,6 @@
 """Crop geometry, epipolar geometry and pose algebra (port of
-pope_tpu/geometry: the parts the retrieve -> match -> solve stage uses)."""
+pope_tpu/geometry: the parts the retrieve -> match -> solve stage and the
+matcher's validation use)."""
 
 from pope_tpu_torch.geometry.affine import (
     crop_resize_bilinear,
@@ -7,7 +8,14 @@ from pope_tpu_torch.geometry.affine import (
     get_image_crop_resize,
     get_K_crop_resize,
 )
-from pope_tpu_torch.geometry.epipolar import normalize_keypoints, sampson_distance, triangulate_midpoint
+from pope_tpu_torch.geometry.epipolar import (
+    compute_symmetric_epipolar_errors,
+    essential_from_Rt,
+    normalize_keypoints,
+    sampson_distance,
+    symmetric_epipolar_distance,
+    triangulate_midpoint,
+)
 from pope_tpu_torch.geometry.pose import (
     project_points,
     relative_pose_error,

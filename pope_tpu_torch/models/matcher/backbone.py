@@ -2,8 +2,9 @@
 
 7x7/2 stem -> three residual stages at 1/2, 1/4, 1/8 -> top-down FPN with
 align-corners 2x upsampling; outputs the 1/8 coarse and 1/2 fine features.
-Bias-free convs with eval-mode BatchNorm (running statistics, eps 1e-5),
-computed in f32 as flax's BatchNorm(dtype=float32) is. The JAX package is
+Bias-free convs with BatchNorm (eps 1e-5; running statistics in eval
+mode, batch statistics in train mode), computed in f32 as flax's
+BatchNorm(dtype=float32) is. The JAX package is
 NHWC; here the backbone runs NCHW inside and takes and returns NHWC, with
 its convs outside cuDNN (`without_cudnn`).
 """
@@ -40,12 +41,20 @@ def conv(layer: nn.Conv2d, x, dtype):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over NCHW channels, flax's arithmetic:
-    (x - mean) * (rsqrt(var + eps) * scale) + bias, in f32."""
+    """BatchNorm over NCHW channels with flax's arithmetic, in f32:
+    (x - mean) * (rsqrt(var + eps) * scale) + bias.
 
-    def __init__(self, dim: int, eps: float = 1e-5):
+    Eval mode uses the running statistics. Train mode uses the batch's over
+    (N, H, W), as flax computes them: var = E[x^2] - E[x]^2 clipped at 0
+    (biased), and updates the running statistics with flax's momentum 0.9,
+    running = 0.9 * running + 0.1 * batch, with that biased variance
+    (F.batch_norm keeps the unbiased one, and its momentum is the other
+    side's weight)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("running_mean", torch.zeros(dim))
@@ -53,8 +62,17 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         c = lambda t: t.float()[None, :, None, None]
-        mul = torch.rsqrt(c(self.running_var) + self.eps) * c(self.weight)
-        return (x.float() - c(self.running_mean)) * mul + c(self.bias)
+        x = x.float()
+        if self.training:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp(x.square().mean(dim=(0, 2, 3)) - mean.square(), min=0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
+                self.running_var.mul_(self.momentum).add_((1 - self.momentum) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(c(var) + self.eps) * c(self.weight)
+        return (x - c(mean)) * mul + c(self.bias)
 
 
 class ConvBN(nn.Module):

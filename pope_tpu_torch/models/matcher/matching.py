@@ -1,7 +1,7 @@
 """Coarse dual-softmax matching and fine sub-pixel refinement with
-fixed-capacity outputs (port of pope_tpu/models/matcher/matching.py,
-inference: the sinkhorn assignment and the train-time GT padding are not
-ported).
+fixed-capacity outputs, the sinkhorn assignment with a learned dustbin and
+the train-time GT padding of the fine stage's samples (port of
+pope_tpu/models/matcher/matching.py).
 
 Ties break as the JAX package breaks them: the capacity cut is a stable
 descending sort (jax.lax.top_k keeps the lower index first), argmax takes
@@ -65,6 +65,92 @@ def coarse_matching(conf, hw0_c, hw1_c, thr: float = 0.2, border_rm: int = 2,
     mconf = torch.where(valid, top_conf, torch.zeros_like(top_conf))
     n_dropped = (score > 0.0).sum(dim=1) - valid.sum(dim=1)
     return CoarseMatches(i_ids=i_ids, j_ids=j_ids, mconf=mconf, valid=valid, n_dropped=n_dropped)
+
+
+def sinkhorn_confidence(feat_c0, feat_c1, bin_score, iters: int = 3, prefilter: bool = True):
+    """Optimal-transport coarse assignment with a learned dustbin: the
+    log-domain Sinkhorn with uniform marginals, real rows and columns of mass
+    1 and each dustbin of the other side's count.
+
+    feat (B, L, C) / (B, S, C), bin_score a scalar tensor -> (B, L, S)
+    confidence (the dustbin row and column stripped). With `prefilter` (the
+    eval-time setting), rows and columns whose transport argmax is the
+    dustbin are zeroed."""
+    B, L, C = feat_c0.shape
+    S = feat_c1.shape[1]
+    sim = torch.einsum("blc,bsc->bls", feat_c0 / C ** 0.5, feat_c1 / C ** 0.5)
+    alpha = bin_score.to(sim.dtype)
+    Z = torch.cat([
+        torch.cat([sim, alpha.expand(B, L, 1)], dim=-1),
+        torch.cat([alpha.expand(B, 1, S), alpha.expand(B, 1, 1)], dim=-1),
+    ], dim=1)  # (B, L+1, S+1)
+
+    dev = sim.device
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    norm = -torch.log(f32(float(L + S)))
+    log_mu = torch.cat([norm.expand(L), (torch.log(f32(float(S))) + norm)[None]])
+    log_nu = torch.cat([norm.expand(S), (torch.log(f32(float(L))) + norm)[None]])
+    u = torch.zeros(B, L + 1, dtype=Z.dtype, device=dev)
+    v = torch.zeros(B, S + 1, dtype=Z.dtype, device=dev)
+    for _ in range(iters):
+        u = log_mu[None] - torch.logsumexp(Z + v[:, None, :], dim=2)
+        v = log_nu[None] - torch.logsumexp(Z + u[:, :, None], dim=1)
+    assign = torch.exp(Z + u[:, :, None] + v[:, None, :] - norm)
+    conf = assign[:, :L, :S]
+    if prefilter:
+        row_bin = assign[:, :L, :].argmax(dim=2) == S  # (B, L)
+        col_bin = assign[:, :, :S].argmax(dim=1) == L  # (B, S)
+        conf = conf * (~row_bin[:, :, None]) * (~col_bin[:, None, :])
+    return conf
+
+
+def gt_pad_matches(cm: CoarseMatches, gt_valid, gt_j_of_i, gt_min: int, noise=None) -> CoarseMatches:
+    """Train-time GT padding of the fine stage's sample set: the last
+    `gt_min` capacity slots, and every slot whose prediction is invalid, take
+    ground-truth coarse matches (mconf 0), so that the fine stage trains on
+    supervised windows while the predictions are still noise. Predictions
+    keep their top-confidence order.
+
+    gt_valid (B, L) bool rows with a GT match; gt_j_of_i (B, L) the GT column
+    of each row; noise: an optional (B, L) tensor of U[0, 1) draws that
+    decides which GT matches pad (the JAX package draws it from a key);
+    without it a fixed hash of the row index does, so that padding does not
+    always take the top-left cells."""
+    B, M = cm.i_ids.shape
+    L = gt_valid.shape[1]
+    dev = gt_valid.device
+    if noise is None:
+        # Knuth's multiplicative hash in uint32 arithmetic (int64, masked)
+        h = (torch.arange(L, dtype=torch.int64, device=dev) * 2654435761) & 0xFFFFFFFF
+        noise = ((h % 65536).float() / 65536.0)[None, :].expand(B, L)
+    gt_score = torch.where(gt_valid, 1.0 + noise.float(), torch.full((B, L), -1.0, device=dev))
+    k = min(M, L)
+    gt_top, gt_rows = torch.sort(gt_score, dim=1, descending=True, stable=True)
+    gt_top, gt_rows = gt_top[:, :k], gt_rows[:, :k]
+    if k < M:  # capacity above the grid size: cycle
+        reps = -(-M // k)
+        gt_top, gt_rows = gt_top.repeat(1, reps)[:, :M], gt_rows.repeat(1, reps)[:, :M]
+    gt_ok = gt_top > 0.0
+    gt_cols = gt_j_of_i.gather(1, gt_rows)
+
+    slot = torch.arange(M, device=dev)
+    use_gt = (slot[None, :] >= M - gt_min) | ~cm.valid
+    # the k-th GT slot takes the k-th ranked GT match, cycling when there are
+    # fewer GT matches than slots (the reference pads by sampling with
+    # replacement)
+    gt_rank = torch.clamp(torch.cumsum(use_gt.to(torch.int64), dim=1) - 1, 0, M - 1)
+    n_gt = gt_valid.sum(dim=1, keepdim=True)
+    gt_rank = torch.where(n_gt > 0, gt_rank % torch.clamp(n_gt, min=1), gt_rank)
+    gi = gt_rows.gather(1, gt_rank)
+    gj = gt_cols.gather(1, gt_rank)
+    gv = gt_ok.gather(1, gt_rank)
+    return CoarseMatches(
+        i_ids=torch.where(use_gt, gi, cm.i_ids),
+        j_ids=torch.where(use_gt, gj, cm.j_ids),
+        mconf=torch.where(use_gt, torch.zeros_like(cm.mconf), cm.mconf),
+        valid=torch.where(use_gt, gv, cm.valid),
+        n_dropped=cm.n_dropped,
+    )
 
 
 def matches_to_coords(ids, w_c: int, scale: float):

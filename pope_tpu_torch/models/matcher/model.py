@@ -1,10 +1,12 @@
 """Top-level LoFTR-style matcher, static shapes end to end (port of
-pope_tpu/models/matcher/model.py, inference).
+pope_tpu/models/matcher/model.py).
 
-backbone -> + position encoding -> coarse transformer -> dual-softmax
-coarse matching -> fine windows (+ projected coarse context) -> fine
-transformer -> sub-pixel refinement. Every output is a fixed-capacity
-(B, M, ...) tensor with a validity mask.
+backbone -> + position encoding -> coarse transformer -> dual-softmax (or
+sinkhorn) coarse matching [-> GT padding in training] -> fine windows (+
+projected coarse context) -> fine transformer -> sub-pixel refinement.
+Every output is a fixed-capacity (B, M, ...) tensor with a validity mask.
+`.train()` mode is the JAX package's train=True: batch statistics in the
+backbone's BatchNorms and no sinkhorn prefilter.
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ from pope_tpu_torch.models.matcher.matching import (
     dual_softmax_confidence,
     extract_fine_windows,
     fine_matching,
+    gt_pad_matches,
     matches_to_coords,
+    sinkhorn_confidence,
 )
 from pope_tpu_torch.models.matcher.transformer import LocalFeatureTransformer, sine_position_encoding
 
@@ -61,10 +65,8 @@ class Matcher(nn.Module):
     def __init__(self, config: MatcherConfig = MatcherConfig()):
         super().__init__()
         cfg = config
-        if cfg.match_coarse.match_type != "dual_softmax":
-            raise NotImplementedError(
-                f"match_type={cfg.match_coarse.match_type!r}: the port implements dual_softmax only"
-            )
+        if cfg.match_coarse.match_type not in ("dual_softmax", "sinkhorn"):
+            raise ValueError(f"unknown match_type {cfg.match_coarse.match_type!r}")
         self.config = cfg
         dtype = getattr(torch, cfg.dtype)
         d1, _, d3 = cfg.backbone.block_dims
@@ -81,6 +83,8 @@ class Matcher(nn.Module):
         self.loftr_fine = LocalFeatureTransformer(
             d_f, cfg.fine.nhead, cfg.fine.layer_names, cfg.fine.attention, torch.float32
         )
+        if cfg.match_coarse.match_type == "sinkhorn":
+            self.bin_score = nn.Parameter(torch.tensor(float(cfg.match_coarse.skh_init_bin_score)))
 
     def _features(self, image0, image1):
         """Backbone features (coarse, fine) of both sides and the number of
@@ -95,7 +99,12 @@ class Matcher(nn.Module):
         c1, f1 = self.backbone(image1)
         return c0, f0, c1, f1, B1 // B0
 
-    def forward(self, image0, image1, return_aux: bool = False) -> MatchResult:
+    def forward(self, image0, image1, return_aux: bool = False, gt_valid=None, gt_j_of_i=None,
+                gt_pad_noise=None) -> MatchResult:
+        """gt_valid (B, L) bool / gt_j_of_i (B, L): the GT coarse matches of
+        train/supervision.spvs_coarse; when given, they pad the fine stage's
+        samples (gt_pad_matches, with gt_pad_noise (B, L) U[0, 1) draws or
+        its fixed hash)."""
         cfg = self.config
         feat_c0, feat_f0, feat_c1, feat_f1, group = self._features(image0, image1)
         B0, h0c, w0c, C = feat_c0.shape
@@ -110,10 +119,17 @@ class Matcher(nn.Module):
         f0 = f0.repeat_interleave(group, dim=0)  # the layers make them differ
         f0, f1 = self.loftr_coarse(f0, f1)
 
-        conf = dual_softmax_confidence(f0.float(), f1.float(), cfg.match_coarse.dsmax_temperature)
         mc = cfg.match_coarse
+        if mc.match_type == "sinkhorn":
+            conf = sinkhorn_confidence(f0.float(), f1.float(), self.bin_score, iters=mc.skh_iters,
+                                       prefilter=not self.training)
+        else:
+            conf = dual_softmax_confidence(f0.float(), f1.float(), mc.dsmax_temperature)
         cm = coarse_matching(conf, (h0c, w0c), (h1c, w1c), thr=mc.thr, border_rm=mc.border_rm,
                              capacity=mc.match_capacity)
+        if gt_valid is not None:
+            gt_min = min(mc.train_pad_num_gt_min, mc.match_capacity // 2)
+            cm = gt_pad_matches(cm, gt_valid, gt_j_of_i, gt_min, noise=gt_pad_noise)
 
         # fine stage, f32
         W = cfg.fine_window_size

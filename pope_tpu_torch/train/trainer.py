@@ -1,0 +1,78 @@
+"""The matcher's supervised training step (port of
+pope_tpu/train/trainer.py, one device): coarse supervision -> the matcher
+in train mode with GT padding -> fine supervision at the ids the fine stage
+used -> loss -> backward -> global-norm clip -> optimizer and schedule step.
+The (dp, tp)-sharded step waits for the parallelism slice."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+import torch.nn as nn
+
+from pope_tpu_torch.models.matcher.backbone import without_cudnn
+from pope_tpu_torch.train.loss import LossConfig, matcher_loss
+from pope_tpu_torch.train.optim import OptimConfig, build_optimizer, clip_by_global_norm_
+from pope_tpu_torch.train.supervision import spvs_coarse, spvs_fine
+
+
+@dataclasses.dataclass
+class MatcherTrainState:
+    """The model (its parameters and BatchNorm statistics), the optimizer,
+    the lr schedule, the clip norm (None: no clipping) and the count of
+    steps taken."""
+
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LRScheduler
+    grad_clip: Optional[float] = None
+    step: int = 0
+
+
+def init_matcher_train_state(matcher: nn.Module, ocfg: OptimConfig = OptimConfig(),
+                             grad_clip: Optional[float] = None) -> MatcherTrainState:
+    optimizer, scheduler = build_optimizer(list(matcher.parameters()), ocfg)
+    return MatcherTrainState(matcher, optimizer, scheduler, grad_clip)
+
+
+def train_loss(matcher: nn.Module, batch: Dict[str, torch.Tensor], loss_cfg: LossConfig = LossConfig()):
+    """Supervision and the train-mode forward: (total loss, metrics). The GT
+    coarse matches pad the fine stage's samples inside the forward: early in
+    training the predictions are noise, and without them the fine loss has
+    almost no signal. batch: image0 / image1 (B, H, W, 1), depth0 / depth1,
+    T_0to1 / T_1to0 (B, 4, 4), K0 / K1, optional scale0 / scale1 and
+    gt_pad_noise (B, L)."""
+    cfg = matcher.config
+    with torch.no_grad():
+        spv = spvs_coarse(batch, cfg.coarse_stride)
+    result = matcher(batch["image0"], batch["image1"], return_aux=True, gt_valid=spv["spv_valid"],
+                     gt_j_of_i=spv["spv_j_of_i"], gt_pad_noise=batch.get("gt_pad_noise"))
+    expec_f_gt = spvs_fine(spv, result.i_ids, result.j_ids, cfg.fine_stride, cfg.fine_window_size)
+    return matcher_loss(result, spv, expec_f_gt, loss_cfg)
+
+
+def apply_gradients(state: MatcherTrainState) -> None:
+    """Clip (optax's clip_by_global_norm arithmetic), step the optimizer and
+    the schedule."""
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    if state.grad_clip is not None:
+        clip_by_global_norm_(params, state.grad_clip)
+    state.optimizer.step()
+    state.scheduler.step()
+
+
+def matcher_train_step(state: MatcherTrainState, batch: Dict[str, torch.Tensor],
+                       loss_cfg: LossConfig = LossConfig()) -> Dict[str, torch.Tensor]:
+    """One supervised step in place; returns the metrics (loss, loss_coarse,
+    loss_fine) as detached 0-dim tensors, without a host sync. The backward
+    runs its convs outside cuDNN, as the forward does (backbone.py)."""
+    state.model.train()
+    state.optimizer.zero_grad(set_to_none=True)
+    total, metrics = train_loss(state.model, batch, loss_cfg)
+    with without_cudnn():
+        total.backward()
+    apply_gradients(state)
+    state.step += 1
+    return {k: v.detach() for k, v in metrics.items()}

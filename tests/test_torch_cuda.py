@@ -639,3 +639,23 @@ def test_native_library_builds_here(card):
     assert native.available()
     assert native.rle_encode(mask) == mask_to_rle(mask)
     assert np.array_equal(native.rle_decode(native.rle_encode(mask)), mask)
+
+
+def test_train_steps_on_card_match_cpu(card):
+    """Two train steps of a small matcher on the card against the CPU from
+    the same weights and batch (chip_smoke.py's check and tolerances: the
+    losses, the first step's gradients, the weights and the BatchNorm
+    statistics after both)."""
+    import chip_smoke
+
+    errs = chip_smoke.train_card_vs_cpu()
+    assert errs["grad_rel_norm"] < chip_smoke.TOL_TRAIN_GRAD
+
+
+def test_device_prefetcher_uploads_in_order(card):
+    from pope_tpu_torch.data import DevicePrefetcher
+
+    batches = [{"a": np.full((4, 5), i, np.float32), "n": np.arange(3) + i} for i in range(5)]
+    out = [{k: v.cpu() for k, v in b.items()} for b in DevicePrefetcher(iter(batches), card)]
+    assert [int(b["a"][0, 0]) for b in out] == list(range(5))
+    assert all(torch.equal(b["n"], torch.arange(3) + i) for i, b in enumerate(out))

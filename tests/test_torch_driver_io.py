@@ -309,7 +309,7 @@ def test_entry_points_need_a_gpu(tmp_path):
 
 _BOUNDARY = r"""
 import importlib, importlib.abc, pkgutil, sys
-BANNED = ("jax", "jaxlib", "flax", "pope_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "pope_tpu")
 for m in list(sys.modules):
     if m.split(".")[0] in BANNED:
         del sys.modules[m]
@@ -327,7 +327,9 @@ for name in names:
     importlib.import_module(name)
 serving = ["pope_tpu_torch.serve", "pope_tpu_torch.serve.pose_service", "pope_tpu_torch.serve.web_demo",
            "pope_tpu_torch.export", "pope_tpu_torch.models.sam.predictor"]
-assert "pope_tpu_torch.bench" in names and "pope_tpu_torch.cli" in names and set(serving) <= set(names)
+training = ["pope_tpu_torch.train." + m for m in ("supervision", "loss", "optim", "trainer", "matcher_driver")]
+training += ["pope_tpu_torch.data.readers", "pope_tpu_torch.data.scenes", "pope_tpu_torch.utils.checkpoint"]
+assert "pope_tpu_torch.bench" in names and "pope_tpu_torch.cli" in names and set(serving + training) <= set(names)
 leaked = [m for m in sys.modules if m.split(".")[0] in BANNED]
 assert not leaked, leaked
 print(len(names))
@@ -336,8 +338,9 @@ print(len(names))
 
 def test_port_imports_nothing_of_jax():
     """Every module of pope_tpu_torch (its bench, CLI, serving modules,
-    prompt head and predictor included), its tools and chip_smoke.py import
-    in a process that refuses jax, flax and pope_tpu."""
+    prompt head, predictor and training modules included), its tools and
+    chip_smoke.py import in a process that refuses jax, flax, optax, orbax
+    and pope_tpu."""
     out = subprocess.run([sys.executable, "-c", _BOUNDARY], cwd=REPO, capture_output=True, text=True,
                          timeout=300, env={**os.environ, "PYTHONPATH": str(REPO)})
     assert out.returncode == 0, out.stderr[-3000:]
