@@ -97,19 +97,42 @@ Phases, each of which raises on failure (exit code != 0):
      top-k checkpoints, then --resume to 3 epochs); the counts set to 0 just
      before the steps and the CLI runs and read just after: none of the
      three kernels launches.
+ 12. export (run_export_phase): the four serving programs at full width,
+     each exported with torch.export, saved under build/export/, loaded
+     with load_exported and run against the eager module on the same
+     inputs: the SAM ViT-H prompt head at 480x640 with 8 slots (all four
+     tokens and the single-mask variant), the decoder, the matcher
+     (MatcherConfig(), threshold 0) at 480x640 against a 256 crop and
+     DINOv2 at 196; each call's launches (DINOv2: 12 of kernel 3 through
+     its 12 `pope::flash_attention` nodes, the others 0), ms and transient
+     peak memory eager and exported; the exported matcher within
+     EXPORT_PEAK_MARGIN of the eager peak and 2x its time (its convs stay
+     outside cuDNN in the program);
+ 13. pose regressor (run_regressor_phase): a small 'mkpts+vim' step on the
+     card against the CPU; RegressorConfig() at B=8 in three modes
+     ('mkpts', 'mkpts+imgs' with ConvNeXtV2-large, 'mkpts+vim' with the
+     frozen Vim-small and the transformer fusion), 2 warm-up and 10 timed
+     steps each (forward, backward, optimizer; peak memory; FLOPs; the
+     eval loss falls; no kernel launches); Vim-small's forward and the
+     selective scan's share; a DINOv2Poser forward (24 launches of kernel
+     3); `cli extract` on 4 of the bench's pairs (28 + 4 + 24 launches a
+     pair; seeded weights write none), then `cli train-regressor` (2
+     epochs) and `cli test-regressor` over synthetic dumps of known poses.
 The last three lines are the `kernels` JSON line (each kernel's launches on
-the main path, per eval batch, on the serving path, on the records path and
-on the training path, its times and bound, and the same at the square grid
-for kernels 1 and 2, at the crop grid for kernel 2 and at N = 1025 for
-kernel 3), the nvidia-smi line
+the main path, per eval batch, on the serving path, on the records path, on
+the training path, per exported program and on the regressor's paths, its
+times and bound, and the same at the square grid for kernels 1 and 2, at
+the crop grid for kernel 2 and at N = 1025 for kernel 3), the nvidia-smi line
 and {"ok": true, "device": {...}}. A copy of the results, the full profiles
 included, goes to build/chip_smoke.json (gitignored).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import io
 import json
 import os
 import re
@@ -819,6 +842,22 @@ def stage2_times(run, args) -> dict:
     return acc
 
 
+@contextlib.contextmanager
+def cudnn_convs():
+    """The matcher backbone's convs through F.conv2d, with cuDNN's own
+    algorithm choice, for the comparisons of matcher_backbone_ms and
+    backbone_train_ms (the port runs them outside cuDNN on the card:
+    backbone.native_conv2d)."""
+    from pope_tpu_torch.models.matcher import backbone
+
+    native = backbone.native_conv2d
+    backbone.native_conv2d = lambda x, w, stride, padding: torch.nn.functional.conv2d(x, w, None, stride, padding)
+    try:
+        yield
+    finally:
+        backbone.native_conv2d = native
+
+
 def matcher_backbone_ms(matcher, prompts) -> dict:
     """Wall ms of the matcher backbone on the gray prompt frames as the port
     runs it (convs outside cuDNN) and with cuDNN's own algorithm choice, one
@@ -828,9 +867,10 @@ def matcher_backbone_ms(matcher, prompts) -> dict:
     gray = _rgb01_to_gray(_to_rgb01(prompts))[..., None]
     out = {}
     with torch.no_grad():
-        for name, fn in (("port", matcher.backbone), ("cudnn", matcher.backbone._forward)):
-            fn(gray)
-            out[name] = timed_runs(lambda: fn(gray), 1)[0]
+        for name, convs in (("port", contextlib.nullcontext), ("cudnn", cudnn_convs)):
+            with convs():
+                matcher.backbone(gray)
+                out[name] = timed_runs(lambda: matcher.backbone(gray), 1)[0]
     torch.cuda.empty_cache()
     return out
 
@@ -1564,22 +1604,16 @@ def backbone_train_ms(matcher, images) -> dict:
     """Wall ms of the matcher backbone's forward + backward on the training
     frames, as training runs it (convs outside cuDNN, both ways) and with
     cuDNN's own algorithm choice, one call each after a warm-up call."""
-    from pope_tpu_torch.models.matcher.backbone import without_cudnn
-
-    def step(use_cudnn):
-        c, f = matcher.backbone(images) if not use_cudnn else matcher.backbone._forward(images)
-        loss = c.square().mean() + f.square().mean()
-        if use_cudnn:
-            loss.backward()
-        else:
-            with without_cudnn():
-                loss.backward()
+    def step():
+        c, f = matcher.backbone(images)
+        (c.square().mean() + f.square().mean()).backward()
         matcher.zero_grad(set_to_none=True)
 
     out = {}
-    for name, use_cudnn in (("port", False), ("cudnn", True)):
-        step(use_cudnn)
-        out[name] = timed_runs(lambda: step(use_cudnn), 1)[0]
+    for name, convs in (("port", contextlib.nullcontext), ("cudnn", cudnn_convs)):
+        with convs():
+            step()
+            out[name] = timed_runs(step, 1)[0]
     torch.cuda.empty_cache()
     return out
 
@@ -1634,7 +1668,9 @@ def run_train_phase(counters) -> dict:
     first, tenth = losses[0]["loss"], losses[9]["loss"]
     if not (all(np.isfinite(list(m.values())).all() for m in losses) and tenth < first):
         raise AssertionError(f"training losses not finite or not falling: {losses}")
-    with FlopCounterMode(display=False) as flops:
+    # the same products through F.conv2d: FlopCounterMode's formula for
+    # aten._slow_conv2d_forward takes convolution's arguments and fails
+    with cudnn_convs(), FlopCounterMode(display=False) as flops:
         trainer.matcher_train_step(state, batch)
     row["tflop_per_step"] = flops.get_total_flops() / 1e12
     row["tflop_per_s"] = row["tflop_per_step"] / (row["ms_per_step"] / 1e3)
@@ -1821,6 +1857,377 @@ def run_eval_phase(counters, per_batch_counts):
     return row
 
 
+EXPORT_ORIG_HW = (480, 640)  # cli export's default frame
+EXPORT_POINTS = 8  # the prompt heads' slots (cli export's --num-points)
+EXPORT_REPS = 5  # timed calls of each program, eager and exported
+# the exported matcher's transient peak may exceed the eager one's by this
+# much: the cuDNN FFT algorithms the backbone avoids take tens of GB
+EXPORT_PEAK_MARGIN = lambda eager_bytes: 0.1 * eager_bytes + 256 * 2 ** 20
+# an exported program against the eager module on the same inputs: the
+# same aten ops, so the same kernels up to a library's other algorithm
+TOL_EXPORT_REL = 1e-5
+
+
+def call_stats(fn, reps: int = EXPORT_REPS) -> dict:
+    """fn()'s median wall ms over reps calls after a warm-up, and the
+    transient peak of one call above what was allocated before it."""
+    fn()
+    torch.cuda.synchronize()
+    ms = statistics.median(timed_runs(fn, reps))
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return {"ms": ms, "peak_bytes": torch.cuda.max_memory_allocated() - base}
+
+
+def export_row(name, blob_fn, module, args, counters, check, path: Path) -> dict:
+    """Export `module` (blob_fn writes the .pt2 to `path`), load it with
+    load_exported, run both on args: the kernels' launches of one exported
+    call, the outputs' agreement (check(out, ref) -> dict, raises), and each
+    one's ms and transient peak."""
+    from pope_tpu_torch.export import load_exported
+
+    t0 = time.perf_counter()
+    blob_fn(str(path))
+    export_s = time.perf_counter() - t0
+    program = load_exported(str(path)).module()
+    with torch.no_grad():
+        ref = module(*args)
+        out, _, launches, by_design = counted_run(counters, lambda: program(*args))
+        row = {"program": name, "bytes": path.stat().st_size, "export_s": export_s, "launches": launches,
+               "launches_by_design": by_design, "agreement": check(out, ref),
+               "eager": call_stats(lambda: module(*args)), "exported": call_stats(lambda: program(*args))}
+    return row
+
+
+def rel_err(out, ref) -> float:
+    outs, refs = (out, ref) if isinstance(out, (tuple, list)) else ((out,), (ref,))
+    errs = [((o.float() - r.float()).abs().max() / r.float().abs().max().clamp(min=1e-12)).item()
+            for o, r in zip(outs, refs) if o.is_floating_point()]
+    return max(errs)
+
+
+def check_rel(name):
+    def check(out, ref):
+        err = rel_err(out, ref)
+        if not err <= TOL_EXPORT_REL:
+            raise AssertionError(f"exported {name}: max |out - eager| / max |eager| = {err}")
+        return {"max_rel_err": err, "tol": TOL_EXPORT_REL}
+    return check
+
+
+def check_matcher(out, ref):
+    mk0, mk1, mconf, valid = out
+    same = (valid == ref[3]).float().mean().item()
+    both = valid & ref[3]
+    px = max((mk0 - ref[0])[both].abs().max().item() if both.any() else 0.0,
+             (mk1 - ref[1])[both].abs().max().item() if both.any() else 0.0)
+    conf = (mconf - ref[2])[both].abs().max().item() if both.any() else 0.0
+    if same < MIN_SAME_MATCHES or px > TOL_MKPTS_PX or conf > TOL_CONF or not valid.any():
+        raise AssertionError(f"exported matcher: valid agree {same}, max px {px}, max conf {conf}")
+    return {"valid_agree": same, "max_px": px, "max_conf": conf, "n_valid": int(valid.sum()),
+            "tol_px": TOL_MKPTS_PX, "tol_conf": TOL_CONF}
+
+
+def run_export_phase(counters) -> dict:
+    """The four serving programs at full width (seeded weights): the SAM
+    ViT-H prompt head at 480x640 with 8 slots (all four tokens, and the
+    single-mask variant), the decoder, the matcher (MatcherConfig(), f32) at
+    480x640 against a 256 crop and DINOv2 ViT-S/14 at 196, each exported,
+    saved under build/export/, loaded with load_exported and run: its
+    outputs against the eager module's, the kernels' launches per call
+    (DINOv2: 12 of kernel 3), the `pope::` op nodes of DINOv2's graph, ms
+    and transient peak eager and exported; the exported matcher's peak
+    within EXPORT_PEAK_MARGIN of the eager one's and its time within 2x."""
+    from pope_tpu_torch import export
+    from pope_tpu_torch.export import MatcherHead, SamDecoderHead, sam_prompt_head
+    from pope_tpu_torch.pipeline import load_models
+
+    out_dir = Path(__file__).resolve().parent / "build" / "export"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    models = load_models(sam_type="h", device=DEV)
+    sam, g = models.sam, torch.Generator(device=DEV).manual_seed(3)
+    E, C = sam.config.image_embedding_size, sam.config.prompt_embed_dim
+    emb = torch.randn(1, E, E, C, device=DEV, generator=g)
+    pts = torch.rand(1, EXPORT_POINTS, 2, device=DEV, generator=g) * 1024
+    lbl = torch.tensor([[1, 0, 1, 1, -1, -1, -1, -1]], dtype=torch.int32, device=DEV)
+    mask = torch.randn(1, 4 * E, 4 * E, 1, device=DEV, generator=g)
+    one = torch.ones(1, device=DEV)
+    rows = []
+    for single in (False, True):
+        head = sam_prompt_head(sam, EXPORT_ORIG_HW, EXPORT_POINTS, return_single_mask=single)
+        args = (emb, pts, lbl, mask, one) + ((torch.full((1,), 4.0, device=DEV),) if single else ())
+        name = "sam_prompt_head_single" if single else "sam_prompt_head"
+        rows.append(export_row(name, lambda p, s=single: export.export_sam_prompt_head(
+            sam, EXPORT_ORIG_HW, EXPORT_POINTS, return_single_mask=s, path=p), head, args, counters,
+            check_rel(name), out_dir / f"{name}.pt2"))
+    rows.append(export_row("sam_decoder", lambda p: export.export_sam_decoder(sam, EXPORT_POINTS, path=p),
+                           SamDecoderHead(sam), (emb, pts, lbl), counters, check_rel("sam_decoder"),
+                           out_dir / "sam_decoder.pt2"))
+    imgs = torch.from_numpy(frames(31, 1)).to(DEV).float() / 255.0
+    image0 = imgs.mean(-1, keepdim=True)
+    image1 = image0[:, 100:356, 200:456].contiguous()
+    # threshold 0, so that the seeded matcher fills its capacity and the
+    # coordinates are compared (at the shipped 0.2 it keeps none)
+    mcfg = models.matcher.config
+    models.matcher.config = dataclasses.replace(mcfg, match_coarse=dataclasses.replace(mcfg.match_coarse, thr=0.0))
+    rows.append(export_row("matcher", lambda p: export.export_matcher(models.matcher, EXPORT_ORIG_HW, (256, 256),
+                                                                      path=p),
+                           MatcherHead(models.matcher), (image0, image1), counters, check_matcher,
+                           out_dir / "matcher.pt2"))
+    crop = torch.randn(1, 196, 196, 3, device=DEV, generator=g)
+    dino_path = out_dir / "dinov2.pt2"
+    rows.append(export_row("dinov2", lambda p: export.export_dinov2(models.dinov2, 196, path=p),
+                           export.Dinov2Head(models.dinov2), (crop,), counters, check_rel("dinov2"), dino_path))
+    nodes = [str(n.target) for n in export.load_exported(str(dino_path)).graph.nodes if n.op == "call_function"]
+    by_name = {r["program"]: r for r in rows}
+    by_name["dinov2"]["pope_op_nodes"] = {t: nodes.count(t) for t in set(nodes) if t.startswith("pope.")}
+    depth = models.config.dinov2.depth
+    want = {r["program"]: {"windowed_attention_relpos": 0, "flash_attention_relpos": 0,
+                           "flash_attention": depth if r["program"] == "dinov2" else 0} for r in rows}
+    got = {r["program"]: r["launches"] for r in rows}
+    if got != want or by_name["dinov2"]["pope_op_nodes"] != {"pope.flash_attention.default": depth}:
+        raise AssertionError(f"exported launches {got} (want {want}), DINOv2 op nodes "
+                             f"{by_name['dinov2']['pope_op_nodes']}")
+    m = by_name["matcher"]
+    margin = EXPORT_PEAK_MARGIN(m["eager"]["peak_bytes"])
+    m["peak_margin_bytes"] = margin
+    if m["exported"]["peak_bytes"] > m["eager"]["peak_bytes"] + margin or m["exported"]["ms"] > 2 * m["eager"]["ms"]:
+        raise AssertionError(f"exported matcher left the cuDNN-free convs: {m}")
+    row = {"programs": rows, "dir": str(out_dir)}
+    print(json.dumps({"export_phase": row}), flush=True)
+    del models
+    torch.cuda.empty_cache()
+    return row
+
+
+REG_B = 8  # RegressorConfig().batch_size
+REG_WARMUP, REG_STEPS = 2, 10
+REG_MODES = (("mkpts", "cross_attn"), ("mkpts+imgs", "cross_attn"), ("mkpts+vim", "transformer"))
+REG_CROP = 224  # the regressor's crops (data.py)
+# cli extract, per pair: the records-path AMG (one SAM ViT-H forward), the
+# prompt's DINOv2 forward and the candidates'
+EXTRACT_LAUNCHES_PER_PAIR = {"windowed_attention_relpos": 28, "flash_attention_relpos": 4, "flash_attention": 24}
+# card against CPU, a small regressor's step: f32 of the same computation in
+# another order, gradients within 2e-4 of each tensor's largest (the matcher
+# step's bound, tests/test_torch_train.py); Adam's first step moves a weight
+# by at most lr either way
+TOL_REG_LOSS_REL, TOL_REG_GRAD_REL = 1e-5, 2e-4
+
+
+def reg_batch(cfg, B: int, rng, dev) -> dict:
+    """mkpts of B pairs (zero-padded past a random count), crops for the image
+    branch, relative rotations and translations."""
+    import cv2
+
+    n = cfg.num_sample
+    mk = rng.uniform(0, 480, (2, B, n, 2)).astype(np.float32)
+    for b in range(B):
+        mk[:, b, rng.integers(n // 2, n + 1):] = 0.0
+    batch = {"mkpts0": mk[0], "mkpts1": mk[1],
+             "gt_R": np.stack([cv2.Rodrigues(rng.uniform(-0.5, 0.5, 3))[0] for _ in range(B)]).astype(np.float32),
+             "gt_t": rng.normal(0, 1, (B, 3)).astype(np.float32)}
+    if cfg.net_mode != "mkpts":
+        batch["img0"], batch["img1"] = (rng.uniform(0, 1, (B, REG_CROP, REG_CROP, 3)).astype(np.float32)
+                                        for _ in range(2))
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def reg_card_vs_cpu() -> dict:
+    """A small 'mkpts+vim' regressor (d_model 32, Vim 'test', num_sample 16):
+    one train step on the card and on the CPU from the same weights, batch
+    and dropout masks (drawn on the CPU)."""
+    from pope_tpu_torch.config import RegressorConfig
+    from pope_tpu_torch.models.regressor import train
+    from pope_tpu_torch.models.regressor.model import MkptsRegModel, dropout_masks
+
+    cfg = RegressorConfig(num_sample=16, d_model=32, nhead=2, net_mode="mkpts+vim", vim_size="test",
+                          fusion="transformer", lr=1e-3)
+    torch.manual_seed(0)
+    cpu = MkptsRegModel(cfg)
+    card = copy.deepcopy(cpu).to(DEV)
+    batch = reg_batch(cfg, 2, np.random.default_rng(1), "cpu")
+    masks = dropout_masks(2, torch.Generator().manual_seed(2))
+    got = {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("card", card, DEV)):
+        state = train.create_train_state(model, cfg)
+        m = train.train_step(state, {k: v.to(dev) for k, v in batch.items()}, [x.to(dev) for x in masks])
+        got[name] = (m["loss"].item(), {n: p.grad.cpu() for n, p in model.named_parameters()},
+                     {n: p.detach().cpu() for n, p in model.named_parameters()})
+    loss_rel = abs(got["card"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+    grad_rel = max(((got["card"][1][n] - g).abs().max() / g.abs().max().clamp(min=1e-30)).item()
+                   for n, g in got["cpu"][1].items() if g.abs().max() > 1e-6 * max(
+                       h.abs().max() for h in got["cpu"][1].values()))
+    weight_lr = max((got["card"][2][n] - w).abs().max().item() for n, w in got["cpu"][2].items()) / cfg.lr
+    row = {"loss_rel": loss_rel, "grad_rel": grad_rel, "max_weight_diff_lr": weight_lr}
+    if not (loss_rel <= TOL_REG_LOSS_REL and grad_rel <= TOL_REG_GRAD_REL and weight_lr <= 2.0 + 1e-3):
+        raise AssertionError(f"regressor step, card against CPU: {row}")
+    return row
+
+
+def reg_mode_row(mode: str, fusion: str, counters) -> dict:
+    """RegressorConfig() at B = 8 in one mode: 2 warm-up and 10 timed steps on
+    one batch (forward, backward, optimizer), peak memory, the FLOPs of a
+    step, the eval loss before and after the steps."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from pope_tpu_torch.config import RegressorConfig
+    from pope_tpu_torch.models.regressor import train
+    from pope_tpu_torch.models.regressor.model import MkptsRegModel
+
+    cfg = RegressorConfig(net_mode=mode, fusion=fusion)
+    torch.manual_seed(0)
+    with torch.device(DEV):
+        model = MkptsRegModel(cfg)
+    state = train.create_train_state(model, cfg)
+    batch = reg_batch(cfg, REG_B, np.random.default_rng(5), DEV)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+
+    def eval_loss():
+        out = train.eval_step(state, batch)
+        return train.pose_loss(out["pred_t"], out["pred_R"], batch["gt_t"], batch["gt_R"])[0].item()
+
+    before = eval_loss()
+    losses, parts = [], []
+
+    def steps():
+        for k in range(REG_WARMUP + REG_STEPS):
+            box = {}
+            acc = wall_ms_by_part([(train, "_predict", "forward"), (state.optimizer, "step", "optimizer")],
+                                  lambda: box.update(train.train_step(state, batch, gen)))
+            losses.append(box["loss"].item())
+            if k >= REG_WARMUP:
+                parts.append(acc)
+
+    torch.cuda.reset_peak_memory_stats()
+    _, wall, launches, _ = counted_run(counters, steps)
+    med = lambda key: statistics.median(p[key] for p in parts)
+    row = {"mode": mode, "fusion": fusion, "rotation": cfg.rotation_mode, "batch": REG_B,
+           "num_sample": cfg.num_sample, "image_branch": {"mkpts": None, "mkpts+imgs": "ConvNeXtV2-large",
+                                                          "mkpts+vim": "Vim-small (frozen)"}[mode],
+           "params_m": sum(p.numel() for p in model.parameters()) / 1e6,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "steps_wall_ms": wall,
+           "ms_per_step": med("total"),
+           "parts_ms": {"forward": med("forward"), "optimizer": med("optimizer"),
+                        "backward": statistics.median(p["total"] - p["forward"] - p["optimizer"] for p in parts)},
+           "losses": losses, "launches": launches}
+    with FlopCounterMode(display=False) as flops:
+        train.train_step(state, batch, gen)
+    row["tflop_per_step"] = flops.get_total_flops() / 1e12
+    row["tflop_per_s"] = row["tflop_per_step"] / (row["ms_per_step"] / 1e3)
+    # FlopCounterMode counts a depthwise conv's backward as a dense conv's
+    # (ConvNeXtV2's 7x7 depthwise convs: ~200x); a conv's backward is at
+    # most twice its forward (the input's and the weights' gradients)
+    by_op = {str(k): v for k, v in flops.get_flop_counts().get("Global", {}).items()}
+    fixed = flops.get_total_flops() - by_op.get("aten.convolution_backward", 0) + 2 * by_op.get("aten.convolution", 0)
+    row["tflop_per_step_conv_bwd_2x"] = fixed / 1e12
+    row["tflop_per_s_conv_bwd_2x"] = row["tflop_per_step_conv_bwd_2x"] / (row["ms_per_step"] / 1e3)
+    row["eval_loss"] = {"before": before, "after": eval_loss()}
+    if not (np.isfinite(losses).all() and row["eval_loss"]["after"] < before) or any(launches.values()):
+        raise AssertionError(f"regressor {mode}: losses not finite or not falling, or kernels launched: {row}")
+    del state, model, batch
+    torch.cuda.empty_cache()
+    return row
+
+
+def vim_scan_share() -> dict:
+    """Vim-small's forward (frozen, B = 8 crops of 224) and the selective
+    scan's share of it, the scan's calls fenced by syncs."""
+    from pope_tpu_torch.models.regressor import vim as vim_module
+
+    with torch.device(DEV):
+        vim = vim_module.VisionMamba(vim_module.VimConfig(num_classes=0)).eval()
+    x = torch.rand(REG_B, REG_CROP, REG_CROP, 3, device=DEV, generator=torch.Generator(device=DEV).manual_seed(4))
+    with torch.no_grad():
+        run = lambda: vim(x)
+        run()
+        ms = statistics.median(timed_runs(run, 5))
+        acc = wall_ms_by_part([(vim_module, "selective_scan", "scan")], run)
+    row = {"batch": REG_B, "ms": ms, "fenced_ms": acc["total"], "scan_ms": acc["scan"],
+           "scan_share": acc["scan"] / acc["total"], "scan_calls": 2 * vim.config.depth}
+    del vim
+    torch.cuda.empty_cache()
+    return row
+
+
+def run_regressor_phase(counters) -> dict:
+    """The pose-regressor extension on the card: a small model's step against
+    the CPU; RegressorConfig() at B = 8 in three modes ('mkpts' 6d,
+    'mkpts+imgs' with ConvNeXtV2-large and cross-attention, 'mkpts+vim' with
+    the frozen Vim-small and the transformer fusion); Vim-small's forward and
+    its selective scan's share; a DINOv2Poser forward (kernel 3's launches);
+    `cli extract` on the bench's frames (its launches per pair), then `cli
+    train-regressor` for 2 epochs and `cli test-regressor` on its checkpoint
+    over synthetic dumps of the same dataset's known poses."""
+    from pope_tpu_torch import bench, cli
+    from pope_tpu_torch.eval.extract import write_dump
+    from pope_tpu_torch.eval.manifest import DATASETS, iter_pairs, load_manifest
+    from pope_tpu_torch.models.regressor.dinov2_poser import DINOv2Poser
+
+    row = {"card_vs_cpu": reg_card_vs_cpu()}
+    row["modes"] = [reg_mode_row(mode, fusion, counters) for mode, fusion in REG_MODES]
+    row["vim_small_forward"] = vim_scan_share()
+
+    with torch.device(DEV):
+        poser = DINOv2Poser().eval()
+    pair = torch.rand(2, 2, REG_CROP, REG_CROP, 3, device=DEV)
+    with torch.no_grad():
+        poser(pair[0], pair[1])
+        (t, q), ms, launches, by_design = counted_run(counters, lambda: poser(pair[0], pair[1]))
+    row["dinov2_poser"] = {"batch": 2, "ms": ms, "launches": launches, "launches_by_design": by_design,
+                           "t": list(t.shape), "quat": list(q.shape)}
+    if launches["flash_attention"] != 2 * poser.dino.config.depth or not torch.isfinite(t).all():
+        raise AssertionError(f"DINOv2Poser forward: {row['dinov2_poser']}")
+    del poser
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        n_pairs = 16
+        data_root, pairs_dir = bench.make_dataset(tmp, n_pairs=n_pairs)
+        out = str(Path(tmp) / "dumps")
+        args = ["extract", "--dataset", "linemod", "--data-root", data_root, "--pairs-dir", pairs_dir,
+                "--out-dir", out, "--max-pairs", "4"]
+        _, ms, launches, _ = counted_run(counters, lambda: cli.main(args))
+        written = len(list(Path(out).glob("*/mkpts0/*.txt")))
+        row["cli_extract"] = {"pairs": 4, "written": written, "ms": ms, "launches": launches,
+                              "launches_per_pair": {k: v / 4 for k, v in launches.items()},
+                              "note": "seeded weights: 0 matches a pair, so no pair reaches the 5 it needs"}
+        if launches != {k: 4 * n for k, n in EXTRACT_LAUNCHES_PER_PAIR.items()}:
+            raise AssertionError(f"cli extract launches: {launches}")
+        # synthetic dumps of the dataset's pairs: the box3d's cube seen under their known poses
+        spec = DATASETS["linemod"]
+        rng = np.random.default_rng(6)
+        for p in iter_pairs(data_root, spec, load_manifest(pairs_dir, spec)):
+            X = rng.uniform(-0.05, 0.05, (200, 3))
+            pix = []
+            for pose_file, k_file in ((p.pose0, p.k0), (p.pose1, p.k1)):
+                pose, K = np.loadtxt(pose_file)[:3], np.loadtxt(k_file)
+                cam = X @ pose[:, :3].T + pose[:, 3]
+                pix.append((cam / cam[:, 2:]) @ K.T)
+            crop = rng.integers(0, 255, (256, 256, 3), np.uint8)
+            write_dump(out, p.pair_name, [200.0, 140.0, 440.0, 340.0], pix[0][:, :2], pix[1][:, :2],
+                       np.loadtxt(p.k1), crop, crop)
+        common = ["--dataset", "linemod", "--data-root", data_root, "--pairs-dir", pairs_dir, "--points-dir", out]
+        ckpt = str(Path(tmp) / "ckpt")
+        t0 = time.perf_counter()
+        cli.main(["train-regressor", *common, "--epochs", "2", "--ckpt-dir", ckpt])
+        train_s = time.perf_counter() - t0
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            cli.main(["test-regressor", *common, "--ckpt", str(Path(ckpt) / "step_2")])
+        print(text.getvalue(), end="", flush=True)
+        metrics = {k: float(v) for k, v in (line.split(": ") for line in text.getvalue().splitlines())}
+        row["cli_regressor"] = {"pairs": n_pairs, "train_2_epochs_s": train_s, "checkpoints": sorted(os.listdir(ckpt)),
+                                "test_s": time.perf_counter() - t0, "metrics": metrics}
+        if (row["cli_regressor"]["checkpoints"] != ["step_1", "step_2"]
+                or not np.isfinite(list(metrics.values())).all()):
+            raise AssertionError(f"cli train-regressor / test-regressor: {row['cli_regressor']}")
+    print(json.dumps({"regressor_phase": row}, default=str), flush=True)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is false; it runs on a CUDA card")
@@ -1864,6 +2271,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     eval_phase = run_eval_phase(counters, launches)
     train = run_train_phase(counters)
+    export_phase = run_export_phase(counters)
+    regressor = run_regressor_phase(counters)
 
     timing = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     listed = []
@@ -1876,6 +2285,11 @@ def main() -> int:
                  | {k: row[k] for k in timing + ("previous_ms",)})
         entry["records_launches"] = {path: n[name] for path, n in records_launches.items()}
         entry["train_launches"] = train["launches"][name]
+        entry["export_launches"] = {r["program"]: r["launches"][name] for r in export_phase["programs"]}
+        entry["regressor_launches"] = {
+            "extract_per_pair": regressor["cli_extract"]["launches_per_pair"][name],
+            "dinov2_poser_forward": regressor["dinov2_poser"]["launches"][name],
+            **{f"train_step_{m['mode']}": m["launches"][name] // (REG_WARMUP + REG_STEPS) for m in regressor["modes"]}}
         square = kernels.get(f"{name}_square")
         if square is not None:  # the serving path's square 64x64 grid, B=1
             entry["square_64x64"] = {k: square[k] for k in timing}
@@ -1898,6 +2312,8 @@ def main() -> int:
         "records": records,
         "eval": eval_phase,
         "train": train,
+        "export": export_phase,
+        "regressor": regressor,
         "summary": summary,
     }, indent=1))
 

@@ -11,6 +11,10 @@ Usage:
   python -m pope_tpu_torch.cli serve-pose --batch-size 4 --port 8082
   python -m pope_tpu_torch.cli train-matcher --data-source scannet --data-root scans \
       --train-npz train.npz --val-npz val.npz --intrinsic-path intrinsics.npz --ckpt-dir ckpt
+  python -m pope_tpu_torch.cli export --target dinov2 --output dinov2.pt2
+  python -m pope_tpu_torch.cli extract --dataset linemod --out-dir dumps
+  python -m pope_tpu_torch.cli train-regressor --dataset linemod --points-dir dumps --ckpt-dir ckpt
+  python -m pope_tpu_torch.cli test-regressor --dataset linemod --points-dir dumps --ckpt ckpt/step_100.pt
 
 Runs on the CUDA card unless `--device cpu` is given; without a GPU the
 default raises.
@@ -207,6 +211,48 @@ def cmd_train_matcher(args):
     train_main(args)
 
 
+def cmd_export(args):
+    """scripts/export_onnx_model.py: serialize a serving head as a
+    torch.export program (`.pt2`)."""
+    from pope_tpu_torch import pipeline
+    from pope_tpu_torch.export import export_dinov2, export_matcher, export_sam_decoder, export_sam_prompt_head
+
+    component = {"sam-prompt-head": "sam", "sam-decoder": "sam", "matcher": "matcher", "dinov2": "dinov2"}[args.target]
+    models = pipeline.load_models(
+        sam_checkpoint=args.sam_checkpoint, sam_type=args.sam_type, dinov2_checkpoint=args.dinov2_checkpoint,
+        matcher_checkpoint=args.matcher_checkpoint, components=(component,), device=args.device,
+    )
+    if args.target == "sam-prompt-head":
+        export_sam_prompt_head(models.sam, (args.orig_h, args.orig_w), num_points=args.num_points,
+                               return_single_mask=args.return_single_mask,
+                               use_stability_score=args.use_stability_score, path=args.output)
+    elif args.target == "sam-decoder":
+        export_sam_decoder(models.sam, num_points=args.num_points, path=args.output)
+    elif args.target == "matcher":
+        export_matcher(models.matcher, (args.orig_h, args.orig_w), (args.crop_size, args.crop_size), path=args.output)
+    else:  # the pipeline's serving crop (196), not the pretraining resolution
+        export_dinov2(models.dinov2, img_size=args.img_size, path=args.output)
+    print(f"wrote {args.output}")
+
+
+def cmd_extract(args):
+    from pope_tpu_torch.eval.extract import extract_dataset
+
+    extract_dataset(args)
+
+
+def cmd_train_regressor(args):
+    from pope_tpu_torch.models.regressor.driver import train_main
+
+    train_main(args)
+
+
+def cmd_test_regressor(args):
+    from pope_tpu_torch.models.regressor.driver import test_main
+
+    test_main(args)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="pope_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -321,6 +367,56 @@ def main(argv=None):
     ptm.add_argument("--seed", type=int, default=66)
     ptm.add_argument("--device", default=None, help="torch device, default cuda")
     ptm.set_defaults(fn=cmd_train_matcher)
+
+    pex = sub.add_parser("export", help="serialize a serving head as a torch.export program "
+                         "(scripts/export_onnx_model.py equivalent)")
+    pex.add_argument("--target", required=True, choices=["sam-prompt-head", "sam-decoder", "matcher", "dinov2"])
+    pex.add_argument("--output", required=True)
+    pex.add_argument("--orig-h", type=int, default=480)
+    pex.add_argument("--orig-w", type=int, default=640)
+    pex.add_argument("--crop-size", type=int, default=256)
+    pex.add_argument("--num-points", type=int, default=8)
+    pex.add_argument("--img-size", type=int, default=196,
+                     help="dinov2 export input resolution (196 = the pipeline's serving crop)")
+    pex.add_argument("--return-single-mask", action="store_true")
+    pex.add_argument("--use-stability-score", action="store_true")
+    _add_model_args(pex)
+    pex.set_defaults(fn=cmd_export)
+
+    px = sub.add_parser("extract", help="dump mkpts/crops for regressor training")
+    px.add_argument("--dataset", required=True, choices=["linemod", "onepose", "onepose_plusplus", "ycbv"])
+    px.add_argument("--data-root", default="data")
+    px.add_argument("--pairs-dir", default="data/pairs")
+    px.add_argument("--out-dir", required=True)
+    px.add_argument("--max-pairs", type=int, default=None)
+    _add_model_args(px)
+    px.set_defaults(fn=cmd_extract)
+
+    pt = sub.add_parser("train-regressor", help="train the pose regressor")
+    pt.add_argument("--dataset", required=True)
+    pt.add_argument("--points-dir", required=True)
+    pt.add_argument("--data-root", default="data")
+    pt.add_argument("--pairs-dir", default="data/pairs")
+    pt.add_argument("--net-mode", default="mkpts", choices=["mkpts", "imgs", "mkpts+imgs", "mkpts+vim", "vim"])
+    pt.add_argument("--rotation-mode", default="6d", choices=["6d", "quat", "matrix"])
+    pt.add_argument("--fusion", default="cross_attn", choices=["cross_attn", "transformer"],
+                    help="branch fusion: model0429 cross-attn or model0604 transformer pair")
+    pt.add_argument("--vim-size", default="small", choices=["tiny", "small"])
+    pt.add_argument("--epochs", type=int, default=100)
+    pt.add_argument("--num-sample", type=int, default=500)
+    pt.add_argument("--ckpt-dir", default="checkpoints")
+    pt.add_argument("--device", default=None, help="torch device, default cuda")
+    pt.set_defaults(fn=cmd_train_regressor)
+
+    pr = sub.add_parser("test-regressor", help="evaluate a trained regressor")
+    pr.add_argument("--dataset", required=True)
+    pr.add_argument("--points-dir", required=True)
+    pr.add_argument("--data-root", default="data")
+    pr.add_argument("--pairs-dir", default="data/pairs")
+    pr.add_argument("--ckpt", required=True)
+    pr.add_argument("--num-sample", type=int, default=500)
+    pr.add_argument("--device", default=None, help="torch device, default cuda")
+    pr.set_defaults(fn=cmd_test_regressor)
 
     args = ap.parse_args(argv)
     args.fn(args)

@@ -6,12 +6,10 @@ Bias-free convs with BatchNorm (eps 1e-5; running statistics in eval
 mode, batch statistics in train mode), computed in f32 as flax's
 BatchNorm(dtype=float32) is. The JAX package is
 NHWC; here the backbone runs NCHW inside and takes and returns NHWC, with
-its convs outside cuDNN (`without_cudnn`).
+its convs outside cuDNN on the card (`native_conv2d`).
 """
 
 from __future__ import annotations
-
-import contextlib
 
 import torch
 import torch.nn as nn
@@ -20,24 +18,22 @@ import torch.nn.functional as F
 from pope_tpu_torch.ops.resize import upsample2x_align_corners
 
 
-@contextlib.contextmanager
-def without_cudnn():
-    """Run convolutions without cuDNN, its other settings left as they are.
+def native_conv2d(x, weight, stride, padding):
+    """A bias-free conv2d. On a CUDA tensor it is PyTorch's own convolution
+    (im2col and a cuBLAS product: what F.conv2d runs with cuDNN off), called
+    by its op name so that its backward and an exported graph keep it too:
     cuDNN 9's heuristics pick FFT algorithms for this network's float32 3x3
     convs with 196 output channels at 1/4 resolution, which take hundreds of
-    times longer and tens of GB of workspace; PyTorch's own convs (im2col and
-    a cuBLAS product) do not (chip_smoke.py times the backbone both ways)."""
-    was = torch.backends.cudnn.enabled
-    torch.backends.cudnn.enabled = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.enabled = was
+    times longer and tens of GB of workspace (chip_smoke.py times the
+    backbone both ways). On the CPU, F.conv2d."""
+    if x.is_cuda:
+        return torch.ops.aten._slow_conv2d_forward(x, weight, tuple(weight.shape[2:]), None, stride, padding)
+    return F.conv2d(x, weight, None, stride, padding)
 
 
 def conv(layer: nn.Conv2d, x, dtype):
     """flax nn.Conv(dtype=dtype, use_bias=False) on an NCHW tensor."""
-    return F.conv2d(x.to(dtype), layer.weight.to(dtype), None, layer.stride, layer.padding)
+    return native_conv2d(x.to(dtype), layer.weight.to(dtype), layer.stride, layer.padding)
 
 
 class BatchNorm(nn.Module):
@@ -136,10 +132,6 @@ class ResNetFPN(nn.Module):
         self.l1_out = FPNOutBlock(d2, d2, d1)
 
     def forward(self, x):
-        with without_cudnn():
-            return self._forward(x)
-
-    def _forward(self, x):
         dt = self.dtype
         # a (B, H, W, 1) frame permuted to (B, 1, H, W) also passes for
         # channels-last, and the convs would carry that layout through the

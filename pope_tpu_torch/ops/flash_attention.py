@@ -30,6 +30,14 @@ Unlike the JAX entry, which takes (B*nh, N, d) copies, q, k and v are
 they are, and the output comes back in the `proj` input layout. The
 bias-free kernels are the sources' HAS_BIAS=false instantiations: no rel
 tables, masked key tails, unwritten query tails.
+
+Each wrapper calls one registered op (`torch.ops.pope.flash_attention_relpos`,
+`torch.ops.pope.flash_attention`) on every path: its CUDA implementation
+launches the kernel on the current stream and counts the launch, its CPU
+implementation is the plain version, its fake keeps the output's shape and
+dtype. So `torch.export` records the op as one graph node, and an exported
+program launches (and counts) the kernel as eager code does. The backward of
+every op is the plain version's: the kernels have no VJP.
 """
 
 from __future__ import annotations
@@ -49,6 +57,49 @@ def flash_attention_relpos_plain(q, k, v, rel_h, rel_w, hk: int, wk: int):
     return out.reshape(B, N, nh * d).to(q.dtype)
 
 
+def register_plain_backward(op, plain, n_tensors: int):
+    """Give the registered `op` the VJP of its plain version, taken from
+    its first n_tensors inputs (the rest are ints)."""
+
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:n_tensors])
+        ctx.rest = inputs[n_tensors:]
+
+    def backward(ctx, grad):
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(t.requires_grad) for t in ctx.saved_tensors]
+            out = plain(*xs, *ctx.rest)
+            need = [x for x in xs if x.requires_grad]
+            got = iter(torch.autograd.grad(out, need, grad)) if need else iter(())
+        return (*(next(got) if x.requires_grad else None for x in xs), *([None] * len(ctx.rest)))
+
+    op.register_autograd(backward, setup_context=setup_context)
+
+
+@torch.library.custom_op("pope::flash_attention_relpos", mutates_args=(), device_types="cpu")
+def _flash_attention_relpos_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rel_h: torch.Tensor,
+                               rel_w: torch.Tensor, hk: int, wk: int) -> torch.Tensor:
+    return flash_attention_relpos_plain(q, k, v, rel_h, rel_w, hk, wk)
+
+
+@_flash_attention_relpos_op.register_kernel("cuda")
+def _(q, k, v, rel_h, rel_w, hk, wk):
+    design = attention_design(q.dtype, q.shape[1], q.shape[3], hk, wk)
+    out = launch_attention_relpos(q, k, v, rel_h, rel_w, hk, wk, design)
+    flash_attention_relpos.launches += 1
+    flash_attention_relpos.launches_by_design[design] += 1
+    return out
+
+
+@_flash_attention_relpos_op.register_fake
+def _(q, k, v, rel_h, rel_w, hk, wk):
+    B, N, nh, d = q.shape
+    return q.new_empty((B, N, nh * d))
+
+
+register_plain_backward(_flash_attention_relpos_op, flash_attention_relpos_plain, 5)
+
+
 def flash_attention_relpos(q, k, v, rel_h, rel_w, hk: int, wk: int):
     """Fused attention + decomposed rel-pos bias.
 
@@ -58,18 +109,12 @@ def flash_attention_relpos(q, k, v, rel_h, rel_w, hk: int, wk: int):
     rel_w:   (B, nh, N, wk) bias against the key column.
     Returns (B, N, nh*d) in q.dtype.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    attention_design picks.
+    Through `torch.ops.pope.flash_attention_relpos`: a CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel attention_design picks.
     """
     if q.shape[1] != hk * wk:
         raise ValueError(f"q {tuple(q.shape)} does not fit a {hk}x{wk} key grid")
-    if q.device.type == "cpu":
-        return flash_attention_relpos_plain(q, k, v, rel_h, rel_w, hk, wk)
-    design = attention_design(q.dtype, q.shape[1], q.shape[3], hk, wk)
-    out = launch_attention_relpos(q, k, v, rel_h, rel_w, hk, wk, design)
-    flash_attention_relpos.launches += 1
-    flash_attention_relpos.launches_by_design[design] += 1
-    return out
+    return torch.ops.pope.flash_attention_relpos(q, k, v, rel_h, rel_w, hk, wk)
 
 
 flash_attention_relpos.launches = 0
@@ -86,6 +131,29 @@ def flash_attention_plain(q, k, v):
     return out.reshape(B, N, nh * d).to(q.dtype)
 
 
+@torch.library.custom_op("pope::flash_attention", mutates_args=(), device_types="cpu")
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return flash_attention_plain(q, k, v)
+
+
+@_flash_attention_op.register_kernel("cuda")
+def _(q, k, v):
+    design = attention_design(q.dtype, q.shape[1], q.shape[3])
+    out = launch_attention(q, k, v, design)
+    flash_attention.launches += 1
+    flash_attention.launches_by_design[design] += 1
+    return out
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v):
+    B, N, nh, d = q.shape
+    return q.new_empty((B, N, nh * d))
+
+
+register_plain_backward(_flash_attention_op, flash_attention_plain, 3)
+
+
 def flash_attention(q, k, v):
     """Fused bias-free attention, scale d^-1/2 on the true head dim.
 
@@ -93,16 +161,10 @@ def flash_attention(q, k, v):
              (B, N, 3, nh, d) view of a qkv Dense output, sliced, is fine).
     Returns (B, N, nh*d) in q.dtype.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    attention_design picks.
+    Through `torch.ops.pope.flash_attention`: a CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel attention_design picks.
     """
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v)
-    design = attention_design(q.dtype, q.shape[1], q.shape[3])
-    out = launch_attention(q, k, v, design)
-    flash_attention.launches += 1
-    flash_attention.launches_by_design[design] += 1
-    return out
+    return torch.ops.pope.flash_attention(q, k, v)
 
 
 flash_attention.launches = 0

@@ -14,7 +14,9 @@ On the card it runs one of two hand-written kernels, picked by shape
 `launches_by_design`: SAM's 14x14 windows in bf16 take csrc/attention_short.cu
 (a whole window-head in shared memory, the bias as a tensor-core product);
 larger bf16 windows csrc/attention_long.cu and float32 csrc/attention_relpos.cu,
-which the global layers' wrapper (ops/flash_attention.py) shares.
+which the global layers' wrapper (ops/flash_attention.py) shares. The
+wrapper calls the registered op `torch.ops.pope.windowed_attention_relpos`
+(CUDA: the kernel, counted; CPU: the plain version; see ops/flash_attention.py).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from pope_tpu_torch.ops.cuda_kernels import attention_design, launch_attention_relpos
+from pope_tpu_torch.ops.flash_attention import register_plain_backward
 
 
 def _split_qkv(qkv, nh: int, d: int):
@@ -41,6 +44,31 @@ def windowed_attention_relpos_plain(qkv, rel_h, rel_w, nh: int, d: int, hk: int,
     return out.reshape(BW, N, nh * d).to(qkv.dtype)
 
 
+@torch.library.custom_op("pope::windowed_attention_relpos", mutates_args=(), device_types="cpu")
+def _windowed_attention_relpos_op(qkv: torch.Tensor, rel_h: torch.Tensor, rel_w: torch.Tensor, nh: int, d: int,
+                                  hk: int, wk: int) -> torch.Tensor:
+    return windowed_attention_relpos_plain(qkv, rel_h, rel_w, nh, d, hk, wk)
+
+
+@_windowed_attention_relpos_op.register_kernel("cuda")
+def _(qkv, rel_h, rel_w, nh, d, hk, wk):
+    if not qkv.is_contiguous():
+        raise ValueError("qkv must be contiguous")
+    design = attention_design(qkv.dtype, qkv.shape[1], d, hk, wk)
+    out = launch_attention_relpos(*_split_qkv(qkv, nh, d), rel_h, rel_w, hk, wk, design)
+    windowed_attention_relpos.launches += 1
+    windowed_attention_relpos.launches_by_design[design] += 1
+    return out
+
+
+@_windowed_attention_relpos_op.register_fake
+def _(qkv, rel_h, rel_w, nh, d, hk, wk):
+    return qkv.new_empty((qkv.shape[0], qkv.shape[1], nh * d))
+
+
+register_plain_backward(_windowed_attention_relpos_op, windowed_attention_relpos_plain, 3)
+
+
 def windowed_attention_relpos(qkv, rel_h, rel_w, nh: int, d: int, hk: int, wk: int):
     """Fused windowed attention + decomposed rel-pos bias.
 
@@ -51,22 +79,14 @@ def windowed_attention_relpos(qkv, rel_h, rel_w, nh: int, d: int, hk: int, wk: i
     Keys are row-major over the (hk, wk) window grid, N = hk * wk.
     Returns (BW, N, nh*d) in qkv.dtype.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    attention_design picks.
+    Through `torch.ops.pope.windowed_attention_relpos`: a CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel attention_design
+    picks.
     """
     BW, N, C3 = qkv.shape
     if C3 != 3 * nh * d or N != hk * wk:
         raise ValueError(f"qkv {tuple(qkv.shape)} does not fit nh={nh} d={d} on {hk}x{wk}")
-    if qkv.device.type == "cpu":
-        return windowed_attention_relpos_plain(qkv, rel_h, rel_w, nh, d, hk, wk)
-    if not qkv.is_contiguous():
-        raise ValueError("qkv must be contiguous")
-    q, k, v = _split_qkv(qkv, nh, d)
-    design = attention_design(qkv.dtype, N, d, hk, wk)
-    out = launch_attention_relpos(q, k, v, rel_h, rel_w, hk, wk, design)
-    windowed_attention_relpos.launches += 1
-    windowed_attention_relpos.launches_by_design[design] += 1
-    return out
+    return torch.ops.pope.windowed_attention_relpos(qkv, rel_h, rel_w, nh, d, hk, wk)
 
 
 windowed_attention_relpos.launches = 0

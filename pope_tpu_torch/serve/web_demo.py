@@ -35,7 +35,7 @@ class WebDemo:
     def __init__(self, sam, image_rgb: np.ndarray, max_points: int = 8, device=None):
         """sam: the port's Sam; image_rgb: (H, W, 3) uint8. device=None runs
         on CUDA and raises without a GPU."""
-        from pope_tpu_torch.export import export_sam_prompt_head
+        from pope_tpu_torch.export import sam_prompt_head
         from pope_tpu_torch.models.sam.predictor import SamPredictor
 
         self.max_points = int(max_points)
@@ -49,7 +49,7 @@ class WebDemo:
         self.device = predictor.device
         self.embedding = predictor.features
 
-        self._head = export_sam_prompt_head(
+        self._head = sam_prompt_head(
             sam, self.orig_hw, num_points=self.max_points, return_single_mask=True,
         )
         low = 4 * sam.config.image_embedding_size

@@ -12,7 +12,6 @@ from typing import Dict, Optional
 import torch
 import torch.nn as nn
 
-from pope_tpu_torch.models.matcher.backbone import without_cudnn
 from pope_tpu_torch.train.loss import LossConfig, matcher_loss
 from pope_tpu_torch.train.optim import OptimConfig, build_optimizer, clip_by_global_norm_
 from pope_tpu_torch.train.supervision import spvs_coarse, spvs_fine
@@ -66,13 +65,13 @@ def apply_gradients(state: MatcherTrainState) -> None:
 def matcher_train_step(state: MatcherTrainState, batch: Dict[str, torch.Tensor],
                        loss_cfg: LossConfig = LossConfig()) -> Dict[str, torch.Tensor]:
     """One supervised step in place; returns the metrics (loss, loss_coarse,
-    loss_fine) as detached 0-dim tensors, without a host sync. The backward
-    runs its convs outside cuDNN, as the forward does (backbone.py)."""
+    loss_fine) as detached 0-dim tensors, without a host sync. On the card
+    the backbone's backward stays outside cuDNN, as its forward
+    (backbone.native_conv2d)."""
     state.model.train()
     state.optimizer.zero_grad(set_to_none=True)
     total, metrics = train_loss(state.model, batch, loss_cfg)
-    with without_cudnn():
-        total.backward()
+    total.backward()
     apply_gradients(state)
     state.step += 1
     return {k: v.detach() for k, v in metrics.items()}

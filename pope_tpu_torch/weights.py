@@ -1,5 +1,5 @@
 """Weights bridge: the JAX package's parameter trees (SAM, DINOv2, the
-matcher) -> the port's state_dicts.
+matcher, the pose regressors) -> the port's state_dicts.
 
 The port's modules carry the JAX package's parameter names, so a flax path
 `image_encoder/block_3/qkv/kernel` becomes the key
@@ -79,3 +79,32 @@ def matcher_state_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     `pope_tpu_torch.models.matcher.Matcher`: BatchNorm statistics become
     `running_mean` / `running_var`, a sinkhorn `bin_score` stays a scalar."""
     return params_state_from_jax(variables)
+
+
+def _regressor_leaf(path, value) -> tuple:
+    """_leaf, plus the regressor's 3-dim kernels: flax MultiHeadDotProductAttention's
+    query / key / value kernels (d, nh, hd) and biases (nh, hd), its out
+    kernel (nh, hd, d), and conv1d kernels (k, in / groups, out)."""
+    *mod, name = path
+    a = np.asarray(value, dtype=np.float32)
+    if mod and mod[-1] in ("query", "key", "value"):
+        if name == "kernel" and a.ndim == 3:
+            return ".".join(mod + ["weight"]), a.reshape(a.shape[0], -1).T
+        if name == "bias" and a.ndim == 2:
+            return ".".join(path), a.reshape(-1)
+    if mod and mod[-1] == "out" and name == "kernel" and a.ndim == 3:
+        return ".".join(mod + ["weight"]), a.reshape(-1, a.shape[-1]).T
+    if name == "kernel" and a.ndim == 3:
+        return ".".join(mod + ["weight"]), a.transpose(2, 1, 0)
+    return _leaf(path, value)
+
+
+def regressor_state_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX regressor tree -> a state_dict of the port's module of the same
+    architecture: `MkptsRegModel` (attention projections reshaped to
+    Linear layers), `DINOv2Poser`, and the `VisionMamba` / `ConvNeXtV2`
+    trees of models/regressor/convert.py's convert_torch_*_state (conv1d
+    kernels to Conv1d weights)."""
+    out: Dict[str, torch.Tensor] = {}
+    _walk(variables.get("params", variables), (), _regressor_leaf, out)
+    return out

@@ -40,7 +40,13 @@ SCORE_TOL, LOGIT_TOL = 1e-4, 1e-3  # f32: predicted IoU, stability; low-res logi
 # 0.1 at most on O(1) embeddings) and the decoder carries that through bf16
 # products, which moves mask boundaries and the order of near-equal scores.
 # Records then agree as a set: counts within one, and every JAX record but
-# one has a record of the same crop box whose mask overlaps it by IoU 0.9
+# one has a record of the same crop box whose mask overlaps it by IoU 0.9;
+# the candidates of one image likewise: the same prompts, every box but one
+# within BOX_TOL. Which candidates move depends on the machine: torch's CPU
+# bf16 products take the AVX512-BF16 dot instructions where the CPU has them
+# (another rounding than a machine without), and near-threshold candidates
+# (predicted IoU within 0.03 of pred_iou_thresh) cross it. The multi-crop
+# sweep runs one generate per crop box, so these bounds hold per crop box.
 BF16_COUNT_DIFF, BF16_MIN_IOU, BF16_UNMATCHED = 1, 0.9, 1
 
 
@@ -93,7 +99,8 @@ def assert_result_matches(out, ref, shipped, logits=True):
     if shipped:
         mine, theirs = _valid_sorted(out), _valid_sorted(ref)
         np.testing.assert_array_equal(mine[:, 0], theirs[:, 0])
-        np.testing.assert_allclose(mine[:, 1:], theirs[:, 1:], atol=BOX_TOL, rtol=0)
+        moved = np.abs(mine[:, 1:] - theirs[:, 1:]).max(1) > BOX_TOL
+        assert moved.sum() <= BF16_UNMATCHED, (mine[moved], theirs[moved])
         return
     np.testing.assert_array_equal(out.valid, ok)
     np.testing.assert_array_equal(out.point_idx[ok], np.asarray(ref.point_idx)[ok])
@@ -120,10 +127,13 @@ def assert_records_match(recs, ref_recs, shipped):
         assert r["segmentation"].dtype == bool and r["area"] == int(r["segmentation"].sum())
         assert np.array_equal(native.rle_decode(r["rle"]), r["segmentation"])
     if shipped:
-        assert abs(len(recs) - len(ref_recs)) <= BF16_COUNT_DIFF and ref_recs
-        best = [max([mask_iou(r["segmentation"], q["segmentation"]) for r in recs
-                     if r["crop_box"] == q["crop_box"]] or [0.0]) for q in ref_recs]
-        assert sum(b < BF16_MIN_IOU for b in best) <= BF16_UNMATCHED, best
+        assert ref_recs
+        for box in {tuple(q["crop_box"]) for q in ref_recs} | {tuple(r["crop_box"]) for r in recs}:
+            mine = [r for r in recs if tuple(r["crop_box"]) == box]
+            theirs = [q for q in ref_recs if tuple(q["crop_box"]) == box]
+            assert abs(len(mine) - len(theirs)) <= BF16_COUNT_DIFF, box
+            best = [max([mask_iou(r["segmentation"], q["segmentation"]) for r in mine] or [0.0]) for q in theirs]
+            assert sum(b < BF16_MIN_IOU for b in best) <= BF16_UNMATCHED, (box, best)
         return
     assert len(recs) == len(ref_recs) > 0
     assert [set(r) for r in recs] == [set(r) for r in ref_recs]
@@ -175,7 +185,11 @@ def test_generate_from_embeddings_matches_jax(pair):
     assert out.masks_low_res.shape == (16, 48, 64) and out.boxes.shape == (16, 4)
     host = amg_module.AMGResult(*(x.float().numpy() if x.is_floating_point() else x.numpy() for x in out))
     assert_result_matches(host, ref, shipped)
-    np.testing.assert_allclose(out.boxes_xywh.numpy(), np.asarray(ref.boxes_xywh), atol=BOX_TOL, rtol=0)
+    if shipped:  # slots may trade places (BF16_*): the conversion of the port's own boxes
+        want = jax_amg_module.AMGResult(*([None] + [host.boxes] + [None] * 6)).boxes_xywh
+        np.testing.assert_array_equal(out.boxes_xywh.numpy(), want)
+    else:
+        np.testing.assert_allclose(out.boxes_xywh.numpy(), np.asarray(ref.boxes_xywh), atol=BOX_TOL, rtol=0)
 
 
 def _raw_result(pair):

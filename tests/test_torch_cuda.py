@@ -659,3 +659,36 @@ def test_device_prefetcher_uploads_in_order(card):
     out = [{k: v.cpu() for k, v in b.items()} for b in DevicePrefetcher(iter(batches), card)]
     assert [int(b["a"][0, 0]) for b in out] == list(range(5))
     assert all(torch.equal(b["n"], torch.arange(3) + i) for i, b in enumerate(out))
+
+
+def test_exported_dinov2_launches_kernel_3_and_equals_eager(card, tmp_path):
+    """A small DINOv2 (ViT-S width, 2 blocks, bf16) exported on the card,
+    saved and loaded: one `pope::flash_attention` node and one kernel-3
+    launch per block a call, and the eager model's cls token."""
+    from pope_tpu_torch.export import export_dinov2, load_exported
+
+    dino = DinoVisionTransformer(DinoV2Config(depth=2, dtype="bfloat16", gelu="tanh"))
+    init_dinov2_weights(dino, torch.Generator().manual_seed(0))
+    dino = dino.to(card).eval()
+    path = tmp_path / "dinov2.pt2"
+    export_dinov2(dino, img_size=196, path=str(path))
+    program = load_exported(str(path))
+    nodes = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    assert nodes.count("pope.flash_attention.default") == 2
+    x = torch.randn(1, 196, 196, 3, device=card)
+    with torch.no_grad():
+        want = dino(x)["x_norm_clstoken"]
+        before = flash_attention.launches
+        got = program.module()(x)
+    assert flash_attention.launches == before + 2
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def test_regressor_train_step_on_card_matches_cpu(card):
+    """One train step of a small 'mkpts+vim' regressor on the card against
+    the CPU from the same weights, batch and dropout masks (chip_smoke.py's
+    check and tolerances)."""
+    import chip_smoke
+
+    row = chip_smoke.reg_card_vs_cpu()
+    assert row["grad_rel"] <= chip_smoke.TOL_REG_GRAD_REL

@@ -329,7 +329,12 @@ serving = ["pope_tpu_torch.serve", "pope_tpu_torch.serve.pose_service", "pope_tp
            "pope_tpu_torch.export", "pope_tpu_torch.models.sam.predictor"]
 training = ["pope_tpu_torch.train." + m for m in ("supervision", "loss", "optim", "trainer", "matcher_driver")]
 training += ["pope_tpu_torch.data.readers", "pope_tpu_torch.data.scenes", "pope_tpu_torch.utils.checkpoint"]
-assert "pope_tpu_torch.bench" in names and "pope_tpu_torch.cli" in names and set(serving + training) <= set(names)
+regressor = ["pope_tpu_torch.models.regressor." + m for m in (
+    "embedding", "convnextv2", "vim", "model", "dinov2_poser", "convert", "train", "data", "driver")]
+regressor += ["pope_tpu_torch.eval.extract", "pope_tpu_torch.geometry.pose", "pope_tpu_torch.weights",
+              "pope_tpu_torch.ops.flash_attention", "pope_tpu_torch.ops.window_attention"]
+assert "pope_tpu_torch.bench" in names and "pope_tpu_torch.cli" in names
+assert set(serving + training + regressor) <= set(names)
 leaked = [m for m in sys.modules if m.split(".")[0] in BANNED]
 assert not leaked, leaked
 print(len(names))
@@ -338,9 +343,9 @@ print(len(names))
 
 def test_port_imports_nothing_of_jax():
     """Every module of pope_tpu_torch (its bench, CLI, serving modules,
-    prompt head, predictor and training modules included), its tools and
-    chip_smoke.py import in a process that refuses jax, flax, optax, orbax
-    and pope_tpu."""
+    exports, predictor, training modules, the pose regressor and the
+    extraction included), its tools and chip_smoke.py import in a process
+    that refuses jax, flax, optax, orbax and pope_tpu."""
     out = subprocess.run([sys.executable, "-c", _BOUNDARY], cwd=REPO, capture_output=True, text=True,
                          timeout=300, env={**os.environ, "PYTHONPATH": str(REPO)})
     assert out.returncode == 0, out.stderr[-3000:]

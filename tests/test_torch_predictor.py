@@ -13,7 +13,7 @@ from pope_tpu.export import export_sam_prompt_head as jax_export_prompt_head
 from pope_tpu.export import load_exported
 from pope_tpu.models.sam import Sam as JaxSam
 from pope_tpu.models.sam.predictor import SamPredictor as JaxPredictor
-from pope_tpu_torch.export import export_sam_prompt_head
+from pope_tpu_torch.export import sam_prompt_head
 from pope_tpu_torch.models.sam.predictor import SamPredictor
 from pope_tpu_torch.models.sam.sam import apply_boxes, apply_coords
 from tests.test_torch_common import f32, jax_params, port_sam, structure_decoder, tiny_cfg, to_jax
@@ -195,7 +195,7 @@ def heads(sams):
     jax_heads = {single: load_exported(jax_export_prompt_head(jsam, jvars, ORIG_HW, num_points=2,
                                                               return_single_mask=single)).call
                  for single in (False, True)}
-    port_heads = {single: export_sam_prompt_head(sam, ORIG_HW, num_points=2, return_single_mask=single)
+    port_heads = {single: sam_prompt_head(sam, ORIG_HW, num_points=2, return_single_mask=single)
                   for single in (False, True)}
     rng = np.random.default_rng(7)
     E = sam.config.image_embedding_size
