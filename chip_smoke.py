@@ -118,12 +118,34 @@ Phases, each of which raises on failure (exit code != 0):
      3); `cli extract` on 4 of the bench's pairs (28 + 4 + 24 launches a
      pair; seeded weights write none), then `cli train-regressor` (2
      epochs) and `cli test-regressor` over synthetic dumps of known poses.
+ 14. SSL (run_ssl_phase), at `cli train-ssl`'s defaults (ViT-S/14 in f32,
+     batch 8, 2 x 224 + 8 x 98 crops, 65,536 prototypes, bf16 head MLP,
+     drop path 0.3): kernel 3 at the step's two f32 shapes, (16, 257, 6,
+     64) and (64, 50, 6, 64), through the stream design, held against its
+     plain version (f32 limits) and timed beside SDPA and the bound (f32
+     operations at 67 TFLOP/s); a small SSL step on the card against the
+     CPU; 2 warm-up + 10 timed steps on one batch (ms by part: teacher,
+     student forward, backward, AdamW + EMA; FLOPs, peak memory, a profile),
+     the counts set to 0 just before and read just after: 36 kernel-3
+     launches a step (24 at N = 257, 12 at N = 50), all the stream design,
+     no other kernel; extract_cls_features over 96 synthetic images (12
+     launches a batch of 64), kNN, the linear probe and log regression; `cli
+     train-ssl` for 4 steps on 24 synthetic images, unbroken and killed at
+     step 3 then resumed from its step-2 checkpoint, ending in the unbroken
+     run's state;
+ 15. novel views (run_nvs_phase): a small NeRF on the card against the CPU
+     with the same draws; `cli render-novel-view` at NerfConfig() on a
+     sphere sequence of six 120x160 views (500 steps on five, view 3 held
+     out; PSNR above the mean-colour image's, SSIM, LPIPS from seeded
+     parameters written as the released files), ms per train step (one
+     profiled) and per view, and no kernel launches.
 The last three lines are the `kernels` JSON line (each kernel's launches on
 the main path, per eval batch, on the serving path, on the records path, on
-the training path, per exported program and on the regressor's paths, its
-times and bound, and the same at the square grid for kernels 1 and 2, at
-the crop grid for kernel 2 and at N = 1025 for kernel 3), the nvidia-smi line
-and {"ok": true, "device": {...}}. A copy of the results, the full profiles
+the training path, per exported program, on the regressor's paths, per SSL
+step and feature batch and on the novel-view path, its times and bound, and
+the same at the square grid for kernels 1 and 2, at the crop grid for kernel
+2 and at N = 1025 and the SSL step's two shapes for kernel 3), the
+nvidia-smi line and {"ok": true, "device": {...}}. A copy of the results, the full profiles
 included, goes to build/chip_smoke.json (gitignored).
 """
 
@@ -149,6 +171,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (what the f32 stream kernel uses)
 EX2_PER_SM_CLOCK = 16  # Hopper's special-function units: 16 ex2 results a clock per SM
 # kernel vs plain in bf16, scaled to the output: the outputs are softmax
 # averages of v ~ N(0, 1) over N keys, so their size falls with N (rms about
@@ -220,39 +243,41 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(bytes_moved: float, flops: float):
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+def bound(bytes_moved: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_close(name, out, ref):
-    """Kernel output against its plain version, scaled to the output."""
+def check_close(name, out, ref, tol=(TOL_MAX_REL, TOL_RMS_REL)):
+    """Kernel output against its plain version, scaled to the output: tol is
+    (max abs error / max |ref|, rms error / rms ref)."""
     ref = ref.float()
     diff = out.float() - ref
     err = diff.abs().max().item()
     rms_err = diff.square().mean().sqrt().item()
     ref_max, ref_rms = ref.abs().max().item(), ref.square().mean().sqrt().item()
-    if not (err <= TOL_MAX_REL * ref_max and rms_err <= TOL_RMS_REL * ref_rms):
+    if not (err <= tol[0] * ref_max and rms_err <= tol[1] * ref_rms):
         raise AssertionError(
-            f"{name}: kernel vs plain max abs err {err} (limit {TOL_MAX_REL} x {ref_max}), "
-            f"rms err {rms_err} (limit {TOL_RMS_REL} x {ref_rms})"
+            f"{name}: kernel vs plain max abs err {err} (limit {tol[0]} x {ref_max}), "
+            f"rms err {rms_err} (limit {tol[1]} x {ref_rms})"
         )
     return {"max_abs_err": err, "rms_err": rms_err, "ref_max_abs": ref_max, "ref_rms": ref_rms}
 
 
 def kernel_phase(name, replaces, source, kernel, plain, library, args, reps, nbytes, flops, exps,
-                 ex2_rate, previous=None):
+                 ex2_rate, previous=None, flop_rate=BF16_FLOP_PER_S, tol=(TOL_MAX_REL, TOL_RMS_REL)):
     """Hold `kernel` (the design the main path takes at this shape) against
     its plain version and time it beside the plain version, one library call,
     the card's bound and the floor of its `exps` exponentials on the
     special-function units at `ex2_rate` a second (computed, not measured: it
     stays out of the `kernels` line). `previous`, the streaming design at
     the same shape, is held to the same limits and timed in turns with the
-    kernel (previous, kernel, kernel, previous)."""
+    kernel (previous, kernel, kernel, previous). The bound takes the
+    operations at `flop_rate` (the bf16 tensor cores' unless given)."""
     ref = plain(*args)
-    errs = check_close(name, kernel(*args), ref)
+    errs = check_close(name, kernel(*args), ref, tol)
     if previous is not None:
-        errs["previous"] = check_close(f"{name} (previous design)", previous(*args), ref)
+        errs["previous"] = check_close(f"{name} (previous design)", previous(*args), ref, tol)
     torch.cuda.synchronize()
     del ref
     if previous is None:
@@ -263,10 +288,10 @@ def kernel_phase(name, replaces, source, kernel, plain, library, args, reps, nby
         ms, previous_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
     plain_ms = cuda_ms(lambda: plain(*args), max(2, reps // 5), warmup=1)
     library_ms = cuda_ms(library, reps)
-    bound_ms, bound_by = bound(nbytes, flops)
+    bound_ms, bound_by = bound(nbytes, flops, flop_rate)
     row = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, **errs,
-        "tol": {"max_rel": TOL_MAX_REL, "rms_rel": TOL_RMS_REL},
+        "tol": {"max_rel": tol[0], "rms_rel": tol[1]}, "flop_rate": flop_rate,
         "ms": ms, "kernel_ms": ms, "previous_ms": previous_ms, "turns_ms": turns, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "exp_floor_ms": exps / ex2_rate * 1e3, "ex2_per_s": ex2_rate,
         "library_ms": library_ms, "bytes": nbytes, "flops": flops, "exps": exps, "shapes": [list(a.shape) for a in args if torch.is_tensor(a)],
@@ -798,12 +823,14 @@ def profile_call(fn, untraced_ms: float) -> dict:
 
 
 def counted_run(counters, fn):
-    """fn() with every kernel's launch counts (in all and per design) set to 0
-    just before it; returns (fn's result, wall ms, the counts read just
-    after, the counts per design)."""
+    """fn() with every kernel's launch counts (in all, per design and per
+    token count) set to 0 just before it; returns (fn's result, wall ms, the
+    counts read just after, the counts per design). The counts per token
+    count stay on the wrappers (`launches_by_tokens`) until the next run."""
     for f in counters.values():
         f.launches = 0
         f.launches_by_design.update(dict.fromkeys(f.launches_by_design, 0))
+        f.launches_by_tokens.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
@@ -2228,6 +2255,537 @@ def run_regressor_phase(counters) -> dict:
     return row
 
 
+STREAM_SOURCE = "pope_tpu_torch/csrc/attention_relpos.cu"
+SSL_WARMUP, SSL_STEPS = 2, 10
+SSL_B = 8  # cli train-ssl's default batch
+# kernel 3 in f32 (the stream design) against its plain version on the
+# card, both f32 without TF32: the same sums in another order, outputs of
+# size about 1 (softmax averages of v ~ N(0, 1))
+TOL_SSL_KERNEL = (2e-4, 2e-5)
+# an SSL step of a small config (ViT-S width, 2 blocks, f32 heads) on the
+# card against the CPU from the same state, batch and drop-path draws: the
+# losses and centers to 1e-4 relative (measured 2e-7); the first step's
+# moments (lr 0 in warmup: the gradients) to 2e-3 of each tensor's largest
+# (measured 6.7e-4: the two devices' f32 sums); after the second step the
+# weights within 5e-2 lr where the first moment is above 5e-2 of its
+# tensor's largest (there the gradients agree to about 1%, and so does
+# Adam's ratio) and within 2 lr elsewhere (a gradient that is 0 in exact
+# arithmetic, as the key bias's, is rounding noise that Adam normalises to
+# +-lr on either device)
+TOL_SSL_LOSS, TOL_SSL_MOMENTS, TOL_SSL_WEIGHTS_LR, SSL_CONDITIONED = 1e-4, 2e-3, 5e-2, 5e-2
+# resumed against unbroken on the card (below): elements above 1e-3 of their
+# tensor's largest first moment within this
+TOL_SSL_WEIGHTS = 1e-5
+# a killed `cli train-ssl` run resumed from its checkpoint against the
+# unbroken run, on the card (cuDNN held to deterministic algorithms):
+# bit for bit, or, should a sum on the card round otherwise from run to run,
+# the weights within 10 TOL_SSL_WEIGHTS where the first moment is above 1e-3
+# of its tensor's largest and within 2 lr a step elsewhere
+SSL_CLI_STEPS, SSL_CLI_KILL_AT, SSL_CLI_CKPT_EVERY = 4, 3, 2
+SSL_EVAL_IMAGES, SSL_EVAL_CLASSES, SSL_EVAL_BATCH = 96, 3, 64
+
+
+def ssl_cli_args(*extra):
+    from pope_tpu_torch import cli
+
+    return cli.build_parser().parse_args(["train-ssl", "--image-root", "-", *extra])
+
+
+def ssl_batch(cfg, B: int, dev, seed: int) -> dict:
+    """A collated-shape batch: 2B global and n_local * B local crops of
+    N(0, 1) pixels, iBOT block masks on half the global crops."""
+    from pope_tpu_torch.data.ssl_crops import MaskingGenerator
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    side = cfg.global_crop_size // 14
+    gen = MaskingGenerator(side, seed=seed)
+    rng = np.random.default_rng(seed)
+    masks = np.zeros((2 * B, side * side), bool)
+    for i in rng.permutation(2 * B)[:B]:
+        masks[i] = gen(int(side * side * rng.uniform(cfg.mask_ratio_min, cfg.mask_ratio_max))).reshape(-1)
+    gs, ls = cfg.global_crop_size, cfg.local_crop_size
+    return {"global_crops": torch.randn(2 * B, gs, gs, 3, device=dev, generator=g),
+            "local_crops": torch.randn(cfg.n_local_crops * B, ls, ls, 3, device=dev, generator=g),
+            "masks": torch.from_numpy(masks).to(dev)}
+
+
+def _named_np(sd) -> dict:
+    """Copies (a CPU tensor's numpy view would follow its in-place updates)."""
+    return {k: v.detach().float().cpu().numpy().copy() for k, v in sd.items()}
+
+
+def conditioned_diff(got: dict, want: dict, mu: dict, above: float = 1e-3) -> dict:
+    """Largest |got - want| over the elements whose first moment is above
+    `above` of its tensor's largest, and over all elements."""
+    cond, worst = 0.0, 0.0
+    for k, w in want.items():
+        d = np.abs(got[k] - w)
+        ok = np.abs(mu[k]) > above * np.abs(mu[k]).max()
+        worst = max(worst, float(d.max()))
+        if ok.any():
+            cond = max(cond, float(d[ok].max()))
+    return {"conditioned": cond, "all": worst}
+
+
+def ssl_card_vs_cpu() -> dict:
+    """Two SSL steps of a small config (ViT-S width and heads, 2 blocks,
+    56 / 28 px crops, 256 prototypes in f32, drop path 0.2) on the card and
+    on the CPU from the same state, batch and drop-path draws."""
+    from pope_tpu_torch.config import DinoV2Config
+    from pope_tpu_torch.ops.flash_attention import flash_attention
+    from pope_tpu_torch.train.ssl import SSLConfig, SSLMetaArch
+
+    cfg = SSLConfig(global_crop_size=56, local_crop_size=28, n_local_crops=2, dino_out_dim=256, ibot_out_dim=256,
+                    head_hidden_dim=128, head_bottleneck_dim=64, head_dtype="float32", warmup_iters=1,
+                    total_iters=20, warmup_teacher_temp_iters=4, freeze_last_layer_iters=1, lr=1e-3)
+    bcfg = DinoV2Config(embed_dim=384, depth=2, num_heads=6, img_size=56, drop_path_rate=0.2)
+    arch = SSLMetaArch(cfg, bcfg)
+    batch = ssl_batch(cfg, 2, "cpu", seed=3)
+    runs = {}
+    for dev in ("cpu", DEV):
+        state = arch.init_state(0, dev)
+        mults = arch.multipliers(state)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        before = flash_attention.launches
+        steps = []
+        for _ in range(2):
+            state, m = arch.train_step(state, b, mults=mults)
+            sd = state.state_dict()
+            steps.append(({k: v.item() for k, v in m.items()},
+                          {key: _named_np(sd[key]) for key in ("student", "teacher", "mu")},
+                          np.concatenate([state.dino_center.cpu().numpy(), state.ibot_center.cpu().numpy()])))
+        runs[dev] = (steps, flash_attention.launches - before)
+    (cpu, _), (card, launches) = runs["cpu"], runs[DEV]
+    lr = cpu[1][0]["lr"]
+    errs = {
+        "loss_rel": max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-12) for (a, *_), (b, *_) in zip(cpu, card) for k in a),
+        "center_rel": max(float(np.abs(c[2] - g[2]).max() / np.abs(c[2]).max()) for c, g in zip(cpu, card)),
+        "moments_rel": max(float(np.abs(card[0][1]["mu"][k] - w).max() / max(np.abs(w).max(), 1e-30))
+                           for k, w in cpu[0][1]["mu"].items()),
+        "weights": conditioned_diff(card[1][1]["student"], cpu[1][1]["student"], cpu[1][1]["mu"], SSL_CONDITIONED),
+        "teacher": conditioned_diff(card[1][1]["teacher"], cpu[1][1]["teacher"], cpu[1][1]["mu"], SSL_CONDITIONED),
+        "lr": lr, "card_launches": launches, "losses_cpu": [s[0] for s in cpu], "losses_card": [s[0] for s in card],
+    }
+    expect_launches = 2 * 3 * bcfg.depth
+    if not (errs["loss_rel"] < TOL_SSL_LOSS and errs["center_rel"] < TOL_SSL_LOSS
+            and errs["moments_rel"] < TOL_SSL_MOMENTS and launches == expect_launches
+            and errs["weights"]["conditioned"] <= TOL_SSL_WEIGHTS_LR * lr and errs["weights"]["all"] <= 2 * lr + 1e-6
+            and errs["teacher"]["conditioned"] <= TOL_SSL_WEIGHTS_LR * lr):
+        raise AssertionError(f"SSL steps, card vs CPU disagree (launches {launches}, want {expect_launches}): {errs}")
+    return errs
+
+
+def ssl_kernel_rows(ex2_rate) -> dict:
+    """Kernel 3 at the SSL step's two f32 shapes (the stream design): the
+    global crops (2B = 16 images, 16x16 patches + cls = 257 tokens) and the
+    local crops (8B = 64 images, 7x7 + cls = 50), 6 heads, d 64."""
+    from pope_tpu_torch.ops.cuda_kernels import attention_design
+    from pope_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    F = torch.nn.functional
+    g = torch.Generator(device=DEV).manual_seed(5)
+    rows = {}
+    nh, d = 6, 64
+    for key, B, N in (("ssl_n257", 2 * SSL_B, 257), ("ssl_n50", 8 * SSL_B, 50)):
+        design = attention_design(torch.float32, N, d)
+        if design != "stream":
+            raise AssertionError(f"kernel 3 at f32 N = {N} takes the {design} design, not stream")
+        qkv = torch.randn(B, N, 3, nh, d, device=DEV, generator=g)
+        qn, kn, vn = qkv.unbind(2)
+        q, k, v = (t.transpose(1, 2) for t in (qn, kn, vn))
+        rows[key] = kernel_phase(
+            "flash_attention", "pope_tpu/ops/flash_attention.py:114", STREAM_SOURCE, flash_attention,
+            flash_attention_plain, lambda: F.scaled_dot_product_attention(q, k, v), (qn, kn, vn), reps=20,
+            nbytes=4 * (qkv.numel() + B * N * nh * d), flops=4.0 * B * nh * N * N * d, exps=B * nh * N * N,
+            ex2_rate=ex2_rate, flop_rate=F32_FLOP_PER_S, tol=TOL_SSL_KERNEL,
+        )
+        rows[key]["design"] = design
+    return rows
+
+
+def ssl_step_flops(cfg, bcfg, B: int) -> float:
+    """Kernel 3's forward FLOPs in one step (FlopCounterMode does not see the
+    registered op; its backward is the plain version's products, which it
+    counts): teacher and student global crops, student local crops."""
+    nh, d = bcfg.num_heads, bcfg.embed_dim // bcfg.num_heads
+    ng, nl = (cfg.global_crop_size // 14) ** 2 + 1, (cfg.local_crop_size // 14) ** 2 + 1
+    per_layer = 2 * (4.0 * 2 * B * nh * ng * ng * d) + 4.0 * cfg.n_local_crops * B * nh * nl * nl * d
+    return bcfg.depth * per_layer
+
+
+def write_ssl_images(root: Path, n: int, seed: int = 0) -> None:
+    """n PNG images of 240x320 textures (cv2), for the CLI's image folder."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        img = np.stack([texture(rng, 240, 320, n_blobs=30) for _ in range(3)], -1)
+        cv2.imwrite(str(root / f"{i:03d}.png"), (img * 255).astype(np.uint8))
+
+
+class _Killed(Exception):
+    pass
+
+
+def ssl_cli_resume(counters, tmp: Path) -> dict:
+    """`cli train-ssl` at its defaults (vit_small, 224 / 98, 8 local crops,
+    batch 8, 65,536 prototypes, drop path 0.3) for SSL_CLI_STEPS steps with
+    a checkpoint every SSL_CLI_CKPT_EVERY: unbroken, and killed at step
+    SSL_CLI_KILL_AT then resumed from its last checkpoint."""
+    from pope_tpu_torch import cli
+    from pope_tpu_torch.utils.checkpoint import load_payload
+
+    images = tmp / "images"
+    write_ssl_images(images, 24)
+    base = ["train-ssl", "--image-root", str(images), "--total-steps", str(SSL_CLI_STEPS),
+            "--ckpt-every", str(SSL_CLI_CKPT_EVERY)]
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the patch embed's conv backward: the same sums each run
+    try:
+        _, out["unbroken_ms"], out["unbroken_launches"], _ = counted_run(
+            counters, lambda: cli.main(base + ["--ckpt-dir", str(tmp / "a")]))
+        killed_and_resumed(base, tmp, counters, out)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    last = f"step_{SSL_CLI_STEPS:08d}"
+    a, b = load_payload(str(tmp / "a" / last), "cpu"), load_payload(str(tmp / "b" / last), "cpu")
+    mu = _named_np(a["mu"])
+    out["weights"] = conditioned_diff(_named_np(b["student"]), _named_np(a["student"]), mu)
+    out["teacher"] = conditioned_diff(_named_np(b["teacher"]), _named_np(a["teacher"]), mu)
+    out["bitwise_equal"] = all(torch.equal(a[key][k], b[key][k]) for key in ("student", "teacher", "mu", "nu")
+                               for k in a[key])
+    out["steps"] = (a["step"], b["step"])
+    out["sampler"] = json.loads((tmp / "b" / "sampler.json").read_text())
+    lr = ssl_cli_args().lr
+    close = out["weights"]["conditioned"] <= 10 * TOL_SSL_WEIGHTS and out["weights"]["all"] <= 2 * lr * SSL_CLI_STEPS
+    if not (out["steps"] == (SSL_CLI_STEPS, SSL_CLI_STEPS) and out["sampler"]["consumed_batches"] == SSL_CLI_STEPS
+            and out["dirs_after_kill"] == ["sampler.json", f"step_{SSL_CLI_CKPT_EVERY:08d}"]
+            and (out["bitwise_equal"] or close)):
+        raise AssertionError(f"cli train-ssl resume: {out}")
+    return out
+
+
+def killed_and_resumed(base, tmp: Path, counters, out: dict) -> None:
+    """The CLI killed at step SSL_CLI_KILL_AT (an exception out of the step),
+    then run again on the same checkpoint directory."""
+    from pope_tpu_torch import cli
+    from pope_tpu_torch.train import ssl as ssl_module
+
+    step = ssl_module.SSLMetaArch.train_step
+
+    def dies(self, state, batch, **kw):
+        if state.step == SSL_CLI_KILL_AT:
+            raise _Killed
+        return step(self, state, batch, **kw)
+
+    ssl_module.SSLMetaArch.train_step = dies
+    try:
+        cli.main(base + ["--ckpt-dir", str(tmp / "b")])
+        raise AssertionError("the killed run was not killed")
+    except _Killed:
+        pass
+    finally:
+        ssl_module.SSLMetaArch.train_step = step
+    out["dirs_after_kill"] = sorted(os.listdir(tmp / "b"))
+    _, out["resumed_ms"], out["resumed_launches"], _ = counted_run(
+        counters, lambda: cli.main(base + ["--ckpt-dir", str(tmp / "b")]))
+
+
+def ssl_eval_row(counters, backbone, depth: int) -> dict:
+    """extract_cls_features over SSL_EVAL_IMAGES synthetic 224 px images of
+    SSL_EVAL_CLASSES stripe frequencies, in batches of 64, then kNN, the
+    linear probe and the log-regression sweep on the features."""
+    from pope_tpu_torch.train import ssl_eval
+
+    rng = np.random.default_rng(9)
+    labels = np.arange(SSL_EVAL_IMAGES) % SSL_EVAL_CLASSES
+    xx = np.arange(224, dtype=np.float32)
+    images = np.stack([np.broadcast_to(np.sin(xx * (0.05 + 0.1 * c))[None, :, None], (224, 224, 3))
+                       + rng.normal(0, 0.5, (224, 224, 3)) for c in labels]).astype(np.float32)
+    feats, ms, launches, by_design = counted_run(
+        counters, lambda: ssl_eval.extract_cls_features(backbone, images, batch_size=SSL_EVAL_BATCH))
+    n_batches = -(-SSL_EVAL_IMAGES // SSL_EVAL_BATCH)
+    y = torch.from_numpy(labels).to(DEV)
+    n_train = 2 * SSL_EVAL_IMAGES // 3
+    tr, te, ytr, yte = feats[:n_train], feats[n_train:], y[:n_train], y[n_train:]
+    row = {"images": SSL_EVAL_IMAGES, "batches": n_batches, "extract_ms": ms, "launches": launches,
+           "launches_per_batch": {k: n / n_batches for k, n in launches.items()}, "by_design": by_design,
+           "feature_shape": list(feats.shape)}
+    t0 = time.perf_counter()
+    row["knn_accuracy"] = ssl_eval.knn_accuracy(tr, ytr, te, yte, nb_knn=(10, 20))
+    params, losses = ssl_eval.train_linear_probe(tr, ytr, steps=100, batch_size=64)
+    row["linear_probe_accuracy"] = ssl_eval.linear_probe_accuracy(params, te, yte)
+    row["log_regression"] = ssl_eval.log_regression_accuracy(tr, ytr, te, yte, steps=100)[:2]
+    torch.cuda.synchronize()
+    row["protocols_ms"] = (time.perf_counter() - t0) * 1e3
+    if not (torch.isfinite(feats).all() and np.isfinite(losses).all()
+            and launches["flash_attention"] == depth * n_batches
+            and by_design["flash_attention"]["stream"] == depth * n_batches):
+        raise AssertionError(f"ssl eval: {row}")
+    return row
+
+
+def run_ssl_phase(counters, ex2_rate) -> dict:
+    """DINOv2 SSL at `cli train-ssl`'s defaults on the card: kernel 3 at the
+    step's two f32 shapes; SSL_WARMUP + SSL_STEPS steps on one batch (ms by
+    part, FLOPs, peak memory, a profile), with the kernels' counts set to 0
+    just before and read just after (36 kernel-3 launches a step, all the
+    stream design, 24 at the global crops' tokens and 12 at the local
+    crops', no other kernel); a small
+    step against the CPU; the CLI killed and resumed; the features, kNN and
+    the probes. ViT-S/14 has 12 blocks: 36 launches a step, 12 a feature
+    batch."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from pope_tpu_torch.train.ssl import SSLMetaArch
+    from pope_tpu_torch.train.ssl_driver import ssl_configs
+
+    cfg, bcfg = ssl_configs(ssl_cli_args())
+    row = {"config": {"ssl": dataclasses.asdict(cfg), "backbone": dataclasses.asdict(bcfg)}, "batch": SSL_B}
+    row["kernel_rows"] = ssl_kernel_rows(ex2_rate)
+    row["card_vs_cpu"] = ssl_card_vs_cpu()
+
+    arch = SSLMetaArch(cfg, bcfg)
+    state = arch.init_state(0, DEV)
+    mults = arch.multipliers(state)
+    batch = ssl_batch(cfg, SSL_B, DEV, seed=1)
+    losses, parts = [], []
+
+    def steps():
+        for k in range(SSL_WARMUP + SSL_STEPS):
+            box = {}
+            acc = wall_ms_by_part([(arch, "_teacher_targets", "teacher"), (arch, "_student_losses", "student_forward"),
+                                   (arch, "_apply_update", "adamw_ema")],
+                                  lambda: box.update(arch.train_step(state, batch, mults=mults)[1]))
+            losses.append({k2: v.item() for k2, v in box.items()})
+            if k >= SSL_WARMUP:
+                parts.append(acc)
+
+    torch.cuda.reset_peak_memory_stats()
+    _, row["steps_wall_ms"], launches, by_design = counted_run(counters, steps)
+    row["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    n = SSL_WARMUP + SSL_STEPS
+    row["launches_per_step"] = {k: v / n for k, v in launches.items()}
+    row["by_design_per_step"] = {k: {d: v / n for d, v in ds.items()} for k, ds in by_design.items()}
+    row["flash_attention_by_tokens_per_step"] = {
+        n_tok: v / n for n_tok, v in counters["flash_attention"].launches_by_tokens.items()}
+    med = lambda key: statistics.median(p[key] for p in parts)
+    row["parts_ms"] = {"teacher": med("teacher"), "student_forward": med("student_forward"),
+                       "adamw_ema": med("adamw_ema"),
+                       "backward": statistics.median(p["total"] - p["teacher"] - p["student_forward"] - p["adamw_ema"]
+                                                     for p in parts)}
+    row["ms_per_step_fenced"] = med("total")
+    row["ms_per_step"] = statistics.median(timed_runs(lambda: arch.train_step(state, batch, mults=mults), 5))
+    row["losses"] = losses
+    if not all(np.isfinite(list(m.values())).all() for m in losses):
+        raise AssertionError(f"SSL losses not finite: {losses}")
+    want = {"flash_attention": 3 * bcfg.depth, "flash_attention_relpos": 0, "windowed_attention_relpos": 0}
+    # the teacher's and the student's global crops, then the student's local crops
+    tokens = lambda crop: (crop // bcfg.patch_size) ** 2 + 1
+    want_tokens = {tokens(cfg.global_crop_size): 2 * bcfg.depth, tokens(cfg.local_crop_size): bcfg.depth}
+    if (row["launches_per_step"] != want or row["by_design_per_step"]["flash_attention"]["stream"] != want["flash_attention"]
+            or row["flash_attention_by_tokens_per_step"] != want_tokens):
+        raise AssertionError(f"SSL step launches {row['launches_per_step']} {row['by_design_per_step']} "
+                             f"{row['flash_attention_by_tokens_per_step']}, want {want} {want_tokens}")
+    with FlopCounterMode(display=False) as flops:
+        arch.train_step(state, batch, mults=mults)
+    row["tflop_per_step_counted"] = flops.get_total_flops() / 1e12
+    row["tflop_attention_forward"] = ssl_step_flops(cfg, bcfg, SSL_B) / 1e12
+    row["tflop_per_step"] = row["tflop_per_step_counted"] + row["tflop_attention_forward"]
+    row["tflop_per_s"] = row["tflop_per_step"] / (row["ms_per_step"] / 1e3)
+    row["profile"] = profile_call(lambda: arch.train_step(state, batch, mults=mults), row["ms_per_step"])
+    row["eval"] = ssl_eval_row(counters, state.student["backbone"], bcfg.depth)
+    del state, arch, batch
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        row["cli"] = ssl_cli_resume(counters, Path(tmp))
+    print(json.dumps({"ssl_phase": row}, default=str), flush=True)
+    return row
+
+NVS_HW = (120, 160)  # the sphere views (LINEMOD's 480x640 at a quarter)
+NVS_K = ((150.0, 0.0, 80.0), (0.0, 150.0, 60.0), (0.0, 0.0, 1.0))
+NVS_VIEWS, NVS_TARGET = 6, 3
+NVS_CLI_STEPS = 500
+NVS_TIMED_STEPS = 20
+# the NeRF on the card against the CPU (small f32 config, the same draws):
+# the coarse pass's colours to 1e-5 (measured 2e-7); the fine pass's colours
+# and depths for 99% of the rays to 1e-3 and for all to 1e-2 (measured: p99
+# 1.8e-4, max 6.3e-4 in 7 of 512 rays: where one coarse bin dominates, the
+# others' CDF steps sit at the inverse CDF's 1e-5 threshold, and a fine
+# sample's place moves with the two devices' cumsums), the same for the
+# rendered image; the loss to 1e-4 relative; the gradients (the first
+# step's moments) to 1e-2 of each tensor's largest (measured 4e-3); the
+# weights after that first Adam step (+-lr by the gradient's sign) within
+# 1e-6 where the first moment is above 5e-2 of its tensor's largest, within
+# 2 lr elsewhere
+TOL_NVS_COARSE, TOL_NVS_P99, TOL_NVS_MAX, TOL_NVS_LOSS, TOL_NVS_GRAD = 1e-5, 1e-3, 1e-2, 1e-4, 1e-2
+
+
+def look_at_pose(cam_pos, target=np.zeros(3)):
+    """world->camera [R|t], opencv axes, +z toward `target`."""
+    z = target - cam_pos
+    z = z / np.linalg.norm(z)
+    x = np.cross(np.array([0.0, 1.0, 0.0]), z)
+    x = x / np.linalg.norm(x)
+    R = np.stack([x, np.cross(z, x), z])
+    return np.hstack([R, (-R @ cam_pos)[:, None]])
+
+
+def sphere_view(K, pose, hw, radius=0.5, color=(0.9, 0.3, 0.2)):
+    """A shaded sphere at the origin on a gray background, ray traced."""
+    from pope_tpu_torch.nvs.nerf import make_rays
+
+    o, d = make_rays(K, pose, hw)
+    b = np.sum(o * d, -1)
+    disc = b * b - (np.sum(o * o, -1) - radius ** 2)
+    t = -b - np.sqrt(np.maximum(disc, 0))
+    hit = (disc > 0) & (t > 0)
+    pt = o + d * t[..., None]
+    img = np.full(hw + (3,), 0.55, np.float32)
+    img[hit] = np.asarray(color) * np.clip(-np.sum(pt / radius * d, -1), 0, 1)[hit][:, None]
+    return img
+
+
+def write_sphere_seq(root: Path) -> list:
+    """A LINEMOD-layout sequence (color/, poses_ba/, intrin_ba/) of NVS_VIEWS
+    views around the sphere; returns the poses."""
+    import cv2
+
+    for sub in ("color", "poses_ba", "intrin_ba"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    K = np.array(NVS_K)
+    poses = []
+    for i, a in enumerate(np.linspace(0, 2 * np.pi, NVS_VIEWS, endpoint=False)):
+        pose = look_at_pose(np.array([1.6 * np.sin(a), 0.25, -1.6 * np.cos(a)]))
+        cv2.imwrite(str(root / "color" / f"{i}.png"), (sphere_view(K, pose, NVS_HW)[..., ::-1] * 255).astype(np.uint8))
+        np.savetxt(root / "poses_ba" / f"{i}.txt", pose)
+        np.savetxt(root / "intrin_ba" / f"{i}.txt", K)
+        poses.append(pose)
+    return poses
+
+
+def sphere_rays(views, hw, dev):
+    from pope_tpu_torch.nvs.nerf import make_rays
+
+    K = np.array(NVS_K) * np.array([[hw[1] / NVS_HW[1]], [hw[0] / NVS_HW[0]], [1.0]])
+    o, d, c = [], [], []
+    for a in np.linspace(0, 2 * np.pi, views, endpoint=False):
+        pose = look_at_pose(np.array([1.6 * np.sin(a), 0.25, -1.6 * np.cos(a)]))
+        oo, dd = make_rays(K, pose, hw)
+        o.append(oo.reshape(-1, 3))
+        d.append(dd.reshape(-1, 3))
+        c.append(sphere_view(K, pose, hw).reshape(-1, 3))
+    return tuple(torch.from_numpy(np.concatenate(x)).to(dev) for x in (o, d, c))
+
+
+def nerf_card_vs_cpu() -> dict:
+    """A small f32 NeRF (hidden 64, depth 4, 32 + 32 samples, 512 rays) on
+    the card and on the CPU from the same weights with the same draws:
+    render_rays, one train step and render_image."""
+    from pope_tpu_torch.nvs.nerf import NerfConfig, init_nerf, nerf_train_step, render_image, render_rays
+
+    cfg = NerfConfig(hidden=64, depth=4, skip_at=2, n_coarse=32, n_fine=32, ray_batch=512, lr=1e-3, dtype="float32")
+    rng = np.random.default_rng(4)
+    uc = torch.from_numpy(rng.uniform(size=(cfg.ray_batch, cfg.n_coarse)).astype(np.float32))
+    uf = torch.from_numpy(rng.uniform(size=(cfg.ray_batch, cfg.n_fine)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 3 * 32 * 40, cfg.ray_batch))
+    pose = look_at_pose(np.array([0.5, 0.3, -1.7]))
+    runs = {}
+    for dev in ("cpu", DEV):
+        model, state = init_nerf(cfg, 3, dev)
+        o, d, c = sphere_rays(3, (32, 40), dev)
+        near, far = torch.full((cfg.ray_batch,), 0.9, device=dev), torch.full((cfg.ray_batch,), 2.4, device=dev)
+        with torch.no_grad():
+            out = render_rays(model, o[idx.to(dev)], d[idx.to(dev)], near, far, uc.to(dev), uf.to(dev))
+        loss = nerf_train_step(model, state, o, d, c, 0.9, 2.4, idx.to(dev), uc.to(dev), uf.to(dev)).item()
+        img = render_image(model, np.array(NVS_K) / 4 * np.array([[1], [1], [4]]), pose, (30, 40), 0.9, 2.4,
+                           chunk=512, u_fine=uf.numpy())
+        runs[dev] = ({k: v.cpu().numpy() for k, v in out.items()}, loss, _named_np(model.state_dict()),
+                     _named_np(state.mu), img)
+    (r_c, l_c, w_c, mu_c, i_c), (r_g, l_g, w_g, mu_g, i_g) = runs["cpu"], runs[DEV]
+
+    def per_ray(a, b):
+        d = np.abs(a - b).reshape(a.shape[0], -1).max(1)
+        return {"max": float(d.max()), "p99": float(np.percentile(d, 99))}
+
+    errs = {"rgb_coarse": float(np.abs(r_g["rgb_coarse"] - r_c["rgb_coarse"]).max()),
+            "rgb": per_ray(r_g["rgb"], r_c["rgb"]), "depth": per_ray(r_g["depth"], r_c["depth"]),
+            "image": per_ray(i_g.reshape(-1, 3), i_c.reshape(-1, 3)), "loss_rel": abs(l_g - l_c) / l_c,
+            "grad_rel": max(float(np.abs(mu_g[k] - m).max() / max(np.abs(m).max(), 1e-30)) for k, m in mu_c.items()),
+            "weights": conditioned_diff(w_g, w_c, mu_c, 5e-2), "lr": cfg.lr}
+    fine_ok = all(errs[k]["p99"] <= TOL_NVS_P99 and errs[k]["max"] <= TOL_NVS_MAX for k in ("rgb", "depth", "image"))
+    if not (fine_ok and errs["rgb_coarse"] <= TOL_NVS_COARSE and errs["loss_rel"] <= TOL_NVS_LOSS
+            and errs["grad_rel"] <= TOL_NVS_GRAD and errs["weights"]["conditioned"] <= 1e-6
+            and errs["weights"]["all"] <= 2 * cfg.lr + 1e-6):
+        raise AssertionError(f"NeRF, card vs CPU disagree: {errs}")
+    return errs
+
+
+def run_nvs_phase(counters) -> dict:
+    """Novel views at NerfConfig() on the card: the small NeRF against the
+    CPU; `cli render-novel-view` on a sphere sequence of NVS_VIEWS 120x160
+    views (NVS_CLI_STEPS steps on 5, view 3 held out, LPIPS with seeded
+    parameters written as the two released files) with the counts set to 0
+    just before and read just after (no kernel launches); ms per train step
+    (and one profiled step) and per rendered view; PSNR against the
+    mean-colour image."""
+    from pope_tpu_torch import cli
+    from pope_tpu_torch.nvs import driver as nvs_driver
+    from pope_tpu_torch.nvs.nerf import NerfConfig, init_nerf, render_image, train_nerf
+    from pope_tpu_torch.utils import lpips
+    from pope_tpu_torch.utils.image_metrics import psnr
+
+    row = {"config": dataclasses.asdict(NerfConfig()), "views": NVS_VIEWS, "hw": list(NVS_HW)}
+    row["card_vs_cpu"] = nerf_card_vs_cpu()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        poses = write_sphere_seq(tmp / "seq")
+        params = lpips.init_random_params(0)
+        alex = {}
+        for i, (name, *_r) in zip((0, 3, 6, 8, 10), lpips._STAGES):
+            alex[f"features.{i}.weight"] = params["features"][name]["weight"]
+            alex[f"features.{i}.bias"] = params["features"][name]["bias"]
+        torch.save(alex, tmp / "alexnet.pth")
+        torch.save({f"lin{i}.model.1.weight": params["lins"][f"lin{i}"].reshape(1, -1, 1, 1) for i in range(5)},
+                   tmp / "alex.pth")
+        got, run = [], nvs_driver.render_novel_views
+        nvs_driver.render_novel_views = lambda *a, **k: got.append(run(*a, **k)) or got[-1]
+        sources = ",".join(str(i) for i in range(NVS_VIEWS) if i != NVS_TARGET)
+        try:
+            _, row["cli_ms"], launches, _ = counted_run(counters, lambda: cli.main([
+                "render-novel-view", "--seq-root", str(tmp / "seq"), "--source-ids", sources,
+                "--target-ids", str(NVS_TARGET), "--out-dir", str(tmp / "out"), "--label", "sphere",
+                "--train-steps", str(NVS_CLI_STEPS), "--lpips-alexnet", str(tmp / "alexnet.pth"),
+                "--lpips-lins", str(tmp / "alex.pth")]))
+        finally:
+            nvs_driver.render_novel_views = run
+        (idx, p, s, lp), = got[0]
+        gt = sphere_view(np.array(NVS_K), poses[NVS_TARGET], NVS_HW)
+        row |= {"target": idx, "psnr": p, "ssim": s, "lpips_seeded": lp,
+                "psnr_mean_image": psnr(np.broadcast_to(gt.mean((0, 1)), gt.shape), gt),
+                "written": sorted(os.listdir(tmp / "out")), "cli_launches": launches}
+    model, state = init_nerf(NerfConfig(), 0, DEV)
+    o, d, c = sphere_rays(NVS_VIEWS - 1, NVS_HW, DEV)
+    g = torch.Generator(device=DEV).manual_seed(1)
+    step = lambda: train_nerf(model, state, o, d, c, 0.9, 2.4, 1, generator=g)
+    _, _, step_launches, _ = counted_run(counters, lambda: [step() for _ in range(3)])
+    row["ms_per_train_step"] = statistics.median(timed_runs(step, NVS_TIMED_STEPS))
+    row["profile"] = profile_call(step, row["ms_per_train_step"])
+    render = lambda: render_image(model, np.array(NVS_K), poses[NVS_TARGET], NVS_HW, 0.9, 2.4)
+    row["ms_per_view"] = statistics.median(timed_runs(render, 3))
+    row["launches"] = {k: launches[k] + step_launches[k] for k in launches}
+    if not (row["psnr"] > row["psnr_mean_image"] + 3.0 and np.isfinite([row["ssim"], row["lpips_seeded"]]).all()
+            and row["written"] == [f"sphere_gt_{NVS_TARGET}.jpg", f"sphere_gt_pose_{NVS_TARGET}.jpg"]
+            and not any(row["launches"].values())):
+        raise AssertionError(f"novel views: {row}")
+    del model, state
+    torch.cuda.empty_cache()
+    print(json.dumps({"nvs_phase": row}, default=str), flush=True)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is false; it runs on a CUDA card")
@@ -2273,6 +2831,8 @@ def main() -> int:
     train = run_train_phase(counters)
     export_phase = run_export_phase(counters)
     regressor = run_regressor_phase(counters)
+    ssl = run_ssl_phase(counters, ex2_per_s())
+    nvs = run_nvs_phase(counters)
 
     timing = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     listed = []
@@ -2297,6 +2857,14 @@ def main() -> int:
         if crop is not None:  # the multi-crop sweep's 52x64 grid, B=1
             entry["crop_52x64"] = {k: crop[k] for k in timing} | {
                 "source": crop["source"], "launches": records_launches["records_crop1"][name]}
+        entry["ssl_launches"] = {"train_step": ssl["launches_per_step"][name],
+                                 "extract_cls_features_batch": ssl["eval"]["launches_per_batch"][name]}
+        entry["nvs_launches"] = nvs["launches"][name]
+        if name == "flash_attention":  # the SSL step's f32 shapes, the stream design
+            for key, n_tokens in (("ssl_n257", 257), ("ssl_n50", 50)):
+                r = ssl["kernel_rows"][key]
+                entry[key] = {k: r[k] for k in timing} | {
+                    "source": r["source"], "launches_per_step": ssl["flash_attention_by_tokens_per_step"][n_tokens]}
         long_n = kernels.get(f"{name}_n1025")
         if long_n is not None:  # demo-dinov2's 1025 tokens through the long design, B=1
             entry["n1025"] = {k: long_n[k] for k in timing} | {
@@ -2314,6 +2882,8 @@ def main() -> int:
         "train": train,
         "export": export_phase,
         "regressor": regressor,
+        "ssl": ssl,
+        "nvs": nvs,
         "summary": summary,
     }, indent=1))
 

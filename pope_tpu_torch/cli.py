@@ -15,6 +15,8 @@ Usage:
   python -m pope_tpu_torch.cli extract --dataset linemod --out-dir dumps
   python -m pope_tpu_torch.cli train-regressor --dataset linemod --points-dir dumps --ckpt-dir ckpt
   python -m pope_tpu_torch.cli test-regressor --dataset linemod --points-dir dumps --ckpt ckpt/step_100.pt
+  python -m pope_tpu_torch.cli train-ssl --image-root images/ --ckpt-dir ckpt
+  python -m pope_tpu_torch.cli render-novel-view --seq-root data/lm/ape/seq --out-dir renders
 
 Runs on the CUDA card unless `--device cpu` is given; without a GPU the
 default raises.
@@ -253,7 +255,23 @@ def cmd_test_regressor(args):
     test_main(args)
 
 
-def main(argv=None):
+def cmd_train_ssl(args):
+    """DINOv2 self-supervised pretraining (DINO + iBOT + KoLeo) on an image
+    folder, with checkpoints and auto-resume."""
+    from pope_tpu_torch.train.ssl_driver import train_main
+
+    train_main(args)
+
+
+def cmd_render_novel_view(args):
+    """Fit a per-scene NeRF on a posed LINEMOD sequence and render its
+    target views."""
+    from pope_tpu_torch.nvs.driver import render_main
+
+    render_main(args)
+
+
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="pope_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -418,7 +436,43 @@ def main(argv=None):
     pr.add_argument("--device", default=None, help="torch device, default cuda")
     pr.set_defaults(fn=cmd_test_regressor)
 
-    args = ap.parse_args(argv)
+    pssl = sub.add_parser("train-ssl", help="DINOv2 self-supervised pretraining (DINO+iBOT+KoLeo)")
+    pssl.add_argument("--image-root", required=True)
+    pssl.add_argument("--arch", default="vit_small", choices=["vit_small", "vit_base", "vit_large", "vit_giant"])
+    pssl.add_argument("--drop-path-rate", type=float, default=0.3, help="student stochastic depth")
+    pssl.add_argument("--global-crop-size", type=int, default=224)
+    pssl.add_argument("--local-crop-size", type=int, default=98)
+    pssl.add_argument("--n-local-crops", type=int, default=8)
+    pssl.add_argument("--batch-size", type=int, default=8)
+    pssl.add_argument("--total-steps", type=int, default=125000)
+    pssl.add_argument("--lr", type=float, default=4e-3)
+    pssl.add_argument("--dp", type=int, default=1, help="data-parallel size (not ported yet: must be 1)")
+    pssl.add_argument("--ckpt-dir", default=None)
+    pssl.add_argument("--ckpt-every", type=int, default=1000)
+    pssl.add_argument("--seed", type=int, default=0)
+    pssl.add_argument("--distributed", action="store_true", help="multi-host training (not ported yet)")
+    pssl.add_argument("--device", default=None, help="torch device, default cuda")
+    pssl.set_defaults(fn=cmd_train_ssl)
+
+    pnv = sub.add_parser("render-novel-view",
+                         help="novel-view synthesis from a posed LINEMOD sequence (per-scene NeRF)")
+    pnv.add_argument("--seq-root", required=True, help="sequence dir containing color/ poses_ba/ intrin_ba/")
+    pnv.add_argument("--source-ids", default="100,101,102,103,104,105,106,107,108,109,110")
+    pnv.add_argument("--target-ids", default=None)
+    pnv.add_argument("--out-dir", default=".")
+    pnv.add_argument("--label", default=None)
+    pnv.add_argument("--train-steps", type=int, default=2000)
+    pnv.add_argument("--downscale", type=int, default=1)
+    pnv.add_argument("--seed", type=int, default=0)
+    pnv.add_argument("--lpips-alexnet", default=None, help="torchvision alexnet-*.pth (backbone) for LPIPS")
+    pnv.add_argument("--lpips-lins", default=None, help="lpips-package weights/v0.1/alex.pth (calibrated heads)")
+    pnv.add_argument("--device", default=None, help="torch device, default cuda")
+    pnv.set_defaults(fn=cmd_render_novel_view)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     args.fn(args)
 
 

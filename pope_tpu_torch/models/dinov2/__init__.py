@@ -1,6 +1,6 @@
-"""DINOv2 ViT for retrieval: the vision transformer (inference), its
-preprocessing, cls-token cosine scoring and the checkpoint converter (port
-of pope_tpu/models/dinov2)."""
+"""DINOv2 ViT: the vision transformer (with its self-supervised training
+pieces), its preprocessing, cls-token cosine scoring and the checkpoint
+converter (port of pope_tpu/models/dinov2)."""
 
 from pope_tpu_torch.models.dinov2.model import DinoVisionTransformer
 from pope_tpu_torch.models.dinov2.preprocess import cls_token_cosine, preprocess_image

@@ -8,7 +8,7 @@ versions.
 
 Three hand-written CUDA designs serve both wrappers, picked by shape
 (`cuda_kernels.attention_design`; each wrapper counts its launches per design
-in `launches_by_design`):
+in `launches_by_design` and per token count N in `launches_by_tokens`):
 - "short" (csrc/attention_short.cu) holds a whole head in shared memory and
   its key row in registers: bf16, N <= 256, so DINOv2's 197 tokens;
 - "long" (csrc/attention_long.cu) streams 128-key tiles past 128-query
@@ -57,6 +57,10 @@ def flash_attention_relpos_plain(q, k, v, rel_h, rel_w, hk: int, wk: int):
     return out.reshape(B, N, nh * d).to(q.dtype)
 
 
+def count_tokens(wrapper, n_tokens: int) -> None:
+    wrapper.launches_by_tokens[n_tokens] = wrapper.launches_by_tokens.get(n_tokens, 0) + 1
+
+
 def register_plain_backward(op, plain, n_tensors: int):
     """Give the registered `op` the VJP of its plain version, taken from
     its first n_tensors inputs (the rest are ints)."""
@@ -88,6 +92,7 @@ def _(q, k, v, rel_h, rel_w, hk, wk):
     out = launch_attention_relpos(q, k, v, rel_h, rel_w, hk, wk, design)
     flash_attention_relpos.launches += 1
     flash_attention_relpos.launches_by_design[design] += 1
+    count_tokens(flash_attention_relpos, q.shape[1])
     return out
 
 
@@ -119,6 +124,7 @@ def flash_attention_relpos(q, k, v, rel_h, rel_w, hk: int, wk: int):
 
 flash_attention_relpos.launches = 0
 flash_attention_relpos.launches_by_design = {"short": 0, "long": 0, "stream": 0}
+flash_attention_relpos.launches_by_tokens = {}
 
 
 def flash_attention_plain(q, k, v):
@@ -142,6 +148,7 @@ def _(q, k, v):
     out = launch_attention(q, k, v, design)
     flash_attention.launches += 1
     flash_attention.launches_by_design[design] += 1
+    count_tokens(flash_attention, q.shape[1])
     return out
 
 
@@ -169,3 +176,4 @@ def flash_attention(q, k, v):
 
 flash_attention.launches = 0
 flash_attention.launches_by_design = {"short": 0, "long": 0, "stream": 0}
+flash_attention.launches_by_tokens = {}

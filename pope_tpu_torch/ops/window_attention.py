@@ -11,7 +11,7 @@ writing the `proj` input layout. Logits and softmax are f32; the softmax
 weights are rounded to the input type before p . v, which accumulates in f32.
 On the card it runs one of two hand-written kernels, picked by shape
 (`cuda_kernels.attention_design`) and counted per design in
-`launches_by_design`: SAM's 14x14 windows in bf16 take csrc/attention_short.cu
+`launches_by_design` (and per token count in `launches_by_tokens`): SAM's 14x14 windows in bf16 take csrc/attention_short.cu
 (a whole window-head in shared memory, the bias as a tensor-core product);
 larger bf16 windows csrc/attention_long.cu and float32 csrc/attention_relpos.cu,
 which the global layers' wrapper (ops/flash_attention.py) shares. The
@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from pope_tpu_torch.ops.cuda_kernels import attention_design, launch_attention_relpos
-from pope_tpu_torch.ops.flash_attention import register_plain_backward
+from pope_tpu_torch.ops.flash_attention import count_tokens, register_plain_backward
 
 
 def _split_qkv(qkv, nh: int, d: int):
@@ -58,6 +58,7 @@ def _(qkv, rel_h, rel_w, nh, d, hk, wk):
     out = launch_attention_relpos(*_split_qkv(qkv, nh, d), rel_h, rel_w, hk, wk, design)
     windowed_attention_relpos.launches += 1
     windowed_attention_relpos.launches_by_design[design] += 1
+    count_tokens(windowed_attention_relpos, qkv.shape[1])
     return out
 
 
@@ -91,3 +92,4 @@ def windowed_attention_relpos(qkv, rel_h, rel_w, nh: int, d: int, hk: int, wk: i
 
 windowed_attention_relpos.launches = 0
 windowed_attention_relpos.launches_by_design = {"short": 0, "long": 0, "stream": 0}
+windowed_attention_relpos.launches_by_tokens = {}

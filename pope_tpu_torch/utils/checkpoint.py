@@ -1,10 +1,11 @@
 """Training checkpoints (port of pope_tpu/utils/checkpoint.py's save /
 load / latest; orbax checkpoints are not read).
 
-A checkpoint is a directory holding one `torch.save` file of the model's
-state_dict, the optimizer's and the scheduler's state and the step count;
-it is written to a temporary file first and moved into place with
-os.replace, so that a reader never sees half a file.
+A checkpoint is a directory holding one `torch.save` file: for matcher
+training the model's state_dict, the optimizer's and the scheduler's state
+and the step count, for SSL training SSLState.state_dict(). It is written
+to a temporary file first and moved into place with os.replace, so that a
+reader never sees half a file.
 """
 
 from __future__ import annotations
@@ -18,15 +19,10 @@ import torch
 FILE = "checkpoint.pt"
 
 
-def save_checkpoint(path: str, state) -> str:
-    """Write a MatcherTrainState (train/trainer.py) under directory `path`."""
+def save_payload(path: str, payload: dict) -> str:
+    """torch.save `payload` as the checkpoint under directory `path`,
+    atomically."""
     os.makedirs(path, exist_ok=True)
-    payload = {
-        "model": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
-        "scheduler": state.scheduler.state_dict(),
-        "step": state.step,
-    }
     fd, tmp = tempfile.mkstemp(dir=path, suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as f:
@@ -38,11 +34,25 @@ def save_checkpoint(path: str, state) -> str:
     return path
 
 
+def load_payload(path: str, device) -> dict:
+    """The payload of the checkpoint under `path`, its tensors on `device`."""
+    return torch.load(os.path.join(path, FILE), map_location=device, weights_only=True)
+
+
+def save_checkpoint(path: str, state) -> str:
+    """Write a MatcherTrainState (train/trainer.py) under directory `path`."""
+    return save_payload(path, {
+        "model": state.model.state_dict(),
+        "optimizer": state.optimizer.state_dict(),
+        "scheduler": state.scheduler.state_dict(),
+        "step": state.step,
+    })
+
+
 def load_checkpoint(path: str, like):
     """Restore the checkpoint under `path` into `like` (a MatcherTrainState
     of the same architecture, on its device) in place; returns it."""
-    dev = next(like.model.parameters()).device
-    payload = torch.load(os.path.join(path, FILE), map_location=dev, weights_only=True)
+    payload = load_payload(path, next(like.model.parameters()).device)
     like.model.load_state_dict(payload["model"])
     like.optimizer.load_state_dict(payload["optimizer"])
     like.scheduler.load_state_dict(payload["scheduler"])

@@ -1,5 +1,6 @@
 """Weights bridge: the JAX package's parameter trees (SAM, DINOv2, the
-matcher, the pose regressors) -> the port's state_dicts.
+matcher, the pose regressors, SSL and NeRF training states, LPIPS) -> the
+port's state_dicts.
 
 The port's modules carry the JAX package's parameter names, so a flax path
 `image_encoder/block_3/qkv/kernel` becomes the key
@@ -108,3 +109,48 @@ def regressor_state_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     _walk(variables.get("params", variables), (), _regressor_leaf, out)
     return out
+
+
+def ssl_state_from_jax(state) -> dict:
+    """A JAX SSLState (numpy leaves) -> the payload of the port's
+    `SSLState.load_state_dict`: the student's and the teacher's state_dicts
+    (`backbone.*` with SwiGLU's `mlp.w12` / `mlp.w3` and the mask token,
+    `dino_head.mlp_i.*`, `last_v` (bottleneck, out) and `last_g` as they
+    are), the Adam moments under the student's parameter names in the same
+    layouts, the centers and the step."""
+    return {
+        "step": int(np.asarray(state.step)),
+        "student": params_state_from_jax(state.student),
+        "teacher": params_state_from_jax(state.teacher),
+        "mu": params_state_from_jax(state.mu),
+        "nu": params_state_from_jax(state.nu),
+        "dino_center": torch.from_numpy(np.asarray(state.dino_center, np.float32).copy()),
+        "ibot_center": torch.from_numpy(np.asarray(state.ibot_center, np.float32).copy()),
+    }
+
+
+def nerf_state_from_jax(state) -> dict:
+    """A JAX NerfState (numpy leaves; its opt_state optax.adam's) ->
+    {"model": NerfMLP state_dict, "mu", "nu": moments by parameter name,
+    "step": Adam's update count}, for `NerfMLP.load_state_dict` and
+    `NerfState(step, mu, nu)`."""
+    adam = state.opt_state[0]
+    return {
+        "model": params_state_from_jax(state.params),
+        "mu": params_state_from_jax(adam.mu),
+        "nu": params_state_from_jax(adam.nu),
+        "step": int(np.asarray(adam.count)),
+    }
+
+
+def lpips_params_from_jax(params: Mapping) -> dict:
+    """The JAX LPIPS tree ({"features": {conv_i: {"kernel" HWIO, "bias"}},
+    "lins": {lin_i: (C,)}}) -> the port's (OIHW conv weights)."""
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+
+    return {
+        "features": {name: {"weight": t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1)), "bias": t(p["bias"])}
+                     for name, p in params["features"].items()},
+        "lins": {k: t(v) for k, v in params["lins"].items()},
+    }

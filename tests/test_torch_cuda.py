@@ -1,6 +1,6 @@
 """The port on the card: the CUDA kernels against their plain versions, and a
-small SAM, a small DINOv2, a small matcher and the solver on the card
-against the same modules on the CPU. Needs an NVIDIA
+small SAM, a small DINOv2, a small matcher, the solver, SSL train steps and
+a NeRF on the card against the same modules on the CPU. Needs an NVIDIA
 GPU (marked `cuda`; skipped without one). Imports neither JAX nor pope_tpu,
 so it also runs where only the port's dependencies are installed:
 
@@ -692,3 +692,48 @@ def test_regressor_train_step_on_card_matches_cpu(card):
 
     row = chip_smoke.reg_card_vs_cpu()
     assert row["grad_rel"] <= chip_smoke.TOL_REG_GRAD_REL
+
+
+def test_ssl_step_on_card_matches_cpu(card):
+    """Two SSL steps of a small config (ViT-S width, 2 blocks, f32 heads,
+    drop path 0.2) on the card against the CPU from the same state, batch
+    and drop-path draws (chip_smoke.py's check and tolerances: the losses,
+    the centers, the first step's moments, the weights after the second)."""
+    import chip_smoke
+
+    errs = chip_smoke.ssl_card_vs_cpu()
+    assert errs["moments_rel"] < chip_smoke.TOL_SSL_MOMENTS
+
+
+def test_ssl_step_launches_kernel_3_36_times(card):
+    """One SSL step of ViT-S/14 (12 blocks, f32): kernel 3 launches 36 times,
+    12 each for the teacher's global crops, the student's global crops (17
+    tokens) and the student's local crops (5 tokens), all through the f32
+    stream design."""
+    import chip_smoke
+    from pope_tpu_torch.train.ssl import SSLConfig, SSLMetaArch
+
+    cfg = SSLConfig(global_crop_size=56, local_crop_size=28, n_local_crops=2, dino_out_dim=256, ibot_out_dim=256,
+                    head_hidden_dim=128, head_bottleneck_dim=64)
+    arch = SSLMetaArch(cfg, DinoV2Config(drop_path_rate=0.3))
+    state = arch.init_state(0, card)
+    batch = chip_smoke.ssl_batch(cfg, 2, card, seed=0)
+    before, stream = flash_attention.launches, flash_attention.launches_by_design["stream"]
+    by_tokens = dict(flash_attention.launches_by_tokens)
+    state, metrics = arch.train_step(state, batch)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - before == 36
+    assert flash_attention.launches_by_design["stream"] - stream == 36
+    grown = {n: c - by_tokens.get(n, 0) for n, c in flash_attention.launches_by_tokens.items()}
+    assert {n: c for n, c in grown.items() if c} == {17: 24, 5: 12}
+    assert torch.isfinite(metrics["total_loss"])
+
+
+def test_nerf_on_card_matches_cpu(card):
+    """A small f32 NeRF on the card against the CPU with the same weights and
+    draws: render_rays, one train step, render_image (chip_smoke.py's check
+    and tolerances)."""
+    import chip_smoke
+
+    errs = chip_smoke.nerf_card_vs_cpu()
+    assert errs["rgb_coarse"] <= chip_smoke.TOL_NVS_COARSE

@@ -322,7 +322,8 @@ class Refuse(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Refuse())
 import pope_tpu_torch
 names = ["pope_tpu_torch"] + [m.name for m in pkgutil.walk_packages(pope_tpu_torch.__path__, "pope_tpu_torch.")]
-names += ["pope_tpu_torch.tools.ablate_kernels", "pope_tpu_torch.tools.launch_overhead", "chip_smoke"]
+names += ["pope_tpu_torch.tools.ablate_kernels", "pope_tpu_torch.tools.launch_overhead",
+          "pope_tpu_torch.tools.step_pace", "chip_smoke"]
 for name in names:
     importlib.import_module(name)
 serving = ["pope_tpu_torch.serve", "pope_tpu_torch.serve.pose_service", "pope_tpu_torch.serve.web_demo",
@@ -333,8 +334,12 @@ regressor = ["pope_tpu_torch.models.regressor." + m for m in (
     "embedding", "convnextv2", "vim", "model", "dinov2_poser", "convert", "train", "data", "driver")]
 regressor += ["pope_tpu_torch.eval.extract", "pope_tpu_torch.geometry.pose", "pope_tpu_torch.weights",
               "pope_tpu_torch.ops.flash_attention", "pope_tpu_torch.ops.window_attention"]
+ssl_nvs = ["pope_tpu_torch.train." + m for m in ("ssl", "ssl_driver", "ssl_eval")]
+ssl_nvs += ["pope_tpu_torch.data.samplers", "pope_tpu_torch.data.ssl_crops", "pope_tpu_torch.utils.logging",
+            "pope_tpu_torch.utils.image_metrics", "pope_tpu_torch.utils.lpips", "pope_tpu_torch.nvs",
+            "pope_tpu_torch.nvs.nerf", "pope_tpu_torch.nvs.driver"]
 assert "pope_tpu_torch.bench" in names and "pope_tpu_torch.cli" in names
-assert set(serving + training + regressor) <= set(names)
+assert set(serving + training + regressor + ssl_nvs) <= set(names)
 leaked = [m for m in sys.modules if m.split(".")[0] in BANNED]
 assert not leaked, leaked
 print(len(names))
@@ -344,8 +349,9 @@ print(len(names))
 def test_port_imports_nothing_of_jax():
     """Every module of pope_tpu_torch (its bench, CLI, serving modules,
     exports, predictor, training modules, the pose regressor and the
-    extraction included), its tools and chip_smoke.py import in a process
-    that refuses jax, flax, optax, orbax and pope_tpu."""
+    extraction, SSL training and evaluation, the NeRF and LPIPS included),
+    its tools and chip_smoke.py import in a process that refuses jax, flax,
+    optax, orbax and pope_tpu."""
     out = subprocess.run([sys.executable, "-c", _BOUNDARY], cwd=REPO, capture_output=True, text=True,
                          timeout=300, env={**os.environ, "PYTHONPATH": str(REPO)})
     assert out.returncode == 0, out.stderr[-3000:]

@@ -145,14 +145,14 @@ def test_wrappers_take_plain_version_on_cpu():
     BW, nh, d, hk, wk = 2, 2, 16, 4, 4
     qkv, rel_h, rel_w = (torch.from_numpy(a) for a in _window_inputs(2, BW, nh, d, hk, wk))
     counters = (windowed_attention_relpos, flash_attention_relpos, flash_attention)
-    before = [(f.launches, dict(f.launches_by_design)) for f in counters]
+    before = [(f.launches, dict(f.launches_by_design), dict(f.launches_by_tokens)) for f in counters]
     out = windowed_attention_relpos(qkv, rel_h, rel_w, nh, d, hk, wk)
     torch.testing.assert_close(out, windowed_attention_relpos_plain(qkv, rel_h, rel_w, nh, d, hk, wk))
     q, k, v = qkv.view(BW, hk * wk, 3, nh, d).unbind(2)
     out = flash_attention_relpos(q, k, v, rel_h, rel_w, hk, wk)
     torch.testing.assert_close(out, flash_attention_relpos_plain(q, k, v, rel_h, rel_w, hk, wk))
     torch.testing.assert_close(flash_attention(q, k, v), flash_attention_plain(q, k, v))
-    assert [(f.launches, f.launches_by_design) for f in counters] == before
+    assert [(f.launches, f.launches_by_design, f.launches_by_tokens) for f in counters] == before
 
 
 def test_window_and_flash_plain_agree_in_f32():
