@@ -139,12 +139,37 @@ Phases, each of which raises on failure (exit code != 0):
      out; PSNR above the mean-colour image's, SSIM, LPIPS from seeded
      parameters written as the released files), ms per train step (one
      profiled) and per view, and no kernel launches.
+ 16. parallel (run_parallel_phase, right after the eval driver, whose bench
+     models it takes over): two ranks on the one card (parallel.spawn; both
+     on cuda:0, so the backend is gloo and every collective is staged
+     through pinned host memory). eval at dp 1 in this process and at
+     dp 2 on 8 of make_dataset's pairs, global B = 4 at bench configs: the
+     records of dp 2 (gathered to rank 0) against dp 1's within
+     TOL_EVAL_DEG, each rank's launches per batch with the counts set to 0
+     just before its run and read just after (28, 4 and 12, as one
+     process's), pairs/s at dp 1 and dp 2, each rank's peak memory, the
+     card's idle share over a batch; `cli eval` and `cli eval --dp 2` (its
+     own ranks) give the same tables; the matcher's step (MatcherConfig()
+     f32, global B = 4 at 480x640) at dp 2 on three batches and at tp 2
+     and the SSL step (`cli train-ssl`'s defaults, shard_ssl_state) at dp
+     2, each one step against this process's single step (losses,
+     gradients, BatchNorm statistics or centers; 36 kernel-3 launches a
+     rank), then timed; the dp matcher step again with each of two planted
+     faults, which the same check must reject; GPipe at pp = 2 and ring
+     attention at sp = 2 on SAM's global-layer shape against each rank's
+     own serial / one-softmax result; then `cli train-matcher --dp 2` and
+     `--tp 2` (an epoch, then --resume) and `cli train-ssl --dp 2` (killed
+     after its first checkpoint, then resumed), each checkpoint held
+     against the `--dp 1` run's, and `cli train-ssl --distributed` as two
+     commands. Per part: ms, peak memory, collective ms and bytes staged a
+     step, and the phase's wall seconds.
 The last three lines are the `kernels` JSON line (each kernel's launches on
 the main path, per eval batch, on the serving path, on the records path, on
 the training path, per exported program, on the regressor's paths, per SSL
 step and feature batch and on the novel-view path, its times and bound, and
 the same at the square grid for kernels 1 and 2, at the crop grid for kernel
-2 and at N = 1025 and the SSL step's two shapes for kernel 3), the
+2 and at N = 1025 and the SSL step's two shapes for kernel 3, and each dp
+rank's launches per eval batch), the
 nvidia-smi line and {"ok": true, "device": {...}}. A copy of the results, the full profiles
 included, goes to build/chip_smoke.json (gitignored).
 """
@@ -1601,9 +1626,9 @@ def train_card_vs_cpu() -> dict:
         batch, grads, losses = train_batch(items, dev), [], []
         apply = trainer.apply_gradients
 
-        def spy(st):
+        def spy(st, *args):
             grads.append({n: p.grad.detach().cpu().clone() for n, p in st.model.named_parameters()})
-            apply(st)
+            apply(st, *args)
 
         trainer.apply_gradients = spy
         try:
@@ -1800,7 +1825,7 @@ def run_eval_phase(counters, per_batch_counts):
     solved; depth 1 and depth 2 must give identical records on the first 2
     batches, and the serial run_pair the same discrete fields (R/t errors
     within TOL_EVAL_DEG). Then pope_tpu_torch.bench at BENCH_REPS windows,
-    whose JSON line it prints."""
+    whose JSON line it prints. Returns (the row, the bench models)."""
     from pope_tpu_torch import bench
     from pope_tpu_torch.data.image_io import reader
     from pope_tpu_torch.eval import DATASETS, evaluate_dataset, iter_pairs, load_manifest
@@ -1879,9 +1904,7 @@ def run_eval_phase(counters, per_batch_counts):
     row["bench"] = bench.main(n_reps=BENCH_REPS, models=models)
     if row["bench"]["model_tflops_per_pair"] != 5.553:
         raise AssertionError(f"bench FLOP budget {row['bench']['model_tflops_per_pair']} != bench.py's 5.553")
-    del models
-    torch.cuda.empty_cache()
-    return row
+    return row, models
 
 
 EXPORT_ORIG_HW = (480, 640)  # cli export's default frame
@@ -2786,6 +2809,788 @@ def run_nvs_phase(counters) -> dict:
     return row
 
 
+PAR_RANKS = 2  # ranks of the parallel phase, both on the one card (gloo, staged through pinned host memory)
+PAR_EVAL_PAIRS = 8  # 2 global batches of EVAL_PAIRS_PER_BATCH; each rank runs 2 pairs of each
+PAR_TIMED_STEPS = 2  # timed train steps after the compared one, in each part
+PAR_SEEDS = (21, 22, 23)  # planar_items batches of the compared dp steps; the tp step takes the first
+# dp / tp matcher steps against the single-process step on the card, f32,
+# TF32 off: the losses to TOL_TRAIN_LOSS, the BatchNorm running statistics to
+# TOL_PAR_STATS of each tensor's largest (the same sums in another order;
+# measured 4.4e-7 at dp 2, 1.8e-7 at tp 2). The gradients: the dp ranks sum
+# the BatchNorm moments in another order, and a ReLU input within rounding
+# of 0 then takes the other side; at full width some always do (116 at dp,
+# 71 at tp, counted on each side). The step counts each ReLU's positive
+# inputs on both sides: with equal counts the gradients are held to
+# TOL_PAR_GRAD of each tensor's largest (the sums' rounding), with a flip to
+# TOL_PAR_GRAD_FLIP of each tensor's norm. The phase plants two faults in
+# the dp step, its gradients left unsummed over dp and BatchNorm on each
+# rank's own batch, and fails unless the same check rejects both. On the
+# H100 the sound steps read 1.6e-2, 1.4e-2 and 2.0e-3 of a norm at dp 2
+# (PAR_SEEDS) and 1.6e-3 at tp 2, the faults 2.18 and 0.67 (statistics
+# 4.3e-2 against at most 7.6e-7 sound); the bounds sit between.
+# SSL has GELUs only: its gradients (the first step's moments, lr 0) to
+# TOL_SSL_MOMENTS of each tensor's largest, losses and centers to
+# TOL_SSL_LOSS; but the heads' MLPs run in bf16 (cli train-ssl's
+# head_dtype), whose products round their weight gradients to 2^-8: the
+# sum of two ranks' rounded halves against one rounded whole, TOL_PAR_BF16.
+TOL_PAR_GRAD, TOL_PAR_GRAD_FLIP, TOL_PAR_STATS, TOL_PAR_BF16 = 1e-3, 5e-2, 1e-5, 1e-2
+PAR_FAULTS = ("unsummed_grads", "per_rank_batch_norm")
+# The CLI's runs at dp 2 and tp 2 against its run at dp 1 (train-matcher:
+# one step an epoch, an epoch then a resume to two; train-ssl: killed after
+# its first checkpoint, then resumed): tests/test_torch_parallel_train.py's
+# bounds on the train loss, the Adam moments (of each tensor's norm) and
+# the BatchNorm statistics (here of each tensor's largest), set there
+# between a sound run's drift after ReLU flips and planted faults'
+TOL_PAR_RUN_LOSS, TOL_PAR_RUN_MOMENTS, TOL_PAR_RUN_STATS = 1e-3, 0.5, 3e-3
+# train-ssl's four steps at --dp 2 against --dp 1: the first moments to
+# TOL_PAR_RUN_SSL_MU of each tensor's largest, the weights within Adam's
+# bound (2 lr a step). Rehearsed on the CPU with a 2-block ViT: 5.5e-3 sound;
+# 1.7 with every rank on the same half of the batch, 64 with the dp
+# gradients left unsummed.
+TOL_PAR_RUN_SSL_MU = 0.1
+PAR_CLI_MATCHER = ("--batch-size", "2", "--n-samples-per-subset", "2", "--warmup-steps", "0")
+# GPipe (pp = 2) against the serial composition on one rank: the same f32
+# products, in the same order; ring attention (sp = 2, SAM's global-layer
+# shape in f32) against one softmax over all keys: sums in another order,
+# held as kernel 3's f32 rows are (TOL_SSL_KERNEL)
+TOL_PP = 1e-5  # of each tensor's largest
+PP_D, PP_MICRO, PP_MB = 1024, 4, 16  # GPipe's stage width, microbatches, microbatch rows
+RING_TOKENS = 3072  # SAM ViT-H's rect 48x64 global layers: 16 heads of d = 80
+
+
+def _par_matcher(seed: int = 66):
+    from pope_tpu_torch.config import MatcherConfig
+    from pope_tpu_torch.models.matcher import Matcher
+    from pope_tpu_torch.pipeline.api import init_matcher_weights
+    from pope_tpu_torch.train import trainer
+    from pope_tpu_torch.train.optim import OptimConfig
+
+    matcher = Matcher(MatcherConfig())
+    init_matcher_weights(matcher, torch.Generator().manual_seed(seed))
+    return trainer.init_matcher_train_state(matcher.to(DEV), OptimConfig(lr=TRAIN_LR, warmup_steps=0), grad_clip=0.5)
+
+
+@contextlib.contextmanager
+def relu_positive_counts():
+    """Count each matcher ReLU's positive inputs (backbone and LoFTR
+    layers), call by call: a run whose counts differ from another's took
+    another side at an input within rounding of 0."""
+    from pope_tpu_torch.models.matcher import backbone, transformer
+
+    F, counts = torch.nn.functional, []
+
+    class Counting:
+        def __getattr__(self, name):
+            return getattr(F, name)
+
+        def relu(self, x, *a, **kw):
+            counts.append((x.detach() > 0).sum())
+            return F.relu(x, *a, **kw)
+
+        def leaky_relu(self, x, *a, **kw):
+            counts.append((x.detach() > 0).sum())
+            return F.leaky_relu(x, *a, **kw)
+
+    saved = backbone.F, transformer.F
+    backbone.F = transformer.F = Counting()
+    try:
+        yield counts
+    finally:
+        backbone.F, transformer.F = saved
+
+
+def _par_ssl():
+    from pope_tpu_torch.train.ssl import SSLMetaArch
+    from pope_tpu_torch.train.ssl_driver import ssl_configs
+
+    cfg, bcfg = ssl_configs(ssl_cli_args())
+    arch = SSLMetaArch(cfg, bcfg)
+    return arch, arch.init_state(0, DEV), ssl_batch(cfg, SSL_B, DEV, seed=1)
+
+
+def _full_grads(module) -> dict:
+    """{name: gradient on the CPU}, tp shards gathered."""
+    from pope_tpu_torch.parallel.collectives import all_gather
+
+    out = {}
+    for mod_name, mod in module.named_modules():
+        for pn, p in mod.named_parameters(recurse=False):
+            g = p.grad
+            if g is not None and getattr(p, "tp_sharded", False):
+                g = all_gather(g, mod.tp_shard.group)
+            out[f"{mod_name}.{pn}" if mod_name else pn] = None if g is None else g.detach().cpu().clone()
+    return out
+
+
+def _steps_ms(step, n: int) -> float:
+    """Median wall ms of n more calls of step(), each ending in a sync."""
+    return statistics.median(timed_runs(step, n))
+
+
+def _ssl_step_capture(arch, state, batch, step):
+    """(metrics, {name: gradient on the CPU}) of one SSL step, the
+    gradients taken as the update reads them (FSDP shards gathered)."""
+    from pope_tpu_torch.parallel.collectives import all_gather
+
+    grads, update = {}, arch._apply_update
+
+    def spy(st, sched, mults):
+        for n, p in st.student.named_parameters():
+            g = p.grad
+            if g is not None and st.fsdp is not None and n in st.fsdp.names:
+                g = all_gather(g, st.fsdp.group)
+            grads[n] = None if g is None else g.detach().cpu().clone()
+        update(st, sched, mults)
+
+    arch._apply_update = spy
+    try:
+        _, metrics = step(state, batch)
+    finally:
+        arch._apply_update = update
+    return {k: v.item() for k, v in metrics.items()}, grads
+
+
+def _pp_inputs(dev):
+    g = torch.Generator(device=dev).manual_seed(7)
+    stages = [{"w": torch.randn(PP_D, PP_D, device=dev, generator=g) / PP_D ** 0.5,
+               "b": torch.randn(PP_D, device=dev, generator=g) * 0.1} for _ in range(PAR_RANKS)]
+    x = torch.randn(PP_MICRO, PP_MB, PP_D, device=dev, generator=g)
+    return stages, x, torch.randn(x.shape, device=dev, generator=g)
+
+
+def _ring_inputs(dev):
+    g = torch.Generator(device=dev).manual_seed(8)
+    return [torch.randn(SAM_H_HEADS, RING_TOKENS, SAM_H_HEAD_DIM, device=dev, generator=g) for _ in range(3)]
+
+
+def par_rank(mesh, tmp):
+    """One rank of the parallel phase (spawned; both ranks on cuda:0)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from pope_tpu_torch import bench
+    from pope_tpu_torch.eval import evaluate_dataset
+    from pope_tpu_torch.ops.flash_attention import flash_attention, flash_attention_relpos
+    from pope_tpu_torch.ops.ring_attention import ring_attention
+    from pope_tpu_torch.ops.window_attention import windowed_attention_relpos
+    from pope_tpu_torch.parallel.collectives import STATS
+    from pope_tpu_torch.parallel.mesh import make_mesh, shard_batch, shard_params_tp
+    from pope_tpu_torch.parallel.pipeline import pipeline_loss_and_grad, shard_stage_params, stack_stage_params
+    from pope_tpu_torch.pipeline import runner
+    from pope_tpu_torch.train import trainer
+    from pope_tpu_torch.train.ssl import make_sharded_ssl_step, shard_ssl_batch, shard_ssl_state, ssl_state_bytes
+    from pope_tpu_torch.utils.device import resolve_device
+
+    resolve_device(DEV)
+    rank = dist.get_rank()
+    tmp = Path(tmp)
+    counters = {"windowed_attention_relpos": windowed_attention_relpos,
+                "flash_attention_relpos": flash_attention_relpos, "flash_attention": flash_attention}
+    out = {"backend": dist.get_backend(), "device": str(torch.cuda.current_device()), "mesh": str(mesh)}
+
+    def part(name, fn):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        STATS.reset()
+        dist.barrier()
+        t0 = time.perf_counter()
+        row = fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        row.update(wall_s=time.perf_counter() - t0, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   comm=STATS.snapshot())
+        out[name] = row
+
+    def eval_part():
+        row = {}
+        t0 = time.perf_counter()
+        models = bench.build_models()
+        torch.cuda.synchronize()
+        row["load_s"] = time.perf_counter() - t0
+        data_root, pairs_dir = str(tmp / "data"), str(tmp / "data" / "pairs")
+        dispatch, finish = runner.dispatch_pairs, runner.finish_pairs
+        batches, records = [], []
+
+        def counting_dispatch(*args, **kwargs):
+            before = {name: f.launches for name, f in counters.items()}
+            p = dispatch(*args, **kwargs)
+            batches.append({name: f.launches - before[name] for name, f in counters.items()})
+            return p
+
+        def recording_finish(pending):
+            recs = finish(pending)
+            records.extend(recs)
+            return recs
+
+        runner.dispatch_pairs, runner.finish_pairs = counting_dispatch, recording_finish
+        try:
+            evaluate_dataset(models, "linemod", data_root, pairs_dir, batch_size=EVAL_PAIRS_PER_BATCH,
+                             max_pairs=EVAL_PAIRS_PER_BATCH, progress=False, mesh=mesh)  # warm
+            records.clear()
+            batches.clear()
+            dist.barrier()
+            _, ms, launches, _ = counted_run(counters, lambda: evaluate_dataset(
+                models, "linemod", data_root, pairs_dir, batch_size=EVAL_PAIRS_PER_BATCH, progress=False,
+                mesh=mesh))
+        finally:
+            runner.dispatch_pairs, runner.finish_pairs = dispatch, finish
+        row.update(ms=ms, launches=launches, launches_per_batch=list(batches))
+        if rank == 0:
+            torch.save(list(records), tmp / "dp_records.pt")
+        from pope_tpu_torch.eval import DATASETS, iter_pairs, load_manifest
+
+        spec = DATASETS["linemod"]
+        paths = list(iter_pairs(data_root, spec, load_manifest(pairs_dir, spec)))[:EVAL_PAIRS_PER_BATCH]
+        one = lambda: runner.run_pairs(models, paths, spec, mesh=mesh)
+        dist.barrier()
+        row["batch_ms"] = statistics.median(timed_runs(one, 3))
+        dist.barrier()
+        prof = profile_call(one, row["batch_ms"])
+        row["profile"] = {k: prof[k] for k in ("device_busy_ms", "kernel_launches", "idle_share")}
+        del models
+        return row
+
+    def matcher_run(key, tp, seed, fault=None):
+        """One sharded step from the seeded state on batch `seed`, with one
+        of PAR_FAULTS planted or none; rank 0 writes its full gradients,
+        statistics, metrics and ReLU counts to matcher_<key>.pt."""
+        from pope_tpu_torch.models.matcher import backbone
+        from pope_tpu_torch.parallel import collectives
+
+        m = make_mesh(PAR_RANKS, tp=tp)
+        state = _par_matcher()
+        shard_params_tp(m, state.model, optimizer=state.optimizer)
+        batch = shard_batch(m, train_batch(planar_items(seed, TRAIN_B), DEV))
+        saved = backbone.batch_statistics_over, collectives.all_reduce_grads_
+        if fault == "per_rank_batch_norm":
+            backbone.batch_statistics_over = lambda total, parts: contextlib.nullcontext()
+        elif fault == "unsummed_grads":
+            collectives.all_reduce_grads_ = lambda params, group=None, average=False: None
+        elif fault is not None:
+            raise ValueError(fault)
+        try:
+            step = trainer.make_sharded_train_step(m)
+            STATS.reset()
+            t0 = time.perf_counter()
+            with relu_positive_counts() as counts:
+                metrics = {k: v.item() for k, v in step(state, batch).items()}
+            first = {"ms": (time.perf_counter() - t0) * 1e3, "comm": STATS.snapshot()}
+        finally:
+            backbone.batch_statistics_over, collectives.all_reduce_grads_ = saved
+        counts = torch.stack(counts).cpu()
+        if tp == 1:
+            counts = collectives.all_reduce(counts, m.get_group("dp"))
+        grads = _full_grads(state.model)
+        stats = {k: v.cpu().clone() for k, v in state.model.state_dict().items() if "running" in k}
+        if rank == 0:
+            torch.save({"grads": grads, "stats": stats, "metrics": metrics, "relu_positive": counts.tolist()},
+                       tmp / f"matcher_{key}.pt")
+        first["sharded_params"] = sum(getattr(p, "tp_sharded", False) for p in state.model.parameters())
+        return state, step, batch, first
+
+    def matcher_dp():
+        row = {}
+        for seed in PAR_SEEDS:
+            state, step, batch, first = matcher_run(f"dp_{seed}", 1, seed)
+            if seed == PAR_SEEDS[0]:
+                STATS.reset()
+                row["ms_per_step"] = _steps_ms(lambda: step(state, batch), PAR_TIMED_STEPS)
+                row["comm_per_step"] = {k: v / PAR_TIMED_STEPS for k, v in STATS.snapshot().items()}
+                row["sharded_params"] = first["sharded_params"]
+            del state, step, batch
+        for fault in PAR_FAULTS:
+            matcher_run(f"fault_{fault}", 1, PAR_SEEDS[0], fault)
+        return row
+
+    def matcher_tp():
+        # a tp step stages tens of GB through host memory: the compared
+        # step's own wall time stands for the step's
+        _, _, _, first = matcher_run(f"tp_{PAR_SEEDS[0]}", PAR_RANKS, PAR_SEEDS[0])
+        return {"ms_per_step": first["ms"], "comm_per_step": first["comm"], "sharded_params": first["sharded_params"]}
+
+    def ssl_part():
+        m = make_mesh(PAR_RANKS, tp=1)
+        arch, state, batch = _par_ssl()
+        row = {"state_bytes_replicated": ssl_state_bytes(state)}
+        shard_ssl_state(state, m)
+        row["state_bytes_sharded"] = ssl_state_bytes(state)
+        row["fsdp_leaves"] = len(state.fsdp.names)
+        local = shard_ssl_batch(m, batch)
+        step = make_sharded_ssl_step(arch, m, mults=arch.multipliers(state))
+        (metrics, grads), _, launches, by_design = counted_run(
+            counters, lambda: _ssl_step_capture(arch, state, local, step))
+        row.update(metrics=metrics, launches=launches, by_design=by_design,
+                   centers=[state.dino_center.cpu().clone(), state.ibot_center.cpu().clone()])
+        if rank == 0:
+            torch.save({"grads": grads, "centers": row.pop("centers")}, tmp / "ssl_dp.pt")
+        else:
+            row.pop("centers")
+        STATS.reset()
+        row["ms_per_step"] = _steps_ms(lambda: step(state, local), PAR_TIMED_STEPS)
+        row["comm_per_step"] = {k: v / PAR_TIMED_STEPS for k, v in STATS.snapshot().items()}
+        return row
+
+    def pp_part():
+        m = DeviceMesh("cpu", torch.arange(PAR_RANKS), mesh_dim_names=("pp",))
+        stages, x, y = _pp_inputs(DEV)
+        stacked = stack_stage_params(stages)
+        mse = lambda o, t: ((o - t) ** 2).mean()
+        fn = lambda p, h: torch.tanh(h @ p["w"] + p["b"])
+        run = pipeline_loss_and_grad(fn, mse, m, "pp")
+        local = shard_stage_params(stacked, m, "pp")
+        loss, grads = run(local, x, y)
+        ref = {k: v.clone().requires_grad_(True) for k, v in stacked.items()}
+        h = x
+        for s in range(PAR_RANKS):
+            h = fn({k: v[s] for k, v in ref.items()}, h)
+        ref_loss = mse(h, y)
+        ref_loss.backward()
+        errs = {k: ((g[0] - ref[k].grad[rank]).abs().max() / ref[k].grad[rank].abs().max()).item()
+                for k, g in grads.items()}
+        row = {"loss": loss.item(), "serial_loss": ref_loss.item(), "grad_rel_err": errs}
+        row["ms"] = _steps_ms(lambda: run(local, x, y), 3)
+        return row
+
+    def ring_part():
+        m = DeviceMesh("cpu", torch.arange(PAR_RANKS), mesh_dim_names=("sp",))
+        q, k, v = _ring_inputs(DEV)
+        n = RING_TOKENS // PAR_RANKS
+        rows = slice(rank * n, (rank + 1) * n)
+        ql, kl, vl = (t[:, rows].clone().requires_grad_(True) for t in (q, k, v))
+        attn = ring_attention(m, "sp")
+        o = attn(ql, kl, vl)
+        (o ** 2).sum().backward()
+        qf, kf, vf = (t.clone().requires_grad_(True) for t in (q, k, v))
+        ref = torch.softmax(qf @ kf.transpose(-1, -2) / SAM_H_HEAD_DIM ** 0.5, dim=-1) @ vf
+        (ref ** 2).sum().backward()
+        row = {"out": check_close("ring attention", o.detach(), ref.detach()[:, rows], TOL_SSL_KERNEL)}
+        for name, a, b in (("dq", ql, qf), ("dk", kl, kf), ("dv", vl, vf)):
+            row[name] = check_close(f"ring attention {name}", a.grad, b.grad[:, rows], TOL_SSL_KERNEL)
+        with torch.no_grad():
+            row["ms"] = _steps_ms(lambda: attn(ql, kl, vl), 3)
+            row["plain_ms"] = _steps_ms(lambda: torch.softmax(q @ k.transpose(-1, -2) / SAM_H_HEAD_DIM ** 0.5, -1) @ v, 3)
+        return row
+
+    part("eval", eval_part)
+    part("matcher_dp", matcher_dp)
+    part("matcher_tp", matcher_tp)
+    part("ssl_dp", ssl_part)
+    part("gpipe", pp_part)
+    part("ring", ring_part)
+    torch.save(out, tmp / f"rank{rank}.pt")
+
+
+def _worst(errs: dict, i: int = 0, n: int = 5) -> list:
+    return sorted(([k, e[i]] for k, e in errs.items()), key=lambda kv: -kv[1])[:n]
+
+
+def _rel_to_norm(got: dict, want: dict) -> dict:
+    """Per parameter: the largest gradient error over the tensor's largest
+    |gradient|, and the error's norm over the gradient's norm."""
+    out = {}
+    for k, w in want.items():
+        if w is None:
+            continue
+        d = got[k] - w
+        out[k] = ((d.abs().max() / w.abs().max().clamp(min=1e-30)).item(),
+                  (d.norm() / w.norm().clamp(min=1e-30)).item())
+    return out
+
+
+def matcher_step_readings(got: dict, ref: dict) -> dict:
+    """A sharded matcher step's readings against the single step's, and
+    whether they pass: the loss terms, the ReLU flips (at least), the
+    gradients (of each tensor's largest and norm) and the BatchNorm
+    running statistics (of each tensor's largest)."""
+    errs = _rel_to_norm(got["grads"], ref["grads"])
+    flips = (sum(abs(a - b) for a, b in zip(got["relu_positive"], ref["relu_positive"]))
+             if len(got["relu_positive"]) == len(ref["relu_positive"]) else None)
+    r = {"loss_rel_err": max(abs(got["metrics"][k] - v) / abs(v) for k, v in ref["metrics"].items()),
+         "relu_flips_at_least": flips,
+         "grad_max_rel_to_largest": max(e[0] for e in errs.values()), "grad_worst_rel_to_largest": _worst(errs),
+         "grad_max_rel_to_norm": max(e[1] for e in errs.values()),
+         "bn_stats_rel_err": max(((got["stats"][k] - v).abs().max() / v.abs().max()).item()
+                                 for k, v in ref["stats"].items())}
+    grads_ok = (r["grad_max_rel_to_largest"] <= TOL_PAR_GRAD if flips == 0
+                else r["grad_max_rel_to_norm"] <= TOL_PAR_GRAD_FLIP)
+    r["ok"] = (flips is not None and grads_ok and r["loss_rel_err"] <= TOL_TRAIN_LOSS
+               and r["bn_stats_rel_err"] <= TOL_PAR_STATS)
+    return r
+
+
+def _run_drift(got: dict, want: dict, lr: float, steps: int) -> dict:
+    """A matcher checkpoint payload against another: the largest weight
+    difference over the Adam bound (2 lr a step), the BatchNorm statistics'
+    largest difference of each tensor's largest, the moments' difference of
+    each tensor's norm."""
+    weights = max((got["model"][k] - v).abs().max().item() for k, v in want["model"].items() if "running" not in k)
+    stats = max(((got["model"][k] - v).abs().max() / v.abs().max().clamp(min=1e-30)).item()
+                for k, v in want["model"].items() if "running" in k)
+    moments = max(((got["optimizer"]["state"][i][m] - st[m]).norm() / st[m].norm()).item()
+                  for i, st in want["optimizer"]["state"].items() for m in ("exp_avg", "exp_avg_sq"))
+    return {"weights_over_adam_bound": weights / (2 * lr * steps), "stats_rel": stats, "moments_rel_to_norm": moments,
+            "shapes_equal": all(got["model"][k].shape == v.shape for k, v in want["model"].items())}
+
+
+def matcher_cli_runs(tmp: Path):
+    """`cli train-matcher` at --dp 1 (this process), --dp 2 and --tp 2 (two
+    ranks each) on a ScanNet-layout scene: one step an epoch, one epoch with
+    checkpoints, then --resume to two. Each parallel run's history and last
+    checkpoint are held against the --dp 1 run's. Returns (row, failures)."""
+    from pope_tpu_torch import cli
+    from pope_tpu_torch.utils.checkpoint import load_payload
+
+    paths = write_scannet_scene(tmp / "scans", n_frames=4, shift_px=40)
+    runs = {}
+    for name, extra in (("dp1", []), ("dp2", ["--dp", "2"]), ("tp2", ["--tp", "2"])):
+        ckpt, hist = tmp / f"matcher_ckpt_{name}", tmp / f"matcher_history_{name}.json"
+        base = ["train-matcher", "--data-source", "scannet", "--data-root", paths["data_root"],
+                "--train-npz", paths["train_npz"], "--val-npz", paths["val_npz"],
+                "--intrinsic-path", paths["intrinsic_path"], *PAR_CLI_MATCHER, "--ckpt-dir", str(ckpt),
+                "--history-out", str(hist), *extra]
+        r = {}
+        for part, more in (("epoch_1", ["--epochs", "1"]), ("resume_2", ["--epochs", "2", "--resume"])):
+            t0 = time.perf_counter()
+            cli.main(base + more)
+            r[part] = {"wall_s": time.perf_counter() - t0, "history": json.loads(hist.read_text())}
+        r["index"] = json.loads((ckpt / "index.json").read_text())
+        r["dirs"] = sorted(os.listdir(ckpt))
+        r["last"] = load_payload(str(ckpt / "last"), "cpu")
+        torch.cuda.empty_cache()
+        runs[name] = r
+    lr = 6e-3 * 2 / 64  # TrainMatcherConfig's canonical lr at the global batch of 2
+    row, failures = {}, []
+    want = runs["dp1"]
+    for name, r in runs.items():
+        out = {part: {"wall_s": r[part]["wall_s"], "epochs": [h["epoch"] for h in r[part]["history"]],
+                      "train_loss": [h["train_loss"] for h in r[part]["history"]]}
+               for part in ("epoch_1", "resume_2")}
+        out["index_epoch"], out["dirs"], out["step"] = r["index"]["epoch"], r["dirs"], r["last"]["step"]
+        best = {b["name"] for b in r["index"]["best"]}
+        ok = (out["epoch_1"]["epochs"] == [0] and out["resume_2"]["epochs"] == [1] and out["index_epoch"] == 2
+              and out["step"] == 2 and set(r["dirs"]) == best | {"index.json", "last"})
+        if name != "dp1":
+            out["train_loss_rel_err"] = max(abs(a - b) / abs(b) for part in ("epoch_1", "resume_2") for a, b in
+                                            zip(out[part]["train_loss"], row["dp1"][part]["train_loss"]))
+            out["against_dp1"] = _run_drift(r["last"], want["last"], lr, 2)
+            d = out["against_dp1"]
+            # Adam's bias-corrected ratio reaches 1.0013 at step 2: 1% of slack
+            ok = ok and (out["train_loss_rel_err"] <= TOL_PAR_RUN_LOSS and d["shapes_equal"]
+                         and d["weights_over_adam_bound"] <= 1.01 and d["stats_rel"] <= TOL_PAR_RUN_STATS
+                         and d["moments_rel_to_norm"] <= TOL_PAR_RUN_MOMENTS)
+        out["ok"] = ok
+        row[name] = out
+        if not ok:
+            failures.append(f"cli train-matcher {name}: {out}")
+    print(json.dumps({"parallel_cli_train_matcher": row}), flush=True)
+    return row, failures
+
+
+def _ssl_cli_process(args: list, log: Path) -> subprocess.Popen:
+    """`python -m pope_tpu_torch.cli <args>` from the checkout, in a session
+    of its own (its ranks die with it), output to `log`."""
+    with open(log, "w") as f:
+        return subprocess.Popen([sys.executable, "-m", "pope_tpu_torch.cli", *args], stdout=f,
+                                stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent, start_new_session=True)
+
+
+def _kill(proc: subprocess.Popen) -> None:
+    import signal
+
+    with contextlib.suppress(ProcessLookupError):
+        os.killpg(proc.pid, signal.SIGKILL)
+    proc.wait()
+
+
+def ssl_cli_runs(tmp: Path):
+    """`cli train-ssl` at its defaults for SSL_CLI_STEPS steps, a checkpoint
+    every SSL_CLI_CKPT_EVERY: at --dp 1 in this process; at --dp 2 started
+    as a command, killed once its first checkpoint is written, then resumed
+    (two ranks), its last checkpoint held against --dp 1's; and at
+    --distributed, two commands of one rank each (a coordinator on
+    localhost, each rank its own batch stream) for SSL_CLI_CKPT_EVERY
+    steps. Returns (row, failures)."""
+    from pope_tpu_torch import cli
+    from pope_tpu_torch.parallel.launch import free_port
+    from pope_tpu_torch.utils.checkpoint import load_payload
+
+    images = tmp / "ssl_images"
+    write_ssl_images(images, 24)
+    base = ["train-ssl", "--image-root", str(images), "--total-steps", str(SSL_CLI_STEPS),
+            "--ckpt-every", str(SSL_CLI_CKPT_EVERY)]
+    row, failures = {}, []
+    a, b, c = tmp / "ssl_dp1", tmp / "ssl_dp2", tmp / "ssl_distributed"
+    t0 = time.perf_counter()
+    cli.main(base + ["--ckpt-dir", str(a)])
+    row["dp1_wall_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    proc = _ssl_cli_process(base + ["--dp", "2", "--ckpt-dir", str(b)], tmp / "ssl_dp2_killed.log")
+    sidecar, deadline, seen = b / "sampler.json", time.monotonic() + 300, None
+    while proc.poll() is None and time.monotonic() < deadline:
+        with contextlib.suppress(OSError, ValueError):
+            seen = json.loads(sidecar.read_text()).get("consumed_batches")
+        if seen == SSL_CLI_CKPT_EVERY:
+            break
+        time.sleep(0.05)
+    _kill(proc)
+    row["dp2_killed"] = {"wall_s": time.perf_counter() - t0, "returncode": proc.returncode,
+                         "dirs": sorted(os.listdir(b)) if b.exists() else []}
+    t0 = time.perf_counter()
+    cli.main(base + ["--dp", "2", "--ckpt-dir", str(b)])
+    row["dp2_resumed_wall_s"] = time.perf_counter() - t0
+    last = f"step_{SSL_CLI_STEPS:08d}"
+    one, two = load_payload(str(a / last), "cpu"), load_payload(str(b / last), "cpu")
+    mu = _named_np(one["mu"])
+    row["dp2_against_dp1"] = {
+        "steps": [one["step"], two["step"]],
+        "student": conditioned_diff(_named_np(two["student"]), _named_np(one["student"]), mu),
+        "teacher": conditioned_diff(_named_np(two["teacher"]), _named_np(one["teacher"]), mu),
+        "mu_rel_to_largest": max(float(np.abs(v - mu[k]).max() / max(np.abs(mu[k]).max(), 1e-30))
+                                 for k, v in _named_np(two["mu"]).items()),
+        "sampler": [json.loads((d / "sampler.json").read_text()) for d in (a, b)]}
+    lr = ssl_cli_args().lr
+    d = row["dp2_against_dp1"]
+    if not (row["dp2_killed"]["returncode"] == -9
+            and row["dp2_killed"]["dirs"] == ["sampler.json", f"step_{SSL_CLI_CKPT_EVERY:08d}"]
+            and d["steps"] == [SSL_CLI_STEPS, SSL_CLI_STEPS] and d["sampler"][0] == d["sampler"][1]
+            and d["mu_rel_to_largest"] <= TOL_PAR_RUN_SSL_MU
+            and all(d[k]["all"] <= 2 * lr * SSL_CLI_STEPS for k in ("student", "teacher"))):
+        failures.append(f"cli train-ssl --dp 2, killed and resumed, against --dp 1: {row}")
+
+    t0 = time.perf_counter()
+    port = free_port()
+    dist_args = ["train-ssl", "--image-root", str(images), "--total-steps", str(SSL_CLI_CKPT_EVERY),
+                 "--ckpt-every", str(SSL_CLI_CKPT_EVERY), "--ckpt-dir", str(c), "--distributed",
+                 "--coordinator", f"localhost:{port}", "--num-processes", "2"]
+    procs = [_ssl_cli_process(dist_args + ["--process-id", str(r)], tmp / f"ssl_distributed_{r}.log")
+             for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=300) for p in procs]
+    except subprocess.TimeoutExpired:
+        rcs = None
+    finally:
+        for p in procs:
+            _kill(p)
+    logs = [(tmp / f"ssl_distributed_{r}.log").read_text() for r in range(2)]
+    dist_row = {"wall_s": time.perf_counter() - t0, "returncodes": rcs,
+                "launch": [line for line in logs[0].splitlines() if "[pope_tpu_torch.parallel]" in line],
+                "dirs": sorted(os.listdir(c)) if c.exists() else []}
+    if rcs == [0, 0]:
+        payload = load_payload(str(c / f"step_{SSL_CLI_CKPT_EVERY:08d}"), "cpu")
+        dist_row["step"] = payload["step"]
+        dist_row["finite"] = all(torch.isfinite(v).all().item() for v in payload["student"].values())
+        dist_row["sampler"] = json.loads((c / "sampler.json").read_text())
+    row["distributed"] = dist_row
+    if not (rcs == [0, 0] and dist_row["step"] == SSL_CLI_CKPT_EVERY and dist_row["finite"]
+            and dist_row["sampler"]["world"] == 2 and dist_row["sampler"]["per_host_batch"] == SSL_B // 2):
+        failures.append(f"cli train-ssl --distributed: {dist_row}; logs: {[log[-2000:] for log in logs]}")
+    print(json.dumps({"parallel_cli_train_ssl": row}, default=str), flush=True)
+    return row, failures
+
+
+def run_parallel_phase(counters, per_batch_counts, held: list) -> dict:
+    """The parallel layer on the one card: two ranks (gloo, every collective
+    staged through pinned host memory) against the single-process results:
+    eval --dp 2 at full width (bench configs, PAR_EVAL_PAIRS pairs, global
+    B = 4), the matcher's step at dp 2 and at tp 2 and the SSL step at dp 2
+    with an FSDP-cut state (each one step against the single step, then
+    timed), GPipe at pp = 2 and ring attention at sp = 2 (each rank against
+    its own serial / one-softmax result). Every rank's eval batch must launch
+    each kernel per_batch_counts times. `held` holds the eval phase's bench
+    models, which are taken out and dropped before the ranks start."""
+    from pope_tpu_torch import bench
+    from pope_tpu_torch.eval import evaluate_dataset
+    from pope_tpu_torch.parallel.launch import spawn
+    from pope_tpu_torch.pipeline import runner
+    from pope_tpu_torch.train import trainer
+
+    t_phase = time.perf_counter()
+    models = held.pop()
+    row = {"ranks": PAR_RANKS, "card_count": torch.cuda.device_count()}
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        data_root, pairs_dir = bench.make_dataset(str(tmp / "data"), n_pairs=PAR_EVAL_PAIRS)
+        records, finish = [], runner.finish_pairs
+
+        def recording_finish(pending):
+            recs = finish(pending)
+            records.extend(recs)
+            return recs
+
+        evaluate = lambda n: evaluate_dataset(models, "linemod", data_root, pairs_dir,
+                                              batch_size=EVAL_PAIRS_PER_BATCH, max_pairs=n, progress=False)
+        evaluate(EVAL_PAIRS_PER_BATCH)  # warm
+        runner.finish_pairs = recording_finish
+        try:
+            _, dp1_ms, _, _ = counted_run(counters, lambda: evaluate(PAR_EVAL_PAIRS))
+        finally:
+            runner.finish_pairs = finish
+        single_records = list(records)
+        del models
+        torch.cuda.empty_cache()
+
+        # the command itself (PipelineConfig()'s models): `cli eval` in this
+        # process, then `cli eval --dp 2`, which starts its own two ranks
+        from pope_tpu_torch import cli
+
+        cli_row, cli_tables = {}, {}
+        for dp in (1, PAR_RANKS):
+            t0 = time.perf_counter()
+            out_json = tmp / f"cli_dp{dp}.json"
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["eval", "--dataset", "linemod", "--data-root", data_root, "--pairs-dir", pairs_dir,
+                          "--batch-size", str(EVAL_PAIRS_PER_BATCH), "--dp", str(dp), "--json-out", str(out_json)])
+            cli_row[f"dp{dp}_wall_s"] = time.perf_counter() - t0
+            cli_tables[dp] = json.loads(out_json.read_text())
+        torch.cuda.empty_cache()
+
+        # the single-process steps the ranks' steps are held against
+        matcher_refs = {}
+        for seed in PAR_SEEDS:
+            state = _par_matcher()
+            batch = train_batch(planar_items(seed, TRAIN_B), DEV)
+            with relu_positive_counts() as counts:
+                metrics = {k: v.item() for k, v in trainer.matcher_train_step(state, batch).items()}
+            matcher_refs[seed] = {
+                "metrics": metrics, "grads": _full_grads(state.model), "relu_positive": torch.stack(counts).cpu().tolist(),
+                "stats": {k: v.cpu().clone() for k, v in state.model.state_dict().items() if "running" in k}}
+            if seed == PAR_SEEDS[0]:
+                single_ms = _steps_ms(lambda: trainer.matcher_train_step(state, batch), PAR_TIMED_STEPS)
+            del state, batch
+        torch.cuda.empty_cache()
+        arch, sstate, sbatch = _par_ssl()
+        step = lambda st, b: arch.train_step(st, b, mults=arch.multipliers(st))
+        metrics, grads = _ssl_step_capture(arch, sstate, sbatch, step)
+        ssl_ref = {"metrics": metrics, "grads": grads, "launches_per_step": 3 * arch.backbone_cfg.depth,
+                   "centers": [sstate.dino_center.cpu().clone(), sstate.ibot_center.cpu().clone()],
+                   "ms_per_step": _steps_ms(lambda: step(sstate, sbatch), PAR_TIMED_STEPS)}
+        del arch, sstate, sbatch
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        spawn(par_rank, PAR_RANKS, argv=(str(tmp),), tp=1, device=DEV, timeout=900)
+        row["ranks_wall_s"] = time.perf_counter() - t0
+        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(PAR_RANKS)]
+        dp_records = torch.load(tmp / "dp_records.pt", weights_only=False)
+        matcher_got = {k: torch.load(tmp / f"matcher_{k}.pt", weights_only=False)
+                       for k in [f"dp_{s}" for s in PAR_SEEDS] + [f"tp_{PAR_SEEDS[0]}"]
+                       + [f"fault_{f}" for f in PAR_FAULTS]}
+        ssl_got = torch.load(tmp / "ssl_dp.pt", weights_only=False)
+        cli_matcher, cli_matcher_failures = matcher_cli_runs(tmp)
+        cli_ssl, cli_ssl_failures = ssl_cli_runs(tmp)
+    row["backend"] = ranks[0]["backend"]
+
+    failures = []
+    # eval --dp 2
+    ev = [r["eval"] for r in ranks]
+    diffs = record_diffs(dp_records, single_records, TOL_EVAL_DEG)
+    per_batch = dict(per_batch_counts)
+    eval_row = {
+        "pairs": PAR_EVAL_PAIRS, "global_batch": EVAL_PAIRS_PER_BATCH,
+        "pairs_per_s_dp1": PAR_EVAL_PAIRS / dp1_ms * 1e3,
+        "pairs_per_s_dp2": PAR_EVAL_PAIRS / max(e["ms"] for e in ev) * 1e3,
+        "launches_per_batch_per_rank": [e["launches_per_batch"] for e in ev],
+        "peak_memory_gb_per_rank": [e["peak_memory_gb"] for e in ev], "load_s_per_rank": [e["load_s"] for e in ev],
+        "batch_ms_per_rank": [e["batch_ms"] for e in ev],
+        "device_busy_ms_per_rank": [e["profile"]["device_busy_ms"] for e in ev],
+        # kernels of two processes on one card take turns: the card's idle
+        # share over one batch is what neither rank's kernels fill
+        "card_idle_share": 1.0 - sum(e["profile"]["device_busy_ms"] for e in ev) / max(e["batch_ms"] for e in ev),
+        "collective_ms_per_rank": [e["comm"]["ms"] for e in ev],
+        "staged_bytes_per_rank": [e["comm"]["staged_bytes"] for e in ev],
+        "records": len(dp_records), "record_diffs": diffs,
+        "ok": [r["ok"] for r in dp_records], "pre_bbox": [r["pre_bbox"] for r in dp_records],
+    }
+    table_diffs = [(obj, k) for obj, t in cli_tables[1].items() for k, v in t.items()
+                   if not abs(cli_tables[PAR_RANKS].get(obj, {}).get(k, float("nan")) - v)
+                   <= (TOL_EVAL_DEG if k.endswith("Err") else 1e-3)]
+    eval_row["cli"] = cli_row | {"table_diffs": table_diffs}
+    print(json.dumps({"parallel_eval": eval_row}, default=str), flush=True)
+    if diffs or len(dp_records) != PAR_EVAL_PAIRS:
+        failures.append(f"eval --dp 2 records differ from the single run's: {diffs}")
+    if table_diffs or list(cli_tables[PAR_RANKS]) != list(cli_tables[1]):
+        failures.append(f"cli eval --dp 2: its tables differ from cli eval's at {table_diffs}")
+    for e in ev:
+        if e["launches_per_batch"] != [per_batch] * (PAR_EVAL_PAIRS // EVAL_PAIRS_PER_BATCH):
+            failures.append(f"eval --dp 2 launches per batch {e['launches_per_batch']}, want {per_batch} each")
+
+    # the matcher at dp 2 (PAR_SEEDS) and tp 2, and the planted faults
+    readings = {k: matcher_step_readings(g, matcher_refs[int(k.split("_")[1]) if not k.startswith("fault")
+                                                         else PAR_SEEDS[0]])
+                for k, g in matcher_got.items()}
+    matcher_rows = {}
+    for key in ("dp", "tp"):
+        got = [r[f"matcher_{key}"] for r in ranks]
+        mrow = {"steps": {k: v for k, v in readings.items() if k.startswith(key)},
+                "ms_per_step": [g["ms_per_step"] for g in got], "ms_per_step_single": single_ms,
+                "peak_memory_gb_per_rank": [g["peak_memory_gb"] for g in got],
+                "collective_ms_per_step": [g["comm_per_step"]["ms"] for g in got],
+                "staged_bytes_per_step": [g["comm_per_step"]["staged_bytes"] for g in got],
+                "tp_sharded_params": [g["sharded_params"] for g in got]}
+        if key == "dp":
+            mrow["planted_faults"] = {k: v for k, v in readings.items() if k.startswith("fault")}
+        matcher_rows[key] = mrow
+        print(json.dumps({f"parallel_matcher_{key}": mrow}), flush=True)
+    for k, r in readings.items():
+        if k.startswith("fault") == r["ok"]:
+            failures.append(f"matcher step {k}: " + ("the check missed the planted fault" if r["ok"] else
+                                                     "against the single step") + f": {r}")
+    matcher_rows["cli"] = cli_matcher
+    failures += cli_matcher_failures
+
+    # SSL at dp 2, FSDP state
+    got = [r["ssl_dp"] for r in ranks]
+    errs = _rel_to_norm(ssl_got["grads"], ssl_ref["grads"])
+    loss_err = max(abs(g["metrics"][k] - v) / max(abs(v), 1e-6) for g in got for k, v in ssl_ref["metrics"].items())
+    center_err = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                     for a, b in zip(ssl_got["centers"], ssl_ref["centers"]))
+    want_launches = {"flash_attention": ssl_ref["launches_per_step"], "flash_attention_relpos": 0,
+                     "windowed_attention_relpos": 0}
+    bf16 = lambda k: k.startswith(("dino_head.mlp_", "ibot_head.mlp_"))  # the heads' MLPs (head_dtype bfloat16)
+    srow = {"loss_rel_err": loss_err, "center_rel_err": center_err,
+            "grad_max_rel_to_largest": max(e[0] for k, e in errs.items() if not bf16(k)),
+            "grad_max_rel_to_largest_bf16_heads": max(e[0] for k, e in errs.items() if bf16(k)),
+            "grad_worst_rel_to_largest": _worst(errs),
+            "ms_per_step": [g["ms_per_step"] for g in got], "ms_per_step_single": ssl_ref["ms_per_step"],
+            "peak_memory_gb_per_rank": [g["peak_memory_gb"] for g in got],
+            "state_bytes_per_rank": [g["state_bytes_sharded"] for g in got],
+            "state_bytes_replicated": got[0]["state_bytes_replicated"], "fsdp_leaves": got[0]["fsdp_leaves"],
+            "launches_per_rank": [g["launches"] for g in got], "by_design_per_rank": [g["by_design"] for g in got],
+            "collective_ms_per_step": [g["comm_per_step"]["ms"] for g in got],
+            "staged_bytes_per_step": [g["comm_per_step"]["staged_bytes"] for g in got]}
+    print(json.dumps({"parallel_ssl_dp": srow}), flush=True)
+    if (loss_err > TOL_SSL_LOSS or center_err > TOL_SSL_LOSS or srow["grad_max_rel_to_largest"] > TOL_SSL_MOMENTS
+            or srow["grad_max_rel_to_largest_bf16_heads"] > TOL_PAR_BF16):
+        failures.append(f"SSL dp step against the single step: {srow}")
+    if any(g["launches"] != want_launches for g in got):
+        failures.append(f"SSL dp launches per rank {srow['launches_per_rank']}, want {want_launches}")
+
+    # GPipe and ring attention
+    pp = [r["gpipe"] for r in ranks]
+    pp_row = {"loss": [p["loss"] for p in pp], "serial_loss": pp[0]["serial_loss"],
+              "grad_rel_err": [p["grad_rel_err"] for p in pp], "ms": [p["ms"] for p in pp],
+              "shape": {"stages": PAR_RANKS, "micro": PP_MICRO, "rows": PP_MB, "width": PP_D}}
+    print(json.dumps({"parallel_gpipe": pp_row}), flush=True)
+    if any(abs(p["loss"] - p["serial_loss"]) > TOL_PP * abs(p["serial_loss"]) or
+           max(p["grad_rel_err"].values()) > TOL_PP for p in pp):
+        failures.append(f"GPipe against the serial composition: {pp_row}")
+    ring_row = {"per_rank": [r["ring"] for r in ranks],
+                "shape": [SAM_H_HEADS, RING_TOKENS, SAM_H_HEAD_DIM], "dtype": "float32"}
+    print(json.dumps({"parallel_ring": ring_row}, default=str), flush=True)
+
+    srow["cli"] = cli_ssl
+    failures += cli_ssl_failures
+    row.update(eval=eval_row, matcher=matcher_rows, ssl=srow, gpipe=pp_row, ring=ring_row,
+               wall_s=time.perf_counter() - t_phase)
+    print(json.dumps({"parallel_phase": {k: row[k] for k in ("ranks", "card_count", "backend", "ranks_wall_s",
+                                                              "wall_s")}}), flush=True)
+    if failures:
+        raise AssertionError("parallel phase: " + "; ".join(failures))
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is false; it runs on a CUDA card")
@@ -2827,7 +3632,8 @@ def main() -> int:
     records, records_launches = run_records_phase(counters, models)
     del models
     torch.cuda.empty_cache()
-    eval_phase = run_eval_phase(counters, launches)
+    eval_phase, *held = run_eval_phase(counters, launches)
+    parallel = run_parallel_phase(counters, launches, held)
     train = run_train_phase(counters)
     export_phase = run_export_phase(counters)
     regressor = run_regressor_phase(counters)
@@ -2860,6 +3666,8 @@ def main() -> int:
         entry["ssl_launches"] = {"train_step": ssl["launches_per_step"][name],
                                  "extract_cls_features_batch": ssl["eval"]["launches_per_batch"][name]}
         entry["nvs_launches"] = nvs["launches"][name]
+        entry["dp2_eval_launches_per_batch_per_rank"] = [
+            [b[name] for b in rank] for rank in parallel["eval"]["launches_per_batch_per_rank"]]
         if name == "flash_attention":  # the SSL step's f32 shapes, the stream design
             for key, n_tokens in (("ssl_n257", 257), ("ssl_n50", 50)):
                 r = ssl["kernel_rows"][key]
@@ -2884,6 +3692,7 @@ def main() -> int:
         "regressor": regressor,
         "ssl": ssl,
         "nvs": nvs,
+        "parallel": parallel,
         "summary": summary,
     }, indent=1))
 

@@ -6,7 +6,8 @@ automatic mask generator, the DINOv2 retrieval tower, the LoFTR matcher),
 plain PyTorch versions, NMS, connected components, resampling), ``solver``
 (RANSAC), ``pipeline`` (model loading, the retrieve -> match -> solve stage,
 the eval runner), ``eval`` (the dataset driver, manifests, metric tables),
-``data`` (the prefetch loader, frame IO), ``cli.py`` (``eval``) and
+``data`` (the prefetch loader, frame IO), ``parallel`` (the launch ladder,
+collectives, the (dp, tp) mesh, GPipe), ``cli.py`` (``eval``) and
 ``bench.py`` (the eval driver's benchmark line). Entry points run on CUDA
 unless the caller passes ``device="cpu"``. It imports neither JAX nor
 pope_tpu.

@@ -37,12 +37,24 @@ def _add_model_args(p):
 
 
 def cmd_eval(args):
+    if args.serial and (args.dp or args.batch_size is not None):
+        raise SystemExit("--serial runs one pair at a time on one device; it contradicts --dp/--batch-size "
+                         "(drop one)")
+    if args.dp and args.dp > 1:
+        # one rank per device, started here (parallel.launch.spawn); rank 0
+        # prints and writes
+        from pope_tpu_torch.parallel import spawn
+
+        spawn(_eval, args.dp, argv=(args,), tp=1, device=args.device)
+    else:
+        _eval(None, args)
+
+
+def _eval(mesh, args):
     from pope_tpu_torch import pipeline
     from pope_tpu_torch.eval import evaluate_dataset, results_to_xlsx
     from pope_tpu_torch.eval.evaluate import results_table
 
-    if args.serial and args.batch_size is not None:
-        raise SystemExit("--serial runs one pair at a time; it contradicts --batch-size (drop one)")
     models = pipeline.load_models(
         sam_checkpoint=args.sam_checkpoint,
         sam_type=args.sam_type,
@@ -61,8 +73,10 @@ def cmd_eval(args):
     else:
         per_obj = evaluate_dataset(
             models, args.dataset, args.data_root, args.pairs_dir, max_pairs=args.max_pairs,
-            batch_size=args.batch_size if args.batch_size is not None else 4,
+            batch_size=args.batch_size if args.batch_size is not None else 4, mesh=mesh,
         )
+    if mesh is not None and mesh.get_rank() != 0:
+        return
     print(results_table(per_obj))
     if args.xlsx:
         results_to_xlsx(per_obj, args.xlsx)
@@ -285,6 +299,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="pairs per device batch, default 4 (the batched production path is the default)",
     )
     pe.add_argument(
+        "--dp", type=int, default=None,
+        help="data-parallel size: run every batch over N ranks on this host, one device each "
+        "(batch-size must be divisible by it)",
+    )
+    pe.add_argument(
         "--serial", action="store_true",
         help="reference-shaped per-pair loop instead of the batched driver",
     )
@@ -377,8 +396,8 @@ def build_parser() -> argparse.ArgumentParser:
     ptm.add_argument("--canonical-lr", type=float, default=6e-3)
     ptm.add_argument("--warmup-steps", type=int, default=4800)
     ptm.add_argument("--epi-err-thr", type=float, default=5e-4, help="5e-4 for ScanNet, 1e-4 for MegaDepth")
-    ptm.add_argument("--dp", type=int, default=1, help="data-parallel size (not ported yet: must be 1)")
-    ptm.add_argument("--tp", type=int, default=1, help="tensor-parallel size (not ported yet: must be 1)")
+    ptm.add_argument("--dp", type=int, default=1, help="data-parallel size (ranks on this host)")
+    ptm.add_argument("--tp", type=int, default=1, help="tensor-parallel size (ranks on this host)")
     ptm.add_argument("--ckpt-dir", default=None)
     ptm.add_argument("--resume", action="store_true", help="continue from <ckpt-dir>/last at the saved epoch")
     ptm.add_argument("--history-out", default=None, help="write the per-epoch train/val metric history json")
@@ -446,11 +465,19 @@ def build_parser() -> argparse.ArgumentParser:
     pssl.add_argument("--batch-size", type=int, default=8)
     pssl.add_argument("--total-steps", type=int, default=125000)
     pssl.add_argument("--lr", type=float, default=4e-3)
-    pssl.add_argument("--dp", type=int, default=1, help="data-parallel size (not ported yet: must be 1)")
+    pssl.add_argument("--dp", type=int, default=1, help="data-parallel size (ranks on this host)")
     pssl.add_argument("--ckpt-dir", default=None)
     pssl.add_argument("--ckpt-every", type=int, default=1000)
     pssl.add_argument("--seed", type=int, default=0)
-    pssl.add_argument("--distributed", action="store_true", help="multi-host training (not ported yet)")
+    pssl.add_argument(
+        "--distributed", action="store_true",
+        help="this process is one rank of a multi-process run: the topology comes from --coordinator / "
+        "--num-processes / --process-id, else POPE_* or SLURM variables (parallel/launch.py); every rank "
+        "runs the same command",
+    )
+    pssl.add_argument("--coordinator", default=None, help="host:port of process 0 (overrides env)")
+    pssl.add_argument("--num-processes", type=int, default=None)
+    pssl.add_argument("--process-id", type=int, default=None)
     pssl.add_argument("--device", default=None, help="torch device, default cuda")
     pssl.set_defaults(fn=cmd_train_ssl)
 

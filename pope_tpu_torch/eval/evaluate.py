@@ -158,6 +158,7 @@ def evaluate_dataset(
     progress: bool = True,
     batch_size: Optional[int] = None,
     run_pairs: Optional[Callable] = None,
+    mesh=None,
     on_batch: Optional[Callable] = None,
 ) -> Dict[str, dict]:
     """Run the full pipeline over a dataset's pair manifest, on the device
@@ -170,7 +171,11 @@ def evaluate_dataset(
     prefetched by a loader thread. With the default runner, up to
     POPE_PIPELINE_DEPTH (default 2) batches are queued on the device before
     the oldest one's records are built, and `on_batch(n_records)` fires
-    after each batch's records land.
+    after each batch's records land. `mesh`: optional dp mesh: each rank
+    runs its B / dp pairs of every batch and the records gather to dp rank
+    0 (B must divide by dp; a ragged final batch is padded to the dp
+    multiple with its last pair and the pad records dropped). Rank 0
+    returns the tables; the other ranks return {}.
 
     Serial mode (`run_pair(models, paths, spec) -> record`): the reference's
     per-pair loop shape (eval_linemod_json.py:51), kept for `--serial`.
@@ -182,6 +187,14 @@ def evaluate_dataset(
 
     if batch_size:
         pipelined = run_pairs is None  # custom runners sync batch by batch
+        dp = 1
+        if mesh is not None:
+            from pope_tpu_torch.parallel.mesh import axis_size
+
+            dp = axis_size(mesh, "dp")
+            progress = progress and mesh.get_rank() == 0
+        if batch_size % dp:
+            raise ValueError(f"batch_size {batch_size} not divisible by dp={dp}")
 
         def gen_batches():
             # path chunks only; decode + upload happen in the loader
@@ -195,13 +208,17 @@ def evaluate_dataset(
                 chunk.append(paths)
                 produced += 1
                 if len(chunk) == batch_size:
-                    yield chunk
+                    yield len(chunk), chunk
                     chunk = []
             if chunk:
-                yield chunk
+                n_real = len(chunk)
+                while len(chunk) % dp:  # pad a ragged tail to the dp multiple
+                    chunk = chunk + [chunk[-1]]
+                yield n_real, chunk
 
-        def prep(chunk):
-            return (chunk, *runner.prepare_batch(chunk, models.device))
+        def prep(item):
+            n_real, chunk = item
+            return (n_real, chunk, *runner.prepare_batch(chunk, models.device, mesh))
 
         # software-pipeline across batches with the default runner: keep up
         # to `depth` batches queued on the device before fetching the oldest
@@ -212,18 +229,21 @@ def evaluate_dataset(
         pending = deque()
 
         def drain_one():
-            records.extend(runner.finish_pairs(pending.popleft()))
+            p, n_real = pending.popleft()
+            records.extend(runner.finish_pairs(p)[:n_real])
             if on_batch is not None:
                 on_batch(len(records))
 
-        for chunk, hosts, dev in ThreadedLoader(gen_batches, num_workers=n_workers, prefetch=2, fn=prep):
+        for n_real, chunk, hosts, dev in ThreadedLoader(gen_batches, num_workers=n_workers, prefetch=2, fn=prep):
             if pipelined:
-                pending.append(runner.dispatch_pairs(models, chunk, spec, hosts=hosts, dev=dev))
+                pending.append((runner.dispatch_pairs(models, chunk, spec, hosts=hosts, dev=dev, mesh=mesh), n_real))
                 if len(pending) > depth:
                     drain_one()
             else:
-                records.extend(run_pairs(models, chunk, spec, hosts=hosts, dev=dev))
-            prev_n, n = n, n + len(chunk)
+                # custom runners (tests) may not take a mesh
+                kw = {"mesh": mesh} if mesh is not None else {}
+                records.extend(run_pairs(models, chunk, spec, hosts=hosts, dev=dev, **kw)[:n_real])
+            prev_n, n = n, n + n_real
             # fire once whenever a multiple of 50 is crossed (batch sizes
             # >= 50 would otherwise print every batch)
             if progress and (n // 50 > prev_n // 50):

@@ -11,10 +11,15 @@ its convs outside cuDNN on the card (`native_conv2d`).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+from typing import Callable
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from pope_tpu_torch.models.sam.encoder import tp_shard
 from pope_tpu_torch.ops.resize import upsample2x_align_corners
 
 
@@ -32,8 +37,27 @@ def native_conv2d(x, weight, stride, padding):
 
 
 def conv(layer: nn.Conv2d, x, dtype):
-    """flax nn.Conv(dtype=dtype, use_bias=False) on an NCHW tensor."""
-    return native_conv2d(x.to(dtype), layer.weight.to(dtype), layer.stride, layer.padding)
+    """flax nn.Conv(dtype=dtype, use_bias=False) on an NCHW tensor (a
+    tp-sharded layer's output gathered over tp)."""
+    tp = tp_shard(layer)
+    return tp.gather(native_conv2d(tp.enter(x).to(dtype), layer.weight.to(dtype), layer.stride, layer.padding), 1)
+
+
+_BATCH_PARTS = contextvars.ContextVar("batch_parts", default=(lambda t: t, 1))
+
+
+@contextlib.contextmanager
+def batch_statistics_over(total: Callable, parts: int):
+    """Inside the block, train-mode BatchNorm normalises over a global batch
+    of `parts` equal batches, one of them this process's: total(t) sums t
+    over the parts, with a gradient that flows back to each (SyncBatchNorm
+    semantics; flax's train-mode BatchNorm under SPMD normalises over the
+    global batch)."""
+    token = _BATCH_PARTS.set((total, parts))
+    try:
+        yield
+    finally:
+        _BATCH_PARTS.reset(token)
 
 
 class BatchNorm(nn.Module):
@@ -45,7 +69,8 @@ class BatchNorm(nn.Module):
     (biased), and updates the running statistics with flax's momentum 0.9,
     running = 0.9 * running + 0.1 * batch, with that biased variance
     (F.batch_norm keeps the unbiased one, and its momentum is the other
-    side's weight)."""
+    side's weight). Inside `batch_statistics_over`, the batch is one of
+    equal parts of a global batch, whose statistics it takes."""
 
     def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
@@ -59,14 +84,17 @@ class BatchNorm(nn.Module):
     def forward(self, x):
         c = lambda t: t.float()[None, :, None, None]
         x = x.float()
-        if self.training:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp(x.square().mean(dim=(0, 2, 3)) - mean.square(), min=0.0)
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            total, parts = _BATCH_PARTS.get()
+            n = x.numel() // x.shape[1] * parts
+            sums = total(torch.stack([x.sum(dim=(0, 2, 3)), x.square().sum(dim=(0, 2, 3))]))
+            mean = sums[0] / n
+            var = torch.clamp(sums[1] / n - mean.square(), min=0.0)
             with torch.no_grad():
                 self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
                 self.running_var.mul_(self.momentum).add_((1 - self.momentum) * var)
-        else:
-            mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(c(var) + self.eps) * c(self.weight)
         return (x - c(mean)) * mul + c(self.bias)
 

@@ -7,7 +7,7 @@ loss = MSE(t) + mean geodesic(R); eval by the batched relative pose error.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -47,10 +47,13 @@ def _predict(model, batch: Dict[str, torch.Tensor], dropout: Dropout = None):
     return model(batch["mkpts0"], batch["mkpts1"], batch.get("img0"), batch.get("img1"), dropout=dropout)
 
 
-def train_step(state: RegressorTrainState, batch: Dict[str, torch.Tensor], dropout: Optional[Dropout]):
+def train_step(state: RegressorTrainState, batch: Dict[str, torch.Tensor], dropout: Optional[Dropout],
+               dp_group=None):
     """One step in place. batch: mkpts0, mkpts1, [img0, img1,] gt_t, gt_R;
     dropout: a torch.Generator for the MLP's masks (or the masks). Returns
-    the metrics (loss, t_loss, r_loss) as detached 0-dim tensors."""
+    the metrics (loss, t_loss, r_loss) as detached 0-dim tensors. dp_group:
+    make_sharded_train_step's; the batch is this rank's equal part, and the
+    gradients and metrics are averaged over the group."""
     model = state.model
     model.train()
     state.optimizer.zero_grad(set_to_none=True)
@@ -60,10 +63,40 @@ def train_step(state: RegressorTrainState, batch: Dict[str, torch.Tensor], dropo
     for p in model.parameters():
         if p.grad is None:  # torch's AdamW skips these; optax decays them with a zero gradient
             p.grad = torch.zeros_like(p)
+    metrics = {"loss": loss.detach(), "t_loss": t_loss.detach(), "r_loss": r_loss.detach()}
+    if dp_group is not None:
+        from pope_tpu_torch.parallel.collectives import all_reduce, all_reduce_grads_, group_size
+
+        all_reduce_grads_(model.parameters(), dp_group, average=True)
+        metrics = {k: all_reduce(v, dp_group) / group_size(dp_group) for k, v in metrics.items()}
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1
-    return {"loss": loss.detach(), "t_loss": t_loss.detach(), "r_loss": r_loss.detach()}
+    return metrics
+
+
+def make_sharded_train_step(mesh):
+    """train_step over a (dp, tp) mesh (program 1 of the JAX package's
+    multi-chip dry run): step(state, batch, dropout) with `batch` this
+    rank's shard_batch(mesh, global_batch, sp_axis=1) (dp slice, token axis
+    cut over tp, gathered back here since the model attends over every
+    token), the model's large layers and their moments cut by
+    parallel.shard_params_tp, and `dropout` the global batch's keep masks
+    (each rank takes its rows) or None. It equals train_step on the global
+    batch: the loss is a mean over samples, so the dp gradients and metrics
+    are averaged."""
+    from pope_tpu_torch.parallel.mesh import ShardedBatch, axis_size, shard_batch, unshard_sp
+
+    group = mesh.get_group("dp") if axis_size(mesh, "dp") > 1 else None
+
+    def step(state: RegressorTrainState, batch: ShardedBatch, dropout: Optional[Sequence[torch.Tensor]]):
+        if isinstance(dropout, torch.Generator):
+            raise ValueError("a sharded step takes the global batch's dropout masks, not a generator")
+        full = unshard_sp(mesh, batch) if isinstance(batch, ShardedBatch) else batch
+        masks = None if dropout is None else [shard_batch(mesh, m) for m in dropout]
+        return train_step(state, full, masks, group)
+
+    return step
 
 
 @torch.no_grad()

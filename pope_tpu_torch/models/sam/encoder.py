@@ -20,10 +20,32 @@ from pope_tpu_torch.ops.flash_attention import flash_attention_relpos
 from pope_tpu_torch.ops.window_attention import windowed_attention_relpos
 
 
+class _Unsharded:
+    """The tensor-parallel wiring of a layer that has none: identity.
+    parallel.shard_params_tp gives each layer it cuts a `tp_shard` with the
+    same two methods."""
+
+    @staticmethod
+    def enter(x, dim: int = 1):
+        return x
+
+    @staticmethod
+    def gather(y, dim: int):
+        return y
+
+
+def tp_shard(layer: nn.Module):
+    """How a helper that reads `layer`'s weight itself feeds it (`enter`)
+    and assembles its output (`gather`)."""
+    return getattr(layer, "tp_shard", _Unsharded)
+
+
 def dense(layer: nn.Linear, x, dtype):
-    """flax nn.Dense(dtype=dtype): inputs, kernel and bias cast to dtype."""
+    """flax nn.Dense(dtype=dtype): inputs, kernel and bias cast to dtype (a
+    tp-sharded layer's output gathered over tp)."""
+    tp = tp_shard(layer)
     bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    return tp.gather(F.linear(tp.enter(x, -1).to(dtype), layer.weight.to(dtype), bias), -1)
 
 
 def layer_norm_f32(layer: nn.LayerNorm, x):
@@ -34,13 +56,15 @@ def layer_norm_f32(layer: nn.LayerNorm, x):
 
 
 def conv_nhwc(layer: nn.Conv2d, x, dtype):
-    """flax nn.Conv(dtype=dtype) on an NHWC tensor."""
+    """flax nn.Conv(dtype=dtype) on an NHWC tensor (a tp-sharded layer's
+    output gathered over tp)."""
+    tp = tp_shard(layer)
     bias = None if layer.bias is None else layer.bias.to(dtype)
     y = F.conv2d(
-        x.permute(0, 3, 1, 2).to(dtype), layer.weight.to(dtype), bias,
+        tp.enter(x.permute(0, 3, 1, 2)).to(dtype), layer.weight.to(dtype), bias,
         stride=layer.stride, padding=layer.padding,
     )
-    return y.permute(0, 2, 3, 1)
+    return tp.gather(y, 1).permute(0, 2, 3, 1)
 
 
 class LayerNorm2d(nn.Module):

@@ -134,11 +134,12 @@ class PipelineExecutor:
         ref_in = preprocess_image(_to_rgb01(imgs.to(self.models.device)) * 255.0, center_crop=True)
         return self.models.dinov2(ref_in)["x_norm_clstoken"]
 
-    def batched(self):
-        """The multi-pair runner of the production path: prompt folded in."""
-        return self.build_batched(fold_prompt=True)
+    def batched(self, mesh=None):
+        """The multi-pair runner of the production path: prompt folded in.
+        mesh: optional dp mesh (build_batched)."""
+        return self.build_batched(fold_prompt=True, mesh=mesh)
 
-    def build_batched(self, fold_prompt: bool = False):
+    def build_batched(self, fold_prompt: bool = False, mesh=None):
         """The multi-pair retrieve -> match -> select -> solve.
 
         run(image0_b, image1_b, K0_b, K1_b, amg_boxes_b, amg_valid_b,
@@ -153,6 +154,11 @@ class PipelineExecutor:
         n_dropped_matches] and the (B, M, 6) matches [mkpts0 mkpts1 mconf
         valid]. The JAX entry's static `n_pairs` has no counterpart: the
         batch size is the inputs'.
+
+        mesh: optional DeviceMesh with a 'dp' axis. Every rank passes the
+        global batch, runs its contiguous B / dp pairs (B must divide by
+        dp; the noise must be a tensor) and gets the global outputs back,
+        gathered in pair order: the unsharded program's result.
         """
         models = self.models
         cfg = models.config
@@ -210,7 +216,22 @@ class PipelineExecutor:
                 n_dropped_masks=amg_dropped_b, n_dropped_matches=match_dropped,
             )
 
-        return run
+        if mesh is None:
+            return run
+        from pope_tpu_torch.parallel.collectives import all_gather
+        from pope_tpu_torch.parallel.mesh import shard_batch
+
+        group = mesh.get_group("dp")
+
+        def run_dp(*args, packed: bool = False):
+            if isinstance(args[7], torch.Generator):
+                raise ValueError("a dp-sharded batch needs the solver noise as a (B, ...) tensor")
+            local = [None if a is None else shard_batch(mesh, torch.as_tensor(a)) for a in args]
+            out = run(*local, packed=packed)
+            gathered = [None if x is None else all_gather(x, group) for x in out]
+            return tuple(gathered) if packed else PairResult(*gathered)
+
+        return run_dp
 
     def estimate_pair(self, image0_rgb01, image1_rgb01, K0, K1, amg_result, ref_cls, noise) -> PairResult:
         """One (prompt, target) pair given its AMG candidates (boxes_xywh,

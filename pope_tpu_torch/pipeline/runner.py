@@ -18,8 +18,12 @@ The device stages run on the main thread: `torch.no_grad` is thread-local.
 
 The solver's Gumbel noise is drawn per pair from a generator seeded with the
 crc32 of the pair's name, as the JAX runner keys it (`pair_key`), so a
-pair's records do not depend on its batch or its place in it. The JAX
-package's `mesh=` (dp-sharded batches) is not ported.
+pair's records do not depend on its batch or its place in it, nor on the
+rank that runs it.
+
+With a dp mesh (`mesh=`, from parallel.make_mesh), each rank takes its
+contiguous B / dp pairs of every batch through both stages, and the
+records are gathered to dp rank 0 in pair order; the other ranks get none.
 """
 
 from __future__ import annotations
@@ -207,14 +211,26 @@ class Uploaded(NamedTuple):
 class Pending(NamedTuple):
     """A dispatched batch: its pairs, host arrays, the packed (B, 29) records
     and (B, M, 6) matches (pinned host buffers on CUDA, filled by
-    non-blocking copies) and the event after those copies (None on the
-    CPU)."""
+    non-blocking copies), the event after those copies (None on the
+    CPU) and, on a dp mesh, the dp group its records gather over (this
+    rank's pairs only in the other fields)."""
 
     paths_list: list
     hosts: list
     small: torch.Tensor
     matches: torch.Tensor
     done: Optional[torch.cuda.Event]
+    group: object = None
+
+
+def local_pairs(paths_list, mesh=None):
+    """This rank's contiguous B / dp pairs of a batch (all of them without a
+    mesh); B must divide by dp."""
+    if mesh is None:
+        return list(paths_list)
+    from pope_tpu_torch.parallel.mesh import shard_batch
+
+    return [paths_list[i] for i in shard_batch(mesh, np.arange(len(paths_list)))]
 
 
 def upload_frames(img0, img1, K0, K1, device=None) -> Uploaded:
@@ -236,25 +252,35 @@ def upload_frames(img0, img1, K0, K1, device=None) -> Uploaded:
     return Uploaded(*tensors, ready)
 
 
-def prepare_batch(paths_list, device=None):
+def prepare_batch(paths_list, device=None, mesh=None):
     """Host side of one batch: decode the files and START the uploads
     (upload_frames). Runs in the loader's prefetch thread so that disk IO and
     the host-to-device copies overlap the previous batch's device compute.
-    device=None means CUDA (raises without a GPU). Returns (hosts,
-    Uploaded)."""
+    device=None means CUDA (raises without a GPU). With a dp mesh, only this
+    rank's pairs (local_pairs). Returns (hosts, Uploaded)."""
     dev = resolve_device(device)
-    hosts = [_load_pair_host(p) for p in paths_list]
+    hosts = [_load_pair_host(p) for p in local_pairs(paths_list, mesh)]
     return hosts, upload_frames(*(np.stack([h[i] for h in hosts]) for i in range(4)), dev)
 
 
-def dispatch_pairs(models, paths_list, spec, noise=None, hosts=None, dev=None) -> Pending:
+def dispatch_pairs(models, paths_list, spec, noise=None, hosts=None, dev=None, mesh=None) -> Pending:
     """Queue the whole device side of one batch WITHOUT syncing: returns a
     Pending handle for finish_pairs. Both stages are queued asynchronously,
     so a caller can keep batch N+1's work in the device queue while it
     builds batch N's records.
 
     noise: the solver's (B, n_rounds, N_HYPS, M) Gumbel noise; default
-    pair_noise (per pair, seeded by the pair's name)."""
+    pair_noise (per pair, seeded by the pair's name). mesh: optional dp
+    mesh; this rank runs local_pairs (hosts / dev, when given, hold those
+    pairs only)."""
+    group = None
+    if mesh is not None:
+        from pope_tpu_torch.parallel.mesh import shard_batch
+
+        group = mesh.get_group("dp")
+        if noise is not None:
+            noise = shard_batch(mesh, noise)
+        paths_list = local_pairs(paths_list, mesh)
     if hosts is None or dev is None:
         hosts, dev = prepare_batch(paths_list, models.device)
     dev = dev.wait()
@@ -273,28 +299,36 @@ def dispatch_pairs(models, paths_list, spec, noise=None, hosts=None, dev=None) -
         dev.img0_u8, dev.img1_u8, dev.K0, dev.K1, boxes_b, valid_b, None, noise, dropped_b, packed=True,
     )
     if not small.is_cuda:
-        return Pending(paths_list, hosts, small, matches, None)
+        return Pending(paths_list, hosts, small, matches, None, group)
     # start the downloads now, behind the work that produces them
     out = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in (small, matches)]
     for o, x in zip(out, (small, matches)):
         o.copy_(x, non_blocking=True)
     done = torch.cuda.Event()
     done.record()
-    return Pending(paths_list, hosts, *out, done)
+    return Pending(paths_list, hosts, *out, done, group)
 
 
 def finish_pairs(pending: Pending) -> List[dict]:
-    """Wait for one dispatched batch's downloads and build its records."""
+    """Wait for one dispatched batch's downloads and build its records; on a
+    dp mesh, the whole batch's records in pair order on dp rank 0 and none
+    on the other ranks."""
     if pending.done is not None:
         pending.done.synchronize()  # the pinned buffers hold stale bytes until then
     small_b, matches_b = pending.small.numpy(), pending.matches.numpy()
-    return [
+    records = [
         _record(pending.paths_list[i], pending.hosts[i], _unpack_record(small_b[i], matches_b[i]))
         for i in range(len(pending.paths_list))
     ]
+    if pending.group is None:
+        return records
+    from pope_tpu_torch.parallel.collectives import gather_to_main
+
+    parts = gather_to_main(records, pending.group)
+    return [] if parts is None else [r for part in parts for r in part]
 
 
-def run_pairs(models, paths_list, spec, noise=None, hosts=None, dev=None) -> List[dict]:
+def run_pairs(models, paths_list, spec, noise=None, hosts=None, dev=None, mesh=None) -> List[dict]:
     """Batched production path over B manifest pairs (same image shapes):
     one AMG call, then one retrieve/match/solve call (prompt cls folded into
     the retrieval crop batch).
@@ -305,9 +339,9 @@ def run_pairs(models, paths_list, spec, noise=None, hosts=None, dev=None) -> Lis
 
     hosts/dev: optional preloaded host arrays + started uploads from
     prepare_batch (lets a prefetch thread overlap IO + upload with device
-    compute).
+    compute). mesh: optional dp mesh (dispatch_pairs, finish_pairs).
     """
-    return finish_pairs(dispatch_pairs(models, paths_list, spec, noise=noise, hosts=hosts, dev=dev))
+    return finish_pairs(dispatch_pairs(models, paths_list, spec, noise=noise, hosts=hosts, dev=dev, mesh=mesh))
 
 
 def run_pair(models, paths, spec, noise=None):

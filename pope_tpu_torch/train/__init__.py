@@ -1,4 +1,5 @@
-"""Matcher (LoFTR-style) training (port of pope_tpu/train, one device):
+"""Matcher (LoFTR-style) training (port of pope_tpu/train; one device or a
+(dp, tp) mesh):
 depth-warped coarse and fine supervision, focal / CE coarse and l2(+std)
 fine losses, AdamW / Adam with optax's schedules and clipping, the train
 step, and the multi-scene driver with validation and top-k checkpoints."""

@@ -13,7 +13,13 @@ Host reads and collation run on ThreadedLoader threads; DevicePrefetcher
 uploads each batch one step ahead on a copy stream. Validation's RANSAC
 noise is an input: by default each batch of pairs draws it from a
 torch.Generator on the device seeded seed + (the batch's first index).
-The (dp, tp)-sharded step waits for the parallelism slice.
+
+Over a (dp, tp) mesh (`mesh=`, one rank per device) each rank loads its dp
+slice of every global batch and runs trainer.make_sharded_train_step;
+validation runs whole on every rank (the model is replicated over dp), and
+only the mesh's first rank writes checkpoints, each with the full
+(tp-gathered) state; a resume reads the full state on every rank and cuts
+it again.
 """
 
 from __future__ import annotations
@@ -34,7 +40,12 @@ from pope_tpu_torch.data.loader import DevicePrefetcher, ThreadedLoader
 from pope_tpu_torch.data.scenes import ConcatDataset, RandomConcatSampler
 from pope_tpu_torch.train.loss import LossConfig
 from pope_tpu_torch.train.optim import OptimConfig
-from pope_tpu_torch.train.trainer import MatcherTrainState, init_matcher_train_state, matcher_train_step
+from pope_tpu_torch.train.trainer import (
+    MatcherTrainState,
+    init_matcher_train_state,
+    make_sharded_train_step,
+    matcher_train_step,
+)
 from pope_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from pope_tpu_torch.utils.device import resolve_device
 from pope_tpu_torch.utils.metrics import aggregate_metrics, error_auc
@@ -243,6 +254,7 @@ def train_matcher(
     val_ds,
     cfg: TrainMatcherConfig = TrainMatcherConfig(),
     batch_size: int = 4,
+    mesh=None,
     ckpt_dir: Optional[str] = None,
     resume: bool = False,
     loss_cfg: LossConfig = LossConfig(),
@@ -254,7 +266,9 @@ def train_matcher(
     without a GPU unless device="cpu"), training `matcher` from the weights
     it holds. Returns (state, history), history one dict per epoch
     {'epoch', 'train_loss', <validation metrics>}. lr and warmup scale with
-    the batch size as scripts/train.py:71-77 does."""
+    the global batch size as scripts/train.py:71-77 does. mesh: optional
+    (dp, tp) mesh; batch_size stays the global batch and must divide by
+    dp."""
     dev = resolve_device(device)
     matcher.to(dev)
     concat = ConcatDataset(list(train_datasets))
@@ -282,6 +296,27 @@ def train_matcher(
         start_epoch = ckpt.start_epoch
         logger.info("resumed from %s at epoch %d", ckpt_dir, start_epoch)
 
+    if mesh is None:
+        step_fn, local = (lambda s, b: matcher_train_step(s, b, loss_cfg)), (lambda idxs: idxs)
+        main = True
+    else:
+        from pope_tpu_torch.parallel.mesh import (
+            axis_size,
+            is_mesh_main,
+            mesh_barrier,
+            shard_batch,
+            shard_params_tp,
+            tp_gathered,
+        )
+
+        dp = axis_size(mesh, "dp")
+        if batch_size % dp:
+            raise ValueError(f"batch_size {batch_size} not divisible by dp={dp}")
+        shard_params_tp(mesh, matcher, optimizer=state.optimizer)
+        step_fn = make_sharded_train_step(mesh, loss_cfg)
+        local = lambda idxs: list(shard_batch(mesh, np.asarray(idxs)))
+        main = is_mesh_main(mesh)
+
     val_step = make_val_step(matcher, cfg)
     history = []
     for epoch in range(start_epoch, cfg.epochs):
@@ -299,13 +334,13 @@ def train_matcher(
             # the ragged tail is dropped (DataLoader drop_last)
 
         def load_batch(idxs):
-            return collate_pairs([concat[i] for i in idxs])
+            return collate_pairs([concat[i] for i in local(idxs)])
 
         losses = []
         t0 = time.time()
         batches = ThreadedLoader(gen_index_batches, num_workers=num_workers, fn=load_batch)
         for k, batch in enumerate(DevicePrefetcher(batches, dev)):
-            metrics = matcher_train_step(state, batch, loss_cfg)
+            metrics = step_fn(state, batch)
             losses.append(metrics["loss"])
             if (k + 1) % log_every == 0:
                 logger.info(
@@ -319,8 +354,13 @@ def train_matcher(
         logger.info("epoch %d done: train_loss=%.4f auc@5=%.3f auc@10=%.3f auc@20=%.3f", epoch, train_loss,
                     val_metrics["auc@5"], val_metrics["auc@10"], val_metrics["auc@20"])
         history.append({"epoch": epoch, "train_loss": train_loss, **val_metrics})
-        if ckpt:
+        if ckpt and mesh is None:
             ckpt.save(state, epoch, val_metrics)
+        elif ckpt:
+            with tp_gathered(matcher, state.optimizer):
+                if main:
+                    ckpt.save(state, epoch, val_metrics)
+            mesh_barrier(mesh)  # no rank reads the directory before it is whole
     return state, history
 
 
@@ -347,16 +387,23 @@ def build_datasets(args):
 
 def train_main(args):
     """CLI entry (`python -m pope_tpu_torch.cli train-matcher`): the full
-    MatcherConfig() in f32, its weights drawn from --seed."""
+    MatcherConfig() in f32, its weights drawn from --seed. With --dp x --tp
+    > 1 it starts that many ranks on this host (parallel.launch.spawn), one
+    device each; rank 0 writes the checkpoints and the history."""
+    if args.dp * args.tp > 1:
+        from pope_tpu_torch.parallel import spawn
+
+        spawn(_train_ranked, args.dp * args.tp, argv=(args,), tp=args.tp, device=args.device)
+        return None
+    return _train_ranked(None, args)
+
+
+def _train_ranked(mesh, args):
     from pope_tpu_torch.config import MatcherConfig
     from pope_tpu_torch.models.matcher import Matcher
     from pope_tpu_torch.pipeline.api import init_matcher_weights
 
     dev = resolve_device(args.device)
-    if args.dp > 1 or args.tp > 1:
-        raise NotImplementedError(
-            "--dp / --tp: the sharded train step comes with the port's parallelism slice "
-            "(ROADMAP.md, Queue 1, item 5, 'Parallelism')")
     cfg = TrainMatcherConfig(
         epochs=args.epochs,
         n_samples_per_subset=args.n_samples_per_subset,
@@ -368,9 +415,9 @@ def train_main(args):
     train_ds, val_ds = build_datasets(args)
     matcher = Matcher(MatcherConfig())
     init_matcher_weights(matcher, torch.Generator().manual_seed(cfg.seed))
-    state, history = train_matcher(matcher, train_ds, val_ds, cfg, batch_size=args.batch_size,
+    state, history = train_matcher(matcher, train_ds, val_ds, cfg, batch_size=args.batch_size, mesh=mesh,
                                    ckpt_dir=args.ckpt_dir, resume=args.resume, device=dev)
-    if args.history_out:
+    if args.history_out and (mesh is None or mesh.get_rank() == 0):
         with open(args.history_out, "w") as f:
             json.dump(history, f, indent=1)
     return history

@@ -90,13 +90,24 @@ def build_optimizer(params, cfg: OptimConfig = OptimConfig()):
 
 
 @torch.no_grad()
-def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(params, max_norm: float, tp_group=None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: the gradients stay as they are
     when their global norm is below max_norm, else each becomes g / norm *
     max_norm (torch's clip_grad_norm_ divides by norm + 1e-6 instead).
-    Returns the norm, without a host sync."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+    Returns the norm, without a host sync. tp_group: the parameters that
+    parallel.shard_params_tp cut (`tp_sharded`) hold a shard each, and
+    their squares are summed over the group; the others count once."""
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
+    sharded = [tp_group is not None and getattr(p, "tp_sharded", False) for p in params]
+    zero = grads[0].new_zeros(())
+    shards = torch.stack([g.square().sum() for g, sh in zip(grads, sharded) if sh] or [zero]).sum()
+    whole = torch.stack([g.square().sum() for g, sh in zip(grads, sharded) if not sh] or [zero]).sum()
+    if tp_group is not None:
+        from pope_tpu_torch.parallel.collectives import all_reduce
+
+        shards = all_reduce(shards, tp_group)
+    norm = (whole + shards).sqrt()
     clipped = norm >= max_norm
     for g in grads:
         g.copy_(torch.where(clipped, g / norm * max_norm, g))

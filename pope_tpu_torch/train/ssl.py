@@ -30,10 +30,20 @@ The stochastic-depth draws of step s come from a CPU generator seeded with
 (1717, s), so a resumed run repeats them and the card and the CPU draw the
 same masks; the JAX package folds s into PRNGKey(1717). All of a step's
 masks reach the card in one copy (DinoVisionTransformer.draw_drop_keep).
+
+`make_sharded_ssl_step` runs the step over a dp mesh, each rank on its
+B / dp images (both global crops, their local crops and masks:
+`shard_ssl_batch`), equal to the step on the global batch: the centers,
+sinkhorn's sums and KoLeo's neighbours are the global batch's, the drop
+path masks are the global draw's rows, and the gradients are averaged over
+dp. `shard_ssl_state` cuts the large leaves of the parameters and moments
+over dp (FSDP); the step gathers them for the forwards and updates the
+shards.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import math
@@ -151,24 +161,35 @@ def update_center(center, teacher_logits, momentum: float = 0.9):
     return center * momentum + batch_center * (1.0 - momentum)
 
 
-def sinkhorn_knopp_teacher(logits, teacher_temp, n_iterations: int = 3, sample_weight=None):
+def _gsum(x, group):
+    """x summed over a dp group (no gradient; the teacher's side has none)."""
+    if group is None:
+        return x
+    from pope_tpu_torch.parallel.collectives import all_reduce
+
+    return all_reduce(x, group)
+
+
+def sinkhorn_knopp_teacher(logits, teacher_temp, n_iterations: int = 3, sample_weight=None, group=None):
     """Batch-prototype balanced assignment. `sample_weight` (rows) marks real
     samples (1) against padding (0). A row or column sum that is exactly 0
-    divides by 1 instead (it stays 0); tiny non-zero sums still divide."""
+    divides by 1 instead (it stays 0); tiny non-zero sums still divide.
+    group: the rows are this rank's part of a dp batch, and the sums over
+    samples are the global batch's."""
     Q = torch.exp(logits.float() / teacher_temp).T  # (K, B)
     K, B = Q.shape
     if sample_weight is not None:
         Q = Q * sample_weight[None, :]
-        n_samples = sample_weight.sum()
+        n_samples = _gsum(sample_weight.sum(), group)
     else:
-        n_samples = torch.full((), float(B), device=Q.device)
+        n_samples = _gsum(torch.full((), float(B), device=Q.device), group)
 
     def safe(x):
         return torch.where(x == 0.0, torch.ones_like(x), x)
 
-    Q = Q / safe(Q.sum())
+    Q = Q / safe(_gsum(Q.sum(), group))
     for _ in range(n_iterations):
-        Q = Q / safe(Q.sum(dim=1, keepdim=True) * K)
+        Q = Q / safe(_gsum(Q.sum(dim=1, keepdim=True), group) * K)
         Q = Q / safe(Q.sum(dim=0, keepdim=True) * n_samples)
     return (Q * n_samples).T
 
@@ -189,16 +210,25 @@ def ibot_patch_loss_dense(student_patch_logits, teacher_patch_probs, masks, stud
     return -(per_tok * w).sum() / masks.shape[0]
 
 
-def koleo_loss(x, eps: float = 1e-8):
+def koleo_loss(x, eps: float = 1e-8, group=None):
     """-mean log distance of each L2-normalized row to its nearest
-    neighbour (the first index among equally near ones)."""
+    neighbour (the first index among equally near ones). group: the rows
+    are this rank's contiguous part of a dp batch; the neighbours are
+    searched over the whole batch (a differentiable gather), and the mean
+    is over this rank's rows."""
     x = x.float()
     x = x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp(min=eps)
-    dots = x @ x.T
     n = x.shape[0]
-    dots = torch.where(torch.eye(n, dtype=torch.bool, device=x.device), torch.full_like(dots, -1.0), dots)
+    every, first = x, 0
+    if group is not None:
+        from pope_tpu_torch.parallel.collectives import gather_parts, group_rank
+
+        every, first = gather_parts(x, group), group_rank(group) * n
+    dots = x @ every.T
+    own = torch.arange(n, device=x.device)[:, None] + first == torch.arange(every.shape[0], device=x.device)[None]
+    dots = torch.where(own, torch.full_like(dots, -1.0), dots)
     nn_idx = dots.argmax(dim=1)
-    d = torch.linalg.vector_norm(x - x[nn_idx], dim=-1)
+    d = torch.linalg.vector_norm(x - every[nn_idx], dim=-1)
     return -torch.log(d + eps).mean()
 
 
@@ -282,6 +312,7 @@ class SSLState:
     nu: Dict[str, torch.Tensor]  # Adam second moments
     dino_center: torch.Tensor  # (K,)
     ibot_center: torch.Tensor  # (K,)
+    fsdp: Optional["FSDPLayout"] = None  # shard_ssl_state's cut, None when whole
 
     def state_dict(self) -> dict:
         return {"step": self.step, "student": self.student.state_dict(), "teacher": self.teacher.state_dict(),
@@ -388,9 +419,11 @@ class SSLMetaArch:
     # -- forward pieces -----------------------------------------------------
 
     @torch.no_grad()
-    def _teacher_targets(self, teacher, global_crops, masks, centers, temp):
+    def _teacher_targets(self, teacher, global_crops, masks, centers, temp, group=None):
         """Teacher global forward -> (DINO probs with the crop pairing
-        reversed, iBOT patch probs, new centers)."""
+        reversed, iBOT patch probs, new centers). group: the crops are this
+        rank's part of a dp batch; the centers and sinkhorn's sums are the
+        global batch's."""
         cfg = self.cfg
         out = teacher["backbone"](global_crops)
         cls, patches = out["x_norm_clstoken"], out["x_norm_patchtokens"]
@@ -401,25 +434,33 @@ class SSLMetaArch:
         ibot_logits = ibot_head(patches)
         dino_center, ibot_center = centers
         if cfg.centering == "sinkhorn_knopp":
-            dino_probs = sinkhorn_knopp_teacher(dino_logits, temp, cfg.sinkhorn_iterations)
+            dino_probs = sinkhorn_knopp_teacher(dino_logits, temp, cfg.sinkhorn_iterations, group=group)
             flat = ibot_logits.reshape(-1, ibot_logits.shape[-1])
             ibot_probs = sinkhorn_knopp_teacher(flat, temp, cfg.sinkhorn_iterations,
-                                                sample_weight=masks.reshape(-1).float()).reshape(ibot_logits.shape)
+                                                sample_weight=masks.reshape(-1).float(),
+                                                group=group).reshape(ibot_logits.shape)
             return dino_probs, ibot_probs, (dino_center, ibot_center)
         dino_probs = softmax_center_teacher(dino_logits, dino_center, temp)
         ibot_probs = softmax_center_teacher(ibot_logits, ibot_center, temp)
         # the iBOT center moves toward the mean over masked tokens only
         w = masks.float()[..., None]
-        masked_mean = (ibot_logits * w).sum(dim=(0, 1)) / w.sum().clamp(min=1.0)
+        sums = _gsum(torch.cat([dino_logits.sum(dim=0), (ibot_logits * w).sum(dim=(0, 1)), w.sum()[None],
+                                torch.full((1,), float(dino_logits.shape[0]), device=w.device)]), group)
+        K = dino_logits.shape[-1]
+        dino_mean = sums[:K] / sums[-1]
+        masked_mean = sums[K:-2] / sums[-2].clamp(min=1.0)
         m = cfg.center_momentum
-        new_centers = (dino_center * m + dino_logits.mean(dim=0) * (1 - m),
+        new_centers = (dino_center * m + dino_mean * (1 - m),
                        ibot_center * m + masked_mean * (1 - m))
         return dino_probs, ibot_probs, new_centers
 
-    def _student_losses(self, student, batch, dino_probs, ibot_probs, masks, generator=None):
+    def _student_losses(self, student, batch, dino_probs, ibot_probs, masks, generator=None, dp=None):
         """(total loss, {name: loss}). With a generator (and drop_path_rate >
         0) the backbone runs with stochastic depth, the global forward's
-        draws first, both forwards' drawn at once."""
+        draws first, both forwards' drawn at once. dp (_DataParallel): the
+        batch is this rank's part; the draws are the global batch's rows
+        and KoLeo searches the global batch; the losses are this rank's
+        means."""
         cfg = self.cfg
         n_local = cfg.n_local_crops
         n_terms = 2 + max(n_local * 2, 1)
@@ -427,7 +468,10 @@ class SSLMetaArch:
         g_dp, l_dp = {}, {}
         if generator is not None:
             sizes = [batch["global_crops"].shape[0]] + ([batch["local_crops"].shape[0]] if n_local > 0 else [])
-            keeps = backbone.draw_drop_keep(sizes, generator, masks.device)
+            if dp is None:
+                keeps = backbone.draw_drop_keep(sizes, generator, masks.device)
+            else:
+                keeps = dp.rows_of(backbone.draw_drop_keep([s * dp.size for s in sizes], generator, masks.device))
             g_dp = {"train": True, "drop_keep": keeps[0]}
             if n_local > 0:
                 l_dp = {"train": True, "drop_keep": keeps[1]}
@@ -459,7 +503,8 @@ class SSLMetaArch:
 
         if cfg.koleo_loss_weight > 0:
             B = g_cls.shape[0] // 2
-            kl = cfg.koleo_loss_weight * (koleo_loss(g_cls[:B]) + koleo_loss(g_cls[B:]))
+            group = None if dp is None else dp.group
+            kl = cfg.koleo_loss_weight * (koleo_loss(g_cls[:B], group=group) + koleo_loss(g_cls[B:], group=group))
             losses["koleo_loss"] = kl / 2.0
             total = total + kl
 
@@ -514,7 +559,8 @@ class SSLMetaArch:
     # -- the step -----------------------------------------------------------
 
     def train_step(self, state: SSLState, batch: Dict[str, torch.Tensor], mults=None,
-                   generator: Optional[torch.Generator] = None) -> Tuple[SSLState, Dict[str, torch.Tensor]]:
+                   generator: Optional[torch.Generator] = None,
+                   dp: Optional["_DataParallel"] = None) -> Tuple[SSLState, Dict[str, torch.Tensor]]:
         """One SSL step, in place on `state`.
 
         batch: global_crops (2B, S, S, 3) [crop 0 of every image, then crop
@@ -522,21 +568,29 @@ class SSLMetaArch:
         the state's device. With drop_path_rate > 0 the stochastic depth
         draws come from `generator`, by default a CPU generator seeded with
         (1717, step). Returns (state, metrics as 0-dim device tensors).
+        dp: make_sharded_ssl_step's; the batch is this rank's images and the
+        metrics are the global batch's.
         """
         cfg = self.cfg
         sched = ssl_schedules(cfg, state.step)
         masks = batch["masks"]
+        if dp is not None:
+            dp.gather_params(state)
         dino_probs, ibot_probs, new_centers = self._teacher_targets(
             state.teacher, batch["global_crops"], masks, (state.dino_center, state.ibot_center),
-            sched["teacher_temp"],
+            sched["teacher_temp"], group=None if dp is None else dp.group,
         )
         if self.backbone_cfg.drop_path_rate > 0 and generator is None:
             generator = torch.Generator().manual_seed((DROP_PATH_SEED << 32) | state.step)
         elif self.backbone_cfg.drop_path_rate == 0:
             generator = None
         state.student.zero_grad(set_to_none=True)
-        total, losses = self._student_losses(state.student, batch, dino_probs, ibot_probs, masks, generator)
+        total, losses = self._student_losses(state.student, batch, dino_probs, ibot_probs, masks, generator, dp)
         total.backward()
+        if dp is not None:
+            dp.reduce_grads(state)
+            losses = {k: dp.mean(v) for k, v in losses.items()}
+            total = dp.mean(total)
         if mults is None:
             mults = self.multipliers(state)
         self._apply_update(state, sched, mults)
@@ -548,3 +602,173 @@ class SSLMetaArch:
         metrics["lr"] = torch.tensor(sched["lr"])
         metrics["teacher_momentum"] = torch.tensor(sched["momentum"])
         return state, metrics
+
+
+# ---------------------------------------------------------------------------
+# data parallel: the sharded step and the FSDP state layout
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class FSDPLayout:
+    """shard_ssl_state's cut: the student / teacher parameter names (and
+    their moments) whose leading axis this rank holds 1 / size of."""
+
+    group: object
+    rank: int
+    size: int
+    names: frozenset
+
+
+def _sharded_params(state: SSLState):
+    """(student parameter, teacher parameter, name) of every FSDP-cut leaf."""
+    if state.fsdp is None:
+        return []
+    teacher = dict(state.teacher.named_parameters())
+    return [(p, teacher[n], n) for n, p in state.student.named_parameters() if n in state.fsdp.names]
+
+
+def _rows(x: torch.Tensor, rank: int, size: int) -> torch.Tensor:
+    n = x.shape[0] // size
+    return x[rank * n:(rank + 1) * n]
+
+
+class _DataParallel:
+    """make_sharded_ssl_step's view of its dp axis; `images` is this rank's
+    image count of the current batch."""
+
+    def __init__(self, mesh):
+        from pope_tpu_torch.parallel.mesh import axis_rank, axis_size
+
+        self.group = mesh.get_group("dp")
+        self.size = axis_size(mesh, "dp")
+        self.rank = axis_rank(mesh, "dp")
+        self.images = 0
+
+    def rows_of(self, keeps):
+        """Each forward's DropPath masks drawn for the global batch ->
+        this rank's rows: crop c of local image i is global row c * B + r
+        b + i (the crop-major layout)."""
+        b, B = self.images, self.images * self.size
+        out = []
+        for keep in keeps:
+            n = next((a.shape[0] for a, _ in keep if a is not None), 0)
+            rows = torch.cat([torch.arange(c * B + self.rank * b, c * B + (self.rank + 1) * b)
+                              for c in range(n // B)]) if n else None
+            out.append([(None if a is None else a[rows.to(a.device)], None if f is None else f[rows.to(f.device)])
+                        for a, f in keep])
+        return out
+
+    def mean(self, v: torch.Tensor) -> torch.Tensor:
+        from pope_tpu_torch.parallel.collectives import all_reduce
+
+        return all_reduce(v.detach(), self.group) / self.size
+
+    @torch.no_grad()
+    def gather_params(self, state: SSLState) -> None:
+        """The whole of every FSDP-cut parameter, for the forwards."""
+        from pope_tpu_torch.parallel.collectives import all_gather
+
+        for s, t, _ in _sharded_params(state):
+            s.data = all_gather(s.data, self.group)
+            t.data = all_gather(t.data, self.group)
+
+    @torch.no_grad()
+    def reduce_grads(self, state: SSLState) -> None:
+        """Average the student's gradients over dp (one flat all-reduce),
+        then keep this rank's shard of each FSDP-cut parameter, its gradient
+        and the teacher's."""
+        from pope_tpu_torch.parallel.collectives import all_reduce_grads_
+
+        all_reduce_grads_(state.student.parameters(), self.group, average=True)
+        for s, t, _ in _sharded_params(state):
+            s.data = _rows(s.data, self.rank, self.size).clone()
+            t.data = _rows(t.data, self.rank, self.size).clone()
+            if s.grad is not None:
+                s.grad = _rows(s.grad, self.rank, self.size).clone()
+
+
+def make_sharded_ssl_step(arch: SSLMetaArch, mesh, mults=None):
+    """The SSL step over a dp mesh (parallel.make_mesh(n, tp=1)):
+    step(state, batch) with `batch` this rank's images (shard_ssl_batch,
+    or a process's own stream) and `state` whole or cut by
+    shard_ssl_state. It equals train_step on the global batch (the
+    concatenation of the ranks' images); the metrics are the global
+    batch's."""
+    dp = _DataParallel(mesh)
+
+    def step(state: SSLState, batch: Dict[str, torch.Tensor]):
+        dp.images = batch["global_crops"].shape[0] // 2
+        return arch.train_step(state, batch, mults=mults, dp=dp)
+
+    return step
+
+
+def shard_ssl_batch(mesh, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """This rank's B / dp images of a global multi-crop batch, in the same
+    crop-major layout: both global crops and their masks, and every local
+    crop of those images (a plain slice of the 2B axis would hand rank 0
+    crop 0 of every image)."""
+    from pope_tpu_torch.parallel.mesh import axis_rank, axis_size
+
+    n, r = axis_size(mesh, "dp"), axis_rank(mesh, "dp")
+    B = batch["global_crops"].shape[0] // 2
+    if B % n:
+        raise ValueError(f"batch of {B} images does not divide over dp={n}")
+    b = B // n
+
+    def cut(x):
+        if x.shape[0] == 0:
+            return x
+        crops = x.reshape(x.shape[0] // B, B, *x.shape[1:])
+        return crops[:, r * b:(r + 1) * b].reshape(-1, *x.shape[1:])
+
+    return {k: cut(v) for k, v in batch.items()}
+
+
+@torch.no_grad()
+def shard_ssl_state(state: SSLState, mesh, min_size: int = 2**15) -> SSLState:
+    """FSDP-style cut, in place: every parameter (student and teacher) and
+    moment of at least 2 dims, at least min_size elements and a leading
+    axis that divides by dp keeps this rank's rows of that axis; the rest
+    (and the centers) replicate. Leaves below min_size replicate, as FSDP's
+    min_num_params: cutting them saves little and costs gather traffic."""
+    from pope_tpu_torch.parallel.mesh import axis_rank, axis_size
+
+    n, r = axis_size(mesh, "dp"), axis_rank(mesh, "dp")
+    names = frozenset(name for name, p in state.student.named_parameters()
+                      if p.ndim >= 2 and p.shape[0] % n == 0 and p.numel() >= min_size)
+    state.fsdp = FSDPLayout(mesh.get_group("dp"), r, n, names)
+    for s, t, name in _sharded_params(state):
+        s.data = _rows(s.data, r, n).clone()
+        t.data = _rows(t.data, r, n).clone()
+        for moments in (state.mu, state.nu):
+            moments[name] = _rows(moments[name], r, n).clone()
+    return state
+
+
+def ssl_state_bytes(state: SSLState) -> int:
+    """Bytes this rank holds of the state: parameters, moments, centers."""
+    tensors = (list(state.student.parameters()) + list(state.teacher.parameters()) + list(state.mu.values())
+               + list(state.nu.values()) + [state.dino_center, state.ibot_center])
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+@contextlib.contextmanager
+def fsdp_gathered(state: SSLState):
+    """Inside the block the state is whole on every rank (a checkpoint's
+    view; every rank enters it); the shards come back on exit."""
+    from pope_tpu_torch.parallel.collectives import all_gather
+
+    saved = []
+    with torch.no_grad():
+        for s, t, name in _sharded_params(state):
+            saved.append((s, t, name, s.data, t.data, state.mu[name], state.nu[name]))
+            g = state.fsdp.group
+            s.data, t.data = all_gather(s.data, g), all_gather(t.data, g)
+            state.mu[name], state.nu[name] = all_gather(state.mu[name], g), all_gather(state.nu[name], g)
+    try:
+        yield state
+    finally:
+        for s, t, name, sd, td, mu, nu in saved:
+            s.data, t.data, state.mu[name], state.nu[name] = sd, td, mu, nu

@@ -1,14 +1,20 @@
 """SSL pretraining driver (port of pope_tpu/train/ssl_driver.py): an image
-folder -> the multi-crop loader -> SSLMetaArch.train_step on one device,
-with periodic checkpoints and auto-resume.
+folder -> the multi-crop loader -> SSLMetaArch.train_step, with periodic
+checkpoints and auto-resume.
 
 The batch stream is the JAX package's byte for byte: every random decision
 (shuffle order, crop / jitter / blur parameters, iBOT masks, collate
 sampling) is a pure function of (seed, rank, stream position), so a killed
 and resumed run reproduces the unbroken run's batches, and the sampler
 fast-forwards past the batches the checkpoint's step already consumed.
-Meshes, `--dp > 1` and multi-host runs belong to the parallelism slice and
-raise NotImplementedError.
+
+Over a dp mesh (`mesh=`, one rank per device) the state is FSDP-cut
+(ssl.shard_ssl_state) and each step is ssl.make_sharded_ssl_step. On one
+host (`--dp N`) every rank reads the one stream of global batches and
+takes its images, so the run equals `--dp 1` at the same global batch;
+with `own_stream` (`--distributed`, one process per rank, on any number of
+hosts) each rank reads its own shard of the files, batch / world images a
+step, as the JAX package's processes do. Rank 0 writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -25,7 +31,14 @@ from pope_tpu_torch.config import DinoV2Config
 from pope_tpu_torch.data.loader import DevicePrefetcher, ThreadedLoader
 from pope_tpu_torch.data.samplers import ShardedInfiniteSampler
 from pope_tpu_torch.data.ssl_crops import DataAugmentationDINO, MaskingGenerator, MultiCropConfig, collate_multicrop
-from pope_tpu_torch.train.ssl import SSLConfig, SSLMetaArch
+from pope_tpu_torch.train.ssl import (
+    SSLConfig,
+    SSLMetaArch,
+    fsdp_gathered,
+    make_sharded_ssl_step,
+    shard_ssl_batch,
+    shard_ssl_state,
+)
 from pope_tpu_torch.utils.checkpoint import latest_checkpoint, load_payload, save_payload
 from pope_tpu_torch.utils.device import resolve_device
 from pope_tpu_torch.utils.logging import get_logger
@@ -33,7 +46,6 @@ from pope_tpu_torch.utils.logging import get_logger
 logger = get_logger("pope_tpu_torch.ssl")
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
-PARALLEL = "data-parallel SSL (mesh, --dp > 1, --distributed) comes with the parallelism slice"
 
 # `cli train-ssl --arch`: backbone sizes
 ARCH_SIZES = {
@@ -112,12 +124,13 @@ def _sidecar_mismatch(ckpt_dir: str, expect: dict) -> dict:
 
 def train_ssl(image_root: str, cfg: SSLConfig = SSLConfig(), backbone_cfg: DinoV2Config = DinoV2Config(),
               batch_size: int = 8, total_steps: Optional[int] = None, ckpt_dir: Optional[str] = None,
-              ckpt_every: int = 1000, log_every: int = 10, mesh=None, seed: int = 0, device=None):
-    """Run SSL pretraining on one device (default CUDA); returns the final
-    SSLState. With `ckpt_dir`, resumes from its latest `step_*` checkpoint
-    and continues the same batch stream."""
-    if mesh is not None:
-        raise NotImplementedError(PARALLEL)
+              ckpt_every: int = 1000, log_every: int = 10, mesh=None, seed: int = 0, device=None,
+              own_stream: bool = False):
+    """Run SSL pretraining on `device` (default CUDA); returns the final
+    SSLState (FSDP-cut over a mesh). With `ckpt_dir`, resumes from its
+    latest `step_*` checkpoint and continues the same batch stream.
+    batch_size is the global batch; mesh: an optional dp mesh;
+    own_stream: each rank reads its own stream (multi-process runs)."""
     dev = resolve_device(device)
     arch = SSLMetaArch(cfg, backbone_cfg)
     state = arch.init_state(seed, dev)
@@ -127,30 +140,54 @@ def train_ssl(image_root: str, cfg: SSLConfig = SSLConfig(), backbone_cfg: DinoV
             logger.info("resuming from %s", path)
             state.load_state_dict(load_payload(path, dev))
     mults = arch.multipliers(state)
+    step_fn = lambda st, b: arch.train_step(st, b, mults=mults)
+    rank, world, local = 0, 1, lambda b: b
+    if mesh is not None:
+        from pope_tpu_torch.parallel.collectives import get_rank, get_world_size
+
+        step_fn = make_sharded_ssl_step(arch, mesh, mults=mults)
+        state = shard_ssl_state(state, mesh)
+        if own_stream:
+            rank, world = get_rank(), get_world_size()
+        else:
+            local = lambda b: shard_ssl_batch(mesh, b)
+    if batch_size % world:
+        raise ValueError(f"batch_size {batch_size} must be divisible by process count {world}")
+    per_host_batch = batch_size // world
+    main = True
+    if mesh is not None:
+        from pope_tpu_torch.parallel.mesh import is_mesh_main, mesh_barrier
+
+        main = is_mesh_main(mesh)
 
     total = total_steps if total_steps is not None else cfg.total_iters
     start = state.step
-    sidecar = {"seed": seed, "world": 1, "per_host_batch": batch_size}
+    sidecar = {"seed": seed, "world": world, "per_host_batch": per_host_batch}
     if ckpt_dir and start:
         mismatch = _sidecar_mismatch(ckpt_dir, sidecar)
         if mismatch:
             logger.warning("sampler stream NOT resumable (%s changed: %s); the data order restarts from the "
                            "advance point", ",".join(mismatch), mismatch)
     stop = threading.Event()
-    batches = iter(DevicePrefetcher(
-        make_ssl_batches(image_root, cfg, batch_size, seed=seed, advance_batches=start, stop=stop), dev))
+    stream = make_ssl_batches(image_root, cfg, per_host_batch, seed=seed, rank=rank, world=world,
+                              advance_batches=start, stop=stop)
+    batches = iter(DevicePrefetcher((local(b) for b in stream), dev))
 
     def save(name, st):
-        save_payload(os.path.join(ckpt_dir, name), st.state_dict())
-        # everything needed to resume the data stream (the consumed-batch
-        # count itself is the step)
-        with open(os.path.join(ckpt_dir, "sampler.json"), "w") as f:
-            json.dump(sidecar | {"consumed_batches": st.step}, f)
+        with fsdp_gathered(st):
+            if main:
+                save_payload(os.path.join(ckpt_dir, name), st.state_dict())
+                # everything needed to resume the data stream (the
+                # consumed-batch count itself is the step)
+                with open(os.path.join(ckpt_dir, "sampler.json"), "w") as f:
+                    json.dump(sidecar | {"consumed_batches": st.step}, f)
+        if mesh is not None:
+            mesh_barrier(mesh)  # no rank reads the directory before it is whole
 
     t0 = time.time()
     try:
         for i in range(start, total):
-            state, metrics = arch.train_step(state, next(batches), mults=mults)
+            state, metrics = step_fn(state, next(batches))
             if (i + 1) % log_every == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 logger.info(
@@ -186,9 +223,33 @@ def ssl_configs(args):
 
 
 def train_main(args):
-    """CLI entry (`cli train-ssl`)."""
-    if args.dp > 1 or getattr(args, "distributed", False):
-        raise NotImplementedError(PARALLEL)
+    """CLI entry (`cli train-ssl`). --distributed: this process is one rank
+    of the topology that parallel.launch.resolve_env finds (--coordinator
+    / --num-processes / --process-id, else POPE_* or SLURM variables), the
+    mesh spans every rank, and --dp must be 1 or the world size. --dp N
+    alone starts N ranks on this host (parallel.launch.spawn)."""
+    if getattr(args, "distributed", False):
+        from pope_tpu_torch.parallel.launch import launch, resolve_env
+
+        env = resolve_env(coordinator=args.coordinator, num_processes=args.num_processes,
+                          process_id=args.process_id)
+        return launch(_train_ranked, env=env, tp=1, argv=(args, True), device=args.device)
+    if args.dp > 1:
+        from pope_tpu_torch.parallel import spawn
+
+        spawn(_train_ranked, args.dp, argv=(args, False), tp=1, device=args.device)
+        return None
+    return _train_ranked(None, args, False)
+
+
+def _train_ranked(mesh, args, own_stream: bool):
+    if mesh is not None:
+        world = mesh.size()
+        if own_stream and args.dp not in (1, world):
+            raise ValueError(f"--dp {args.dp} with --distributed: the mesh is the {world} processes")
+        if world == 1:
+            mesh = None
     cfg, bcfg = ssl_configs(args)
     return train_ssl(args.image_root, cfg, bcfg, batch_size=args.batch_size, total_steps=args.total_steps,
-                     ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, seed=args.seed, device=args.device)
+                     ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, mesh=mesh, seed=args.seed,
+                     device=args.device, own_stream=own_stream)

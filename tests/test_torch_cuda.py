@@ -397,21 +397,13 @@ def _eval_dataset(root, n_pairs=4, h=96, w=128):
     return root, os.path.join(root, "pairs")
 
 
-def test_eval_driver_on_card_matches_cpu(card, tmp_path, monkeypatch):
-    """evaluate_dataset on a small f32 bundle (SAM at 2 blocks with a
-    structured decoder, DINOv2 at 2 blocks, the small matcher, a 4 px RANSAC
-    band) over 4 pairs of 96x128 frames on disk: on the card at depth 1 and
-    depth 2 the same records; run_pair and the CPU the same discrete fields
-    (ok, boxes, counts, match-set sizes) and R, t within 1e-3 (the solver's
-    card-vs-CPU limit above) where solved. The solver noise is drawn on the
-    CPU for both devices."""
-    import dataclasses
-
-    import pope_tpu_torch.eval.manifest as manifest
+def _small_eval_bundle(dev):
+    """The eval tests' small f32 bundle on `dev`, from seeded weights: SAM at
+    2 blocks with a structured decoder, DINOv2 at 2 blocks, the small
+    matcher, a 4 px RANSAC band."""
     from pope_tpu_torch.config import AMGConfig, PipelineConfig
-    from pope_tpu_torch.eval import evaluate_dataset, iter_pairs, load_manifest
     from pope_tpu_torch.models.sam import AutomaticMaskGenerator
-    from pope_tpu_torch.pipeline import PopeModels, runner
+    from pope_tpu_torch.pipeline import PopeModels
 
     sam_cfg = SamConfig(
         encoder=SamEncoderConfig(img_size=128, embed_dim=64, depth=2, num_heads=2, window_size=5,
@@ -437,6 +429,74 @@ def test_eval_driver_on_card_matches_cpu(card, tmp_path, monkeypatch):
     init_dinov2_weights(dino, torch.Generator().manual_seed(1))
     matcher = Matcher(cfg.matcher).eval()
     init_matcher_weights(matcher, torch.Generator().manual_seed(2))
+    return PopeModels(sam=sam, amg=AutomaticMaskGenerator(sam, cfg.amg, device=dev), dinov2=dino.to(dev),
+                      matcher=matcher.to(dev), config=cfg, device=torch.device(dev))
+
+
+def _eval_records(models, data_root, pairs_dir, batch_size, mesh=None):
+    """evaluate_dataset's records (crop 64, each pair's solver noise drawn on
+    the CPU), as finish_pairs returns them."""
+    import dataclasses
+
+    import pope_tpu_torch.eval.manifest as manifest
+    from pope_tpu_torch.eval import evaluate_dataset
+    from pope_tpu_torch.pipeline import runner
+
+    got = []
+    with pytest.MonkeyPatch.context() as mp:
+        draw, finish = runner.pair_noise, runner.finish_pairs
+        mp.setattr(runner, "pair_noise", lambda paths, n, r, device: draw(paths, n, r, "cpu").to(device))
+        mp.setitem(manifest.DATASETS, "linemod", dataclasses.replace(manifest.DATASETS["linemod"], crop_size=64))
+        mp.setattr(runner, "finish_pairs", lambda p: got.append(finish(p)) or got[-1])
+        evaluate_dataset(models, "linemod", data_root, pairs_dir, batch_size=batch_size, progress=False, mesh=mesh)
+    return [r for batch in got for r in batch]
+
+
+def _dp_eval_rank(mesh, data_root, pairs_dir, out):
+    """A rank of the dp = 2 eval on the card (parallel.spawn)."""
+    recs = _eval_records(_small_eval_bundle("cuda"), data_root, pairs_dir, 4, mesh)
+    if mesh.get_rank() == 0:
+        torch.save(recs, out)
+
+
+def test_eval_dp2_on_one_card_gives_the_dp1_records(card, tmp_path):
+    """cli eval --dp 2's path on the one card (two ranks, gloo): batches of
+    4, each rank its 2 pairs; rank 0 holds every record in pair order, the
+    same discrete fields as the single process at batch size 2 (what each
+    rank computes) and R, t within 1e-3 where solved."""
+    from pope_tpu_torch.parallel import spawn
+
+    data_root, pairs_dir = _eval_dataset(str(tmp_path / "data"))
+    out = str(tmp_path / "dp2.pt")
+    spawn(_dp_eval_rank, 2, argv=(data_root, pairs_dir, out), tp=1, device="cuda", timeout=600)
+    dp2 = torch.load(out, weights_only=False)
+    dp1 = _eval_records(_small_eval_bundle(card), data_root, pairs_dir, 2)
+    assert len(dp2) == len(dp1) == 4 and any(r["ok"] for r in dp1)
+    discrete = ("identifier", "ok", "pre_bbox", "gt_bbox", "n_strong", "n_dropped_masks", "n_dropped_matches")
+    for a, b in zip(dp2, dp1):
+        assert {k: a[k] for k in discrete} == {k: b[k] for k in discrete}
+        if a["ok"]:
+            np.testing.assert_allclose(a["R"], b["R"], atol=1e-3, rtol=0)
+            np.testing.assert_allclose(a["t"], b["t"], atol=1e-3, rtol=0)
+
+
+def test_eval_driver_on_card_matches_cpu(card, tmp_path, monkeypatch):
+    """evaluate_dataset on a small f32 bundle (SAM at 2 blocks with a
+    structured decoder, DINOv2 at 2 blocks, the small matcher, a 4 px RANSAC
+    band) over 4 pairs of 96x128 frames on disk: on the card at depth 1 and
+    depth 2 the same records; run_pair and the CPU the same discrete fields
+    (ok, boxes, counts, match-set sizes) and R, t within 1e-3 (the solver's
+    card-vs-CPU limit above) where solved. The solver noise is drawn on the
+    CPU for both devices."""
+    import dataclasses
+
+    import pope_tpu_torch.eval.manifest as manifest
+    from pope_tpu_torch.eval import evaluate_dataset, iter_pairs, load_manifest
+    from pope_tpu_torch.models.sam import AutomaticMaskGenerator
+    from pope_tpu_torch.pipeline import PopeModels, runner
+
+    small = _small_eval_bundle("cpu")
+    sam, dino, matcher, cfg = small.sam, small.dinov2, small.matcher, small.config
 
     def bundle(dev):
         s = copy.deepcopy(sam)

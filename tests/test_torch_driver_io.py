@@ -338,8 +338,10 @@ ssl_nvs = ["pope_tpu_torch.train." + m for m in ("ssl", "ssl_driver", "ssl_eval"
 ssl_nvs += ["pope_tpu_torch.data.samplers", "pope_tpu_torch.data.ssl_crops", "pope_tpu_torch.utils.logging",
             "pope_tpu_torch.utils.image_metrics", "pope_tpu_torch.utils.lpips", "pope_tpu_torch.nvs",
             "pope_tpu_torch.nvs.nerf", "pope_tpu_torch.nvs.driver"]
+parallel = ["pope_tpu_torch.parallel." + m for m in ("launch", "collectives", "mesh", "pipeline")]
+parallel += ["pope_tpu_torch.parallel", "pope_tpu_torch.ops.ring_attention"]
 assert "pope_tpu_torch.bench" in names and "pope_tpu_torch.cli" in names
-assert set(serving + training + regressor + ssl_nvs) <= set(names)
+assert set(serving + training + regressor + ssl_nvs + parallel) <= set(names)
 leaked = [m for m in sys.modules if m.split(".")[0] in BANNED]
 assert not leaked, leaked
 print(len(names))
@@ -349,9 +351,10 @@ print(len(names))
 def test_port_imports_nothing_of_jax():
     """Every module of pope_tpu_torch (its bench, CLI, serving modules,
     exports, predictor, training modules, the pose regressor and the
-    extraction, SSL training and evaluation, the NeRF and LPIPS included),
-    its tools and chip_smoke.py import in a process that refuses jax, flax,
-    optax, orbax and pope_tpu."""
+    extraction, SSL training and evaluation, the NeRF and LPIPS, the
+    parallel layer and ring attention included), its tools and
+    chip_smoke.py import in a process that refuses jax, flax, optax, orbax
+    and pope_tpu."""
     out = subprocess.run([sys.executable, "-c", _BOUNDARY], cwd=REPO, capture_output=True, text=True,
                          timeout=300, env={**os.environ, "PYTHONPATH": str(REPO)})
     assert out.returncode == 0, out.stderr[-3000:]

@@ -238,7 +238,9 @@ HEAD_KW = dict(dino_out_dim=32, ibot_out_dim=32, head_hidden_dim=24, head_bottle
 def test_cli_train_ssl_matches_pope_tpu(image_root, tmp_path, monkeypatch):
     """Both CLIs with the same arguments (drop path off: torch cannot draw
     threefry's masks) from the same initial state; the port's checkpoints and
-    sampler sidecar; --dp > 1 raises."""
+    sampler sidecar; --dp > 1 starts that many ranks on this host with its
+    arguments (parallel.spawn, here recorded;
+    tests/test_torch_parallel_train.py runs the sharded step)."""
     _use_seeded_init(monkeypatch)
     _tiny_cli(monkeypatch, jdriver, HEAD_KW)
     _tiny_cli(monkeypatch, ssl_driver, HEAD_KW)
@@ -255,8 +257,13 @@ def test_cli_train_ssl_matches_pope_tpu(image_root, tmp_path, monkeypatch):
     assert sorted(os.listdir(ckpt)) == ["sampler.json", "step_00000001", "step_00000002"]
     meta = json.loads((ckpt / "sampler.json").read_text())
     assert meta == {"seed": 2, "world": 1, "per_host_batch": 2, "consumed_batches": 2}
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        cli.main(CLI_ARGS + ["--image-root", image_root, "--device", "cpu", "--dp", "2"])
+    import pope_tpu_torch.parallel as parallel
+
+    spawned = []
+    monkeypatch.setattr(parallel, "spawn", lambda fn, n, **kw: spawned.append((fn, n, kw)))
+    cli.main(CLI_ARGS + ["--image-root", image_root, "--device", "cpu", "--dp", "2"])
+    (fn, n, kw), = spawned
+    assert n == 2 and kw["tp"] == 1 and kw["device"] == "cpu" and kw["argv"][1] is False
 
 
 class _Killed(Exception):

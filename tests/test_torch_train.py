@@ -362,9 +362,9 @@ def _run_both(cfg, batch, n_steps=2):
     grads = []
     apply = trainer.apply_gradients
 
-    def spy(s):
+    def spy(s, *args):
         grads.append({n: p.grad.clone() for n, p in s.model.named_parameters()})
-        apply(s)
+        apply(s, *args)
 
     as_state = lambda s: matcher_state_from_jax({"params": jax.device_get(s.params),
                                                  "batch_stats": jax.device_get(s.batch_stats)})

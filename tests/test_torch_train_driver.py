@@ -339,8 +339,9 @@ def test_cli_train_matcher(tmp_path, monkeypatch):
     frames (the tiny matcher in place of MatcherConfig(), which is the
     card's size): 2 epochs, the history and index.json with its top-k
     (chip_smoke.py runs the command on the card, --resume included). Without
-    --device it runs on CUDA, which raises where there is no GPU; --dp above
-    1 raises NotImplementedError."""
+    --device it runs on CUDA, which raises where there is no GPU; --dp x --tp
+    above 1 starts that many ranks with its arguments (parallel.spawn, here
+    recorded; tests/test_torch_parallel_train.py runs the sharded step)."""
     tiny = port_config(_tiny_matcher().config)
     monkeypatch.setattr(port_config_module, "MatcherConfig", lambda: tiny)
     paths = chip_smoke.write_scannet_scene(tmp_path / "scans", n_frames=3, shift_px=24)
@@ -358,5 +359,10 @@ def test_cli_train_matcher(tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(_cli_args(paths, ckpt, "--epochs", "1"))
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        cli.main(_cli_args(paths, ckpt, "--epochs", "1", "--device", "cpu", "--dp", "2"))
+    import pope_tpu_torch.parallel as parallel
+
+    spawned = []
+    monkeypatch.setattr(parallel, "spawn", lambda fn, n, **kw: spawned.append((fn, n, kw)))
+    cli.main(_cli_args(paths, ckpt, "--epochs", "1", "--device", "cpu", "--dp", "2", "--tp", "2"))
+    (fn, n, kw), = spawned
+    assert n == 4 and kw["tp"] == 2 and kw["device"] == "cpu" and kw["argv"][0].dp == 2
