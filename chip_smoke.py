@@ -7,8 +7,8 @@ Phases, each of which raises on failure (exit code != 0):
   1. device: print the card's name and power limit (nvidia-smi);
   2. build: compile the CUDA kernels from pope_tpu_torch/csrc with nvcc (one
      process per source, in parallel), print ptxas's registers, shared
-     memory and spills for the short kernel's 12 instantiations and the long
-     kernel's 9, none of which may spill;
+     memory and spills for the short kernel's 12 instantiations, the long
+     kernel's 9 and the f32 tf32x3 kernel's 8, none of which may spill;
   3. kernels: each ported kernel at the shape the main path gives it (SAM
      ViT-H's AMG program on B=4 640x480 frames, rect 48x64 token grid, for
      the two rel-pos kernels; DINOv2 ViT-S/14's retrieval forward over 4
@@ -28,13 +28,19 @@ Phases, each of which raises on failure (exit code != 0):
      multi-crop sweep's 52x64 grid (one crop, N = 3328) and kernel 3 through
      the long bias-free design at demo-dinov2's N = 1025 (one image, a
      masked key tail); the long kernel's launcher reports the Q and K/V
-     stages it picks at the three grids;
+     stages it picks at the three grids. Kernels 1 and 2 in float32 (the
+     f32 SAM configs: 80 windows of 14x14, 4 frames of 48x64) through the
+     tf32x3 design (csrc/attention_f32.cu: 3xTF32 on the tensor cores),
+     beside the streaming design's f32 body, SDPA with the bias as a float
+     mask and the bound at 495/3 TFLOP/s;
   4. reference: a small SAM (ViT-H width, 2 blocks, f32) encodes and decodes
      on the card and on the CPU, where the port runs its plain versions
-     (which the CPU test suite holds against pope_tpu); the two must agree;
+     (which the CPU test suite holds against pope_tpu); the two must agree,
+     and every kernel launch on the card goes through the tf32x3 design;
   5. stage-2 reference: a small DINOv2 (ViT-S width, 2 blocks), a small
      matcher (full widths, 2 coarse layers) and the solver, f32, on the card
-     and on the CPU, the solver's noise drawn once on the CPU;
+     and on the CPU, the solver's noise drawn once on the CPU (DINOv2's
+     launches all tf32x3);
   6. solver: 4 synthetic pairs of 1024 correspondences from known poses
      (1 px noise, 30% outliers) in one batched RANSAC call on the card,
      which must recover each rotation within a few degrees;
@@ -69,7 +75,7 @@ Phases, each of which raises on failure (exit code != 0):
      modes, the COCO JSON decoding back to the PNG masks; the demo-sam,
      demo-dinov2 (12 long bias-free launches at N = 1025) and demo-3dbbox
      (28 + 4 + 24 short) commands, their images' shapes; and a small f32
-     SAM's records on the card against the CPU;
+     SAM's records on the card against the CPU (its launches all tf32x3);
  10. eval driver: bench.py's configs at full width (pope_tpu_torch/bench.py:
      SAM ViT-H, DINOv2 ViT-S/14 and the matcher in bf16, seeded weights),
      a LINEMOD-layout dataset of 16 pairs of 640x480 PNG frames on disk
@@ -115,24 +121,26 @@ Phases, each of which raises on failure (exit code != 0):
      steps each (forward, backward, optimizer; peak memory; FLOPs; the
      eval loss falls; no kernel launches); Vim-small's forward and the
      selective scan's share; a DINOv2Poser forward (24 launches of kernel
-     3); `cli extract` on 4 of the bench's pairs (28 + 4 + 24 launches a
+     3, f32: all tf32x3); `cli extract` on 4 of the bench's pairs (28 + 4 + 24 launches a
      pair; seeded weights write none), then `cli train-regressor` (2
      epochs) and `cli test-regressor` over synthetic dumps of known poses.
  14. SSL (run_ssl_phase), at `cli train-ssl`'s defaults (ViT-S/14 in f32,
      batch 8, 2 x 224 + 8 x 98 crops, 65,536 prototypes, bf16 head MLP,
      drop path 0.3): kernel 3 at the step's two f32 shapes, (16, 257, 6,
-     64) and (64, 50, 6, 64), through the stream design, held against its
-     plain version (f32 limits) and timed beside SDPA and the bound (f32
-     operations at 67 TFLOP/s); a small SSL step on the card against the
-     CPU; 2 warm-up + 10 timed steps on one batch (ms by part: teacher,
-     student forward, backward, AdamW + EMA; FLOPs, peak memory, a profile),
-     the counts set to 0 just before and read just after: 36 kernel-3
-     launches a step (24 at N = 257, 12 at N = 50), all the stream design,
-     no other kernel; extract_cls_features over 96 synthetic images (12
-     launches a batch of 64), kNN, the linear probe and log regression; `cli
+     64) and (64, 50, 6, 64), through the tf32x3 design, held against its
+     plain version (f32 limits) and timed beside the streaming design's f32
+     body (the previous one), SDPA and the bound (operations at 495/3
+     TFLOP/s, 3xTF32; the SIMT yardstick at 67 TFLOP/s beside it); a small
+     SSL step on the card against the CPU (all tf32x3); 2 warm-up + 10 timed
+     steps on one batch (ms by part: teacher, student forward, backward,
+     AdamW + EMA; FLOPs, peak memory, a profile), the counts set to 0 just
+     before and read just after: 36 kernel-3 launches a step (24 at N =
+     257, 12 at N = 50), all the tf32x3 design, no other kernel;
+     extract_cls_features over 96 synthetic images (12 tf32x3 launches a
+     batch of 64), kNN, the linear probe and log regression; `cli
      train-ssl` for 4 steps on 24 synthetic images, unbroken and killed at
-     step 3 then resumed from its step-2 checkpoint, ending in the unbroken
-     run's state;
+     step 3 then resumed from its step-2 checkpoint (all tf32x3), ending in
+     the unbroken run's state;
  15. novel views (run_nvs_phase): a small NeRF on the card against the CPU
      with the same draws; `cli render-novel-view` at NerfConfig() on a
      sphere sequence of six 120x160 views (500 steps on five, view 3 held
@@ -167,8 +175,9 @@ The last three lines are the `kernels` JSON line (each kernel's launches on
 the main path, per eval batch, on the serving path, on the records path, on
 the training path, per exported program, on the regressor's paths, per SSL
 step and feature batch and on the novel-view path, its times and bound, and
-the same at the square grid for kernels 1 and 2, at the crop grid for kernel
-2 and at N = 1025 and the SSL step's two shapes for kernel 3, and each dp
+the same at the square grid for kernels 1 and 2, in float32 for kernels 1
+and 2, at the crop grid for kernel 2 and at N = 1025 and the SSL step's two
+shapes for kernel 3, and each dp
 rank's launches per eval batch), the
 nvidia-smi line and {"ok": true, "device": {...}}. A copy of the results, the full profiles
 included, goes to build/chip_smoke.json (gitignored).
@@ -197,6 +206,9 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (what the f32 stream kernel uses)
+# float32 on the tensor cores in 3xTF32 (the tf32x3 kernel): three TF32
+# products for each f32 one, at the 494.7 TFLOP/s dense TF32 peak
+TF32X3_FLOP_PER_S = 494.7e12 / 3
 EX2_PER_SM_CLOCK = 16  # Hopper's special-function units: 16 ex2 results a clock per SM
 # kernel vs plain in bf16, scaled to the output: the outputs are softmax
 # averages of v ~ N(0, 1) over N keys, so their size falls with N (rms about
@@ -230,6 +242,7 @@ LINEMOD_K = ((572.4114, 0.0, 325.2611), (0.0, 573.57043, 242.04899), (0.0, 0.0, 
 SAM_H_HEADS, SAM_H_HEAD_DIM, SAM_WINDOW = 16, 80, 14  # SAM ViT-H's attention
 SHORT_SOURCE = "pope_tpu_torch/csrc/attention_short.cu"
 LONG_SOURCE = "pope_tpu_torch/csrc/attention_long.cu"
+F32_SOURCE = "pope_tpu_torch/csrc/attention_f32.cu"
 DEV = "cuda"  # where the stage-2 phases and the main path run
 PROFILER_OWN_EVENTS = ("Buffer Flush", "Activity Buffer Request")  # the tracer's, not the program's
 # cuda_ms holds the card this many clocks (about 10 ms) before its start event,
@@ -326,7 +339,7 @@ def kernel_phase(name, replaces, source, kernel, plain, library, args, reps, nby
 
 
 def run_kernel_phases():
-    from pope_tpu_torch.ops.cuda_kernels import launch_attention, launch_attention_relpos, long_layout
+    from pope_tpu_torch.ops.cuda_kernels import attention_design, launch_attention, launch_attention_relpos, long_layout
     from pope_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_plain,
@@ -348,45 +361,54 @@ def run_kernel_phases():
     def windowed_stream(qkv, rel_h, rel_w, nh, d, hk, wk):
         return launch_attention_relpos(*_split_qkv(qkv, nh, d), rel_h, rel_w, hk, wk, "stream")
 
-    def windowed_row(key, BW, previous):
+    def windowed_row(key, BW, previous, dtype=bf16):
         """Kernel 1 on BW windows of 14x14, 16 heads, d = 80."""
         nh, d, ws, N = SAM_H_HEADS, SAM_H_HEAD_DIM, SAM_WINDOW, SAM_WINDOW ** 2
-        C = nh * d
-        qkv = torch.randn(BW, N, 3 * C, device=dev, generator=g).to(bf16)
-        rel_h = (0.5 * torch.randn(BW, nh, N, ws, device=dev, generator=g)).to(bf16)
-        rel_w = (0.5 * torch.randn(BW, nh, N, ws, device=dev, generator=g)).to(bf16)
+        C, f32 = nh * d, dtype == torch.float32
+        qkv = torch.randn(BW, N, 3 * C, device=dev, generator=g).to(dtype)
+        rel_h = (0.5 * torch.randn(BW, nh, N, ws, device=dev, generator=g)).to(dtype)
+        rel_w = (0.5 * torch.randn(BW, nh, N, ws, device=dev, generator=g)).to(dtype)
         q, k, v = (t.transpose(1, 2) for t in qkv.view(BW, N, 3, nh, d).unbind(2))
         mask = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(BW, nh, N, N)
+        nbytes = qkv.element_size() * (qkv.numel() + rel_h.numel() + rel_w.numel() + BW * N * C)
+        flops = 4.0 * BW * nh * N * N * d
         rows[key] = kernel_phase(
-            "windowed_attention_relpos", "pope_tpu/ops/window_attention.py:80", SHORT_SOURCE,
+            "windowed_attention_relpos", "pope_tpu/ops/window_attention.py:80", F32_SOURCE if f32 else SHORT_SOURCE,
             windowed_attention_relpos, windowed_attention_relpos_plain,
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
-            (qkv, rel_h, rel_w, nh, d, ws, ws), reps=20,
-            nbytes=2 * (qkv.numel() + rel_h.numel() + rel_w.numel() + BW * N * C),
-            flops=4.0 * BW * nh * N * N * d, exps=BW * nh * N * N, ex2_rate=ex2_rate,
-            previous=previous,
+            (qkv, rel_h, rel_w, nh, d, ws, ws), reps=20, nbytes=nbytes, flops=flops,
+            exps=BW * nh * N * N, ex2_rate=ex2_rate, previous=previous,
+            **({"flop_rate": TF32X3_FLOP_PER_S, "tol": TOL_SSL_KERNEL} if f32 else {}),
         )
+        rows[key]["design"] = attention_design(dtype, N, d, ws, ws)
+        if f32:
+            rows[key]["simt_bound_ms"] = bound(nbytes, flops, F32_FLOP_PER_S)[0]
 
-    def global_row(key, B, H, W, reps, previous):
+    def global_row(key, B, H, W, reps, previous, dtype=bf16):
         """Kernel 2 on B frames of an H x W token grid, 16 heads, d = 80."""
         nh, d, N = SAM_H_HEADS, SAM_H_HEAD_DIM, H * W
-        C = nh * d
-        qkv = torch.randn(B, N, 3, nh, d, device=dev, generator=g).to(bf16)
+        C, f32 = nh * d, dtype == torch.float32
+        qkv = torch.randn(B, N, 3, nh, d, device=dev, generator=g).to(dtype)
         qn, kn, vn = qkv.unbind(2)
-        rel_h = (0.5 * torch.randn(B, nh, N, H, device=dev, generator=g)).to(bf16)
-        rel_w = (0.5 * torch.randn(B, nh, N, W, device=dev, generator=g)).to(bf16)
+        rel_h = (0.5 * torch.randn(B, nh, N, H, device=dev, generator=g)).to(dtype)
+        rel_w = (0.5 * torch.randn(B, nh, N, W, device=dev, generator=g)).to(dtype)
         mask = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(B, nh, N, N)
         q, k, v = (t.transpose(1, 2) for t in (qn, kn, vn))
+        nbytes = qkv.element_size() * (qkv.numel() + rel_h.numel() + rel_w.numel() + B * N * C)
+        flops = 4.0 * B * nh * N * N * d
         rows[key] = kernel_phase(
-            "flash_attention_relpos", "pope_tpu/ops/flash_attention.py:140", LONG_SOURCE,
+            "flash_attention_relpos", "pope_tpu/ops/flash_attention.py:140", F32_SOURCE if f32 else LONG_SOURCE,
             flash_attention_relpos, flash_attention_relpos_plain,
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
-            (qn, kn, vn, rel_h, rel_w, H, W), reps=reps,
-            nbytes=2 * (qkv.numel() + rel_h.numel() + rel_w.numel() + B * N * C),
-            flops=4.0 * B * nh * N * N * d, exps=B * nh * N * N, ex2_rate=ex2_rate,
-            previous=previous,
+            (qn, kn, vn, rel_h, rel_w, H, W), reps=reps, nbytes=nbytes, flops=flops,
+            exps=B * nh * N * N, ex2_rate=ex2_rate, previous=previous,
+            **({"flop_rate": TF32X3_FLOP_PER_S, "tol": TOL_SSL_KERNEL} if f32 else {}),
         )
-        rows[key]["long_layout"] = long_layout(d, H, W)  # the launcher's Q and K/V stages
+        rows[key]["design"] = attention_design(dtype, N, d, H, W)
+        if f32:
+            rows[key]["simt_bound_ms"] = bound(nbytes, flops, F32_FLOP_PER_S)[0]
+        else:
+            rows[key]["long_layout"] = long_layout(d, H, W)  # the launcher's Q and K/V stages
 
     # kernel 1: 28 windowed layers; 4 frames x 20 windows of 14x14 (the rect
     # 48x64 grid pads to 56x70)
@@ -404,6 +426,14 @@ def run_kernel_phases():
     print(json.dumps({"long_layout": {key: rows[key]["long_layout"] for key in
                                       ("flash_attention_relpos", "flash_attention_relpos_square",
                                        "flash_attention_relpos_crop")}}), flush=True)
+    # kernels 1 and 2 in float32 (the f32 SAM configs) through the tf32x3
+    # design, the streaming design's f32 body timed beside them
+    windowed_row("windowed_attention_relpos_f32", 80, windowed_stream, torch.float32)
+    global_row("flash_attention_relpos_f32", 4, 48, 64, 5, lambda *a: launch_attention_relpos(*a, "stream"),
+               torch.float32)
+    for key in ("windowed_attention_relpos_f32", "flash_attention_relpos_f32"):
+        if rows[key]["design"] != "tf32x3":
+            raise AssertionError(f"{key} takes the {rows[key]['design']} design, not tf32x3")
 
     # kernel 3: DINOv2 ViT-S/14's 12 blocks in the retrieval forward; 4 pairs
     # x (64 candidate crops + the prompt), 14x14 patches + cls, 6 heads, d=64
@@ -445,13 +475,15 @@ def run_kernel_phases():
 PTXAS_KERNELS = {  # the hand-written Hopper kernels' instantiations, by mangled name
     "attn_short_kernel": (re.compile(r"attn_short_kernelILi(\d+)ELb([01])ELb([01])E"), 12),
     "attn_long_kernel": (re.compile(r"attn_long_kernelILi(\d+)ELi(\d)E"), 9),
+    "attn_f32_kernel": (re.compile(r"attn_f32_kernelILi(\d+)ELb([01])ELi(\d+)ELb([01])E"), 18),
 }
 
 
 def ptxas_rows(log: str) -> list:
     """ptxas's registers, shared memory and spills for each instantiation of
-    the short kernel (attn_short_kernel<D, HAS_BIAS, WIDE>) and the long one
-    (attn_long_kernel<D, BIAS>), from nvcc's -v log."""
+    the short kernel (attn_short_kernel<D, HAS_BIAS, WIDE>), the long one
+    (attn_long_kernel<D, BIAS>) and the f32 one (attn_f32_kernel<DP,
+    HAS_BIAS, TQ, VEC>), from nvcc's -v log."""
     rows, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -477,7 +509,7 @@ def ptxas_rows(log: str) -> list:
 
 
 def check_ptxas(rows: list) -> None:
-    """Every instantiation of the two Hopper kernels built, none spilled."""
+    """Every instantiation of the three Hopper kernels built, none spilled."""
     for kernel, (_, count) in PTXAS_KERNELS.items():
         mine = [r for r in rows if r["kernel"].startswith(kernel + "<")]
         if len(mine) != count or any(r.get("spill_stores", 1) or r.get("spill_loads", 1) for r in mine):
@@ -505,6 +537,7 @@ def run_reference_phase():
     pts = torch.from_numpy(rng.uniform(0, 256, (16, 2, 2)).astype(np.float32))
     labels = torch.tensor([[1, -1]]).expand(16, 2)
     errs = {}
+    before = kernel_designs()
     with torch.no_grad():
         emb_c, emb_g = cpu.encode_image(x), gpu.encode_image(x.cuda())
         errs["embedding"] = (emb_g.cpu() - emb_c).abs().max().item()
@@ -513,7 +546,10 @@ def run_reference_phase():
             m_g, i_g = gpu.decode(emb_c[:1].cuda(), pts.cuda(), labels.cuda(), subsample=sub)
             errs[f"masks_sub{sub}"] = (m_g.cpu() - m_c).abs().max().item()
             errs[f"iou_sub{sub}"] = (i_g.cpu() - i_c).abs().max().item()
-    print(json.dumps({"reference_phase": {"max_abs_err": errs, "tol": TOL_F32}}), flush=True)
+    launches = check_tf32x3_only("f32 SAM on the card", before,
+                                 ("windowed_attention_relpos", "flash_attention_relpos"))
+    print(json.dumps({"reference_phase": {"max_abs_err": errs, "tol": TOL_F32, "tf32x3_launches": launches}}),
+          flush=True)
     bad = {k: e for k, e in errs.items() if not e < TOL_F32}
     if bad:
         raise AssertionError(f"card vs CPU disagree beyond {TOL_F32}: {bad}")
@@ -537,11 +573,14 @@ def run_stage2_reference_phase():
     init_dinov2_weights(cpu, torch.Generator().manual_seed(5))
     gpu = copy.deepcopy(cpu).to(DEV)
     x = torch.from_numpy(rng.normal(0, 1, (3, 196, 196, 3)).astype(np.float32))
+    before = kernel_designs()
     with torch.no_grad():
         ref, out = cpu(x), gpu(x.to(DEV))
+    launches = check_tf32x3_only("f32 DINOv2 on the card", before, ("flash_attention",))
     for key in ref:
         errs[f"dinov2_{key}"] = (out[key].cpu() - ref[key]).abs().max().item()
     bad += [k for k in errs if not errs[k] < TOL_F32]
+    errs["dinov2_tf32x3_launches"] = launches["flash_attention"]
 
     cfg = MatcherConfig(
         coarse=LoFTRStageConfig(layer_names=("self", "cross")),
@@ -865,8 +904,28 @@ def counted_run(counters, fn):
             {name: dict(f.launches_by_design) for name, f in counters.items()})
 
 
-def designs(short: int = 0, long: int = 0, stream: int = 0) -> dict:
-    return {"short": short, "long": long, "stream": stream}
+def designs(short: int = 0, long: int = 0, tf32x3: int = 0, stream: int = 0) -> dict:
+    return {"short": short, "long": long, "tf32x3": tf32x3, "stream": stream}
+
+
+def kernel_designs() -> dict:
+    """Each kernel wrapper's launches per design so far."""
+    from pope_tpu_torch.ops.flash_attention import flash_attention, flash_attention_relpos
+    from pope_tpu_torch.ops.window_attention import windowed_attention_relpos
+
+    return {f.__name__: dict(f.launches_by_design)
+            for f in (windowed_attention_relpos, flash_attention_relpos, flash_attention)}
+
+
+def check_tf32x3_only(name: str, before: dict, wrappers) -> dict:
+    """An f32 path's launches since `before` (kernel_designs()): each of
+    `wrappers` launched, and every launch of every kernel went through the
+    tf32x3 design. Returns the launches per wrapper."""
+    now = kernel_designs()
+    got = {w: {dn: n - before[w][dn] for dn, n in ds.items()} for w, ds in now.items()}
+    if any(sum(ds.values()) != ds["tf32x3"] for ds in got.values()) or not all(got[w]["tf32x3"] for w in wrappers):
+        raise AssertionError(f"{name}: launches by design {got}, want tf32x3 only, from each of {wrappers}")
+    return {w: ds["tf32x3"] for w, ds in got.items()}
 
 
 def timed_runs(fn, n: int = 3) -> list:
@@ -1389,10 +1448,13 @@ def records_card_vs_cpu() -> dict:
     amg_cfg = AMGConfig(pred_iou_thresh=-1e9, stability_score_thresh=0.0)
     frame = frames(11, n=1)[0]
     ref = AutomaticMaskGenerator(cpu, amg_cfg, device="cpu").generate_records(frame)
+    before = kernel_designs()
     out = AutomaticMaskGenerator(gpu, amg_cfg, device=DEV).generate_records(frame)
+    launches = check_tf32x3_only("f32 SAM records on the card", before,
+                                 ("windowed_attention_relpos", "flash_attention_relpos"))
     check_records("card vs CPU", out, frame.shape[:2])
     row = {"records": len(out), "cpu_records": len(ref), "min_mask_iou": None, "bbox_max_abs_px": None,
-           "score_max_abs": None, "same_rle": 0}
+           "score_max_abs": None, "same_rle": 0, "tf32x3_launches": launches}
     if len(out) == len(ref):
         ious, boxes, scores = [], [], []
         for r, q in zip(out, ref):
@@ -1992,6 +2054,7 @@ def run_export_phase(counters) -> dict:
     within EXPORT_PEAK_MARGIN of the eager one's and its time within 2x."""
     from pope_tpu_torch import export
     from pope_tpu_torch.export import MatcherHead, SamDecoderHead, sam_prompt_head
+    from pope_tpu_torch.ops.cuda_kernels import attention_design
     from pope_tpu_torch.pipeline import load_models
 
     out_dir = Path(__file__).resolve().parent / "build" / "export"
@@ -2033,11 +2096,15 @@ def run_export_phase(counters) -> dict:
     nodes = [str(n.target) for n in export.load_exported(str(dino_path)).graph.nodes if n.op == "call_function"]
     by_name = {r["program"]: r for r in rows}
     by_name["dinov2"]["pope_op_nodes"] = {t: nodes.count(t) for t in set(nodes) if t.startswith("pope.")}
-    depth = models.config.dinov2.depth
+    dcfg = models.config.dinov2
+    depth = dcfg.depth
     want = {r["program"]: {"windowed_attention_relpos": 0, "flash_attention_relpos": 0,
                            "flash_attention": depth if r["program"] == "dinov2" else 0} for r in rows}
     got = {r["program"]: r["launches"] for r in rows}
-    if got != want or by_name["dinov2"]["pope_op_nodes"] != {"pope.flash_attention.default": depth}:
+    # the program launches the design eager code takes for its dtype (f32: tf32x3)
+    design = attention_design(getattr(torch, dcfg.dtype), 197, dcfg.embed_dim // dcfg.num_heads)
+    if (got != want or by_name["dinov2"]["pope_op_nodes"] != {"pope.flash_attention.default": depth}
+            or by_name["dinov2"]["launches_by_design"]["flash_attention"][design] != depth):
         raise AssertionError(f"exported launches {got} (want {want}), DINOv2 op nodes "
                              f"{by_name['dinov2']['pope_op_nodes']}")
     m = by_name["matcher"]
@@ -2227,8 +2294,10 @@ def run_regressor_phase(counters) -> dict:
         (t, q), ms, launches, by_design = counted_run(counters, lambda: poser(pair[0], pair[1]))
     row["dinov2_poser"] = {"batch": 2, "ms": ms, "launches": launches, "launches_by_design": by_design,
                            "t": list(t.shape), "quat": list(q.shape)}
-    if launches["flash_attention"] != 2 * poser.dino.config.depth or not torch.isfinite(t).all():
-        raise AssertionError(f"DINOv2Poser forward: {row['dinov2_poser']}")
+    want = 2 * poser.dino.config.depth
+    if (launches["flash_attention"] != want or by_design["flash_attention"]["tf32x3"] != want
+            or not torch.isfinite(t).all()):
+        raise AssertionError(f"DINOv2Poser forward (f32: all tf32x3): {row['dinov2_poser']}")
     del poser
     torch.cuda.empty_cache()
 
@@ -2278,12 +2347,12 @@ def run_regressor_phase(counters) -> dict:
     return row
 
 
-STREAM_SOURCE = "pope_tpu_torch/csrc/attention_relpos.cu"
 SSL_WARMUP, SSL_STEPS = 2, 10
 SSL_B = 8  # cli train-ssl's default batch
-# kernel 3 in f32 (the stream design) against its plain version on the
-# card, both f32 without TF32: the same sums in another order, outputs of
-# size about 1 (softmax averages of v ~ N(0, 1))
+# kernel 3 in f32 (the tf32x3 design: three TF32 products for each f32 one)
+# against its plain version on the card, both to f32's accuracy without
+# TF32: the same sums in another order, outputs of size about 1 (softmax
+# averages of v ~ N(0, 1))
 TOL_SSL_KERNEL = (2e-4, 2e-5)
 # an SSL step of a small config (ViT-S width, 2 blocks, f32 heads) on the
 # card against the CPU from the same state, batch and drop-path draws: the
@@ -2369,7 +2438,7 @@ def ssl_card_vs_cpu() -> dict:
         state = arch.init_state(0, dev)
         mults = arch.multipliers(state)
         b = {k: v.to(dev) for k, v in batch.items()}
-        before = flash_attention.launches
+        before = flash_attention.launches, flash_attention.launches_by_design["tf32x3"]
         steps = []
         for _ in range(2):
             state, m = arch.train_step(state, b, mults=mults)
@@ -2377,7 +2446,8 @@ def ssl_card_vs_cpu() -> dict:
             steps.append(({k: v.item() for k, v in m.items()},
                           {key: _named_np(sd[key]) for key in ("student", "teacher", "mu")},
                           np.concatenate([state.dino_center.cpu().numpy(), state.ibot_center.cpu().numpy()])))
-        runs[dev] = (steps, flash_attention.launches - before)
+        runs[dev] = (steps, (flash_attention.launches - before[0],
+                             flash_attention.launches_by_design["tf32x3"] - before[1]))
     (cpu, _), (card, launches) = runs["cpu"], runs[DEV]
     lr = cpu[1][0]["lr"]
     errs = {
@@ -2389,7 +2459,7 @@ def ssl_card_vs_cpu() -> dict:
         "teacher": conditioned_diff(card[1][1]["teacher"], cpu[1][1]["teacher"], cpu[1][1]["mu"], SSL_CONDITIONED),
         "lr": lr, "card_launches": launches, "losses_cpu": [s[0] for s in cpu], "losses_card": [s[0] for s in card],
     }
-    expect_launches = 2 * 3 * bcfg.depth
+    expect_launches = (2 * 3 * bcfg.depth,) * 2  # in all and through tf32x3
     if not (errs["loss_rel"] < TOL_SSL_LOSS and errs["center_rel"] < TOL_SSL_LOSS
             and errs["moments_rel"] < TOL_SSL_MOMENTS and launches == expect_launches
             and errs["weights"]["conditioned"] <= TOL_SSL_WEIGHTS_LR * lr and errs["weights"]["all"] <= 2 * lr + 1e-6
@@ -2399,10 +2469,13 @@ def ssl_card_vs_cpu() -> dict:
 
 
 def ssl_kernel_rows(ex2_rate) -> dict:
-    """Kernel 3 at the SSL step's two f32 shapes (the stream design): the
+    """Kernel 3 at the SSL step's two f32 shapes (the tf32x3 design, the
+    stream design's f32 body timed beside it as the previous one): the
     global crops (2B = 16 images, 16x16 patches + cls = 257 tokens) and the
-    local crops (8B = 64 images, 7x7 + cls = 50), 6 heads, d 64."""
-    from pope_tpu_torch.ops.cuda_kernels import attention_design
+    local crops (8B = 64 images, 7x7 + cls = 50), 6 heads, d 64. The bound
+    takes the operations at 3xTF32's rate; `simt_bound_ms` at the CUDA
+    cores' f32 rate, the stream design's yardstick."""
+    from pope_tpu_torch.ops.cuda_kernels import attention_design, launch_attention
     from pope_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
     F = torch.nn.functional
@@ -2411,18 +2484,20 @@ def ssl_kernel_rows(ex2_rate) -> dict:
     nh, d = 6, 64
     for key, B, N in (("ssl_n257", 2 * SSL_B, 257), ("ssl_n50", 8 * SSL_B, 50)):
         design = attention_design(torch.float32, N, d)
-        if design != "stream":
-            raise AssertionError(f"kernel 3 at f32 N = {N} takes the {design} design, not stream")
+        if design != "tf32x3":
+            raise AssertionError(f"kernel 3 at f32 N = {N} takes the {design} design, not tf32x3")
         qkv = torch.randn(B, N, 3, nh, d, device=DEV, generator=g)
         qn, kn, vn = qkv.unbind(2)
         q, k, v = (t.transpose(1, 2) for t in (qn, kn, vn))
+        nbytes, flops = 4 * (qkv.numel() + B * N * nh * d), 4.0 * B * nh * N * N * d
         rows[key] = kernel_phase(
-            "flash_attention", "pope_tpu/ops/flash_attention.py:114", STREAM_SOURCE, flash_attention,
+            "flash_attention", "pope_tpu/ops/flash_attention.py:114", F32_SOURCE, flash_attention,
             flash_attention_plain, lambda: F.scaled_dot_product_attention(q, k, v), (qn, kn, vn), reps=20,
-            nbytes=4 * (qkv.numel() + B * N * nh * d), flops=4.0 * B * nh * N * N * d, exps=B * nh * N * N,
-            ex2_rate=ex2_rate, flop_rate=F32_FLOP_PER_S, tol=TOL_SSL_KERNEL,
+            nbytes=nbytes, flops=flops, exps=B * nh * N * N, ex2_rate=ex2_rate, flop_rate=TF32X3_FLOP_PER_S,
+            tol=TOL_SSL_KERNEL, previous=lambda q, k, v: launch_attention(q, k, v, "stream"),
         )
         rows[key]["design"] = design
+        rows[key]["simt_bound_ms"] = bound(nbytes, flops, F32_FLOP_PER_S)[0]
     return rows
 
 
@@ -2467,7 +2542,7 @@ def ssl_cli_resume(counters, tmp: Path) -> dict:
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True  # the patch embed's conv backward: the same sums each run
     try:
-        _, out["unbroken_ms"], out["unbroken_launches"], _ = counted_run(
+        _, out["unbroken_ms"], out["unbroken_launches"], out["unbroken_by_design"] = counted_run(
             counters, lambda: cli.main(base + ["--ckpt-dir", str(tmp / "a")]))
         killed_and_resumed(base, tmp, counters, out)
     finally:
@@ -2483,9 +2558,11 @@ def ssl_cli_resume(counters, tmp: Path) -> dict:
     out["sampler"] = json.loads((tmp / "b" / "sampler.json").read_text())
     lr = ssl_cli_args().lr
     close = out["weights"]["conditioned"] <= 10 * TOL_SSL_WEIGHTS and out["weights"]["all"] <= 2 * lr * SSL_CLI_STEPS
+    all_tf32x3 = all(out[f"{run}_launches"]["flash_attention"] == out[f"{run}_by_design"]["flash_attention"]["tf32x3"]
+                     > 0 for run in ("unbroken", "resumed"))
     if not (out["steps"] == (SSL_CLI_STEPS, SSL_CLI_STEPS) and out["sampler"]["consumed_batches"] == SSL_CLI_STEPS
             and out["dirs_after_kill"] == ["sampler.json", f"step_{SSL_CLI_CKPT_EVERY:08d}"]
-            and (out["bitwise_equal"] or close)):
+            and (out["bitwise_equal"] or close) and all_tf32x3):
         raise AssertionError(f"cli train-ssl resume: {out}")
     return out
 
@@ -2512,7 +2589,7 @@ def killed_and_resumed(base, tmp: Path, counters, out: dict) -> None:
     finally:
         ssl_module.SSLMetaArch.train_step = step
     out["dirs_after_kill"] = sorted(os.listdir(tmp / "b"))
-    _, out["resumed_ms"], out["resumed_launches"], _ = counted_run(
+    _, out["resumed_ms"], out["resumed_launches"], out["resumed_by_design"] = counted_run(
         counters, lambda: cli.main(base + ["--ckpt-dir", str(tmp / "b")]))
 
 
@@ -2545,7 +2622,7 @@ def ssl_eval_row(counters, backbone, depth: int) -> dict:
     row["protocols_ms"] = (time.perf_counter() - t0) * 1e3
     if not (torch.isfinite(feats).all() and np.isfinite(losses).all()
             and launches["flash_attention"] == depth * n_batches
-            and by_design["flash_attention"]["stream"] == depth * n_batches):
+            and by_design["flash_attention"]["tf32x3"] == depth * n_batches):
         raise AssertionError(f"ssl eval: {row}")
     return row
 
@@ -2555,7 +2632,7 @@ def run_ssl_phase(counters, ex2_rate) -> dict:
     step's two f32 shapes; SSL_WARMUP + SSL_STEPS steps on one batch (ms by
     part, FLOPs, peak memory, a profile), with the kernels' counts set to 0
     just before and read just after (36 kernel-3 launches a step, all the
-    stream design, 24 at the global crops' tokens and 12 at the local
+    tf32x3 design, 24 at the global crops' tokens and 12 at the local
     crops', no other kernel); a small
     step against the CPU; the CLI killed and resumed; the features, kNN and
     the probes. ViT-S/14 has 12 blocks: 36 launches a step, 12 a feature
@@ -2608,7 +2685,7 @@ def run_ssl_phase(counters, ex2_rate) -> dict:
     # the teacher's and the student's global crops, then the student's local crops
     tokens = lambda crop: (crop // bcfg.patch_size) ** 2 + 1
     want_tokens = {tokens(cfg.global_crop_size): 2 * bcfg.depth, tokens(cfg.local_crop_size): bcfg.depth}
-    if (row["launches_per_step"] != want or row["by_design_per_step"]["flash_attention"]["stream"] != want["flash_attention"]
+    if (row["launches_per_step"] != want or row["by_design_per_step"]["flash_attention"]["tf32x3"] != want["flash_attention"]
             or row["flash_attention_by_tokens_per_step"] != want_tokens):
         raise AssertionError(f"SSL step launches {row['launches_per_step']} {row['by_design_per_step']} "
                              f"{row['flash_attention_by_tokens_per_step']}, want {want} {want_tokens}")
@@ -3668,11 +3745,14 @@ def main() -> int:
         entry["nvs_launches"] = nvs["launches"][name]
         entry["dp2_eval_launches_per_batch_per_rank"] = [
             [b[name] for b in rank] for rank in parallel["eval"]["launches_per_batch_per_rank"]]
-        if name == "flash_attention":  # the SSL step's f32 shapes, the stream design
+        if name == "flash_attention":  # the SSL step's f32 shapes, the tf32x3 design
             for key, n_tokens in (("ssl_n257", 257), ("ssl_n50", 50)):
                 r = ssl["kernel_rows"][key]
-                entry[key] = {k: r[k] for k in timing} | {
+                entry[key] = {k: r[k] for k in timing + ("previous_ms", "design")} | {
                     "source": r["source"], "launches_per_step": ssl["flash_attention_by_tokens_per_step"][n_tokens]}
+        f32 = kernels.get(f"{name}_f32")
+        if f32 is not None:  # kernels 1 and 2 in float32 (the f32 SAM configs), the tf32x3 design
+            entry["f32"] = {k: f32[k] for k in timing + ("previous_ms", "design", "source")}
         long_n = kernels.get(f"{name}_n1025")
         if long_n is not None:  # demo-dinov2's 1025 tokens through the long design, B=1
             entry["n1025"] = {k: long_n[k] for k in timing} | {

@@ -7,14 +7,19 @@ at the root of the checkout, named by a hash of the sources and their
 headers so that an edit rebuilds it; `ctypes` loads it. Nothing here runs at
 import time: the CPU test suite imports every module and has no `nvcc`.
 
-Three attention designs, picked by shape (`attention_design`):
+Four attention designs, picked by shape (`attention_design`):
 - "short" (csrc/attention_short.cu): a whole head in shared memory; bf16,
   N <= 256, d in _BF16_HEAD_DIMS, bias grids of hk + wk <= 32;
 - "long" (csrc/attention_long.cu): streams 128-key tiles past 128-query
   items, a TMA producer warp and two wgmma consumer warpgroups, each of
   which runs one tile's softmax while its own next products run; the other
   bf16 shapes of those head dims, bias grids of hk + wk <= 500;
-- "stream" (csrc/attention_relpos.cu): the rest, float32 included.
+- "tf32x3" (csrc/attention_f32.cu): float32 on the tensor cores, each
+  product as three TF32 products (mma.sync) of operands split into a
+  rounded big and small part; d <= 128, bias grids of hk + wk <=
+  F32_MAX_GRID;
+- "stream" (csrc/attention_relpos.cu): the rest (f32 past those limits,
+  bf16 head dims without a tensor-core instantiation).
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_SOURCES = ("attention_relpos.cu", "attention_short.cu", "attention_long.cu")
+_SOURCES = ("attention_relpos.cu", "attention_short.cu", "attention_long.cu", "attention_f32.cu")
 _HEADERS = ("hopper.cuh",)  # included by the sources: part of the library's hash
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 # the tensor-core bodies' instantiations (launch_bf16, launch_short, launch_long_bias)
@@ -41,7 +46,14 @@ SHORT_MAX_GRID = 32  # and a bias grid of hk + wk <= 32: two k-steps of its bias
 # attention_long.cu: an item's rel rows (128 x (hk + wk) bf16) and one Q stage
 # beside two K/V stages fit in shared memory at d = 80
 LONG_MAX_GRID = 500
-DESIGNS = ("short", "long", "stream")  # attention_design's order of preference
+# attention_f32.cu: the query tile's rel rows (64 x (hk + wk) f32) beside the
+# split query, K and V tiles fit in shared memory at every padded head dim
+# (at d_pad = 128, with 16-key tiles, room is left for 474; its launcher
+# refuses 475, which tests/test_torch_cuda.py holds it to)
+F32_MAX_GRID = 474
+DESIGNS = ("short", "long", "tf32x3", "stream")  # attention_design's order of preference
+_ENTRIES = {"short": "pope_attention_short", "long": "pope_attention_long", "tf32x3": "pope_attention_f32",
+            "stream": "pope_attention"}
 
 _lib = None  # the loaded library, once built
 
@@ -108,6 +120,10 @@ def library() -> ctypes.CDLL:
         lib.pope_attention_long_relpos.restype = i32
         lib.pope_attention_long.argtypes = lib.pope_attention_short.argtypes
         lib.pope_attention_long.restype = i32
+        lib.pope_attention_f32_relpos.argtypes = lib.pope_attention_short_relpos.argtypes
+        lib.pope_attention_f32_relpos.restype = i32
+        lib.pope_attention_f32.argtypes = lib.pope_attention_short.argtypes
+        lib.pope_attention_f32.restype = i32
         lib.pope_attention_long_layout.argtypes = [i32] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3
         lib.pope_attention_long_layout.restype = i32
         lib.pope_cuda_error_string.argtypes = [i32]
@@ -163,6 +179,8 @@ def _takes(design: str, dtype, N: int, d: int, hk: int, wk: int) -> bool:
         return tensor_cores and N <= SHORT_MAX_N and hk + wk <= SHORT_MAX_GRID
     if design == "long":
         return tensor_cores and hk + wk <= LONG_MAX_GRID
+    if design == "tf32x3":
+        return dtype == torch.float32 and d <= 128 and hk + wk <= F32_MAX_GRID
     return True
 
 
@@ -171,9 +189,10 @@ def attention_design(dtype, N: int, d: int, hk: int = 0, wk: int = 0) -> str:
     whole head in shared memory; bf16, N <= SHORT_MAX_N, d in
     _BF16_HEAD_DIMS and, with a bias, hk + wk <= SHORT_MAX_GRID), "long"
     (csrc/attention_long.cu: the other bf16 shapes of those head dims, bias
-    grids of hk + wk <= LONG_MAX_GRID) or "stream" (csrc/attention_relpos.cu:
-    the rest, float32 included). The shape alone decides; a kernel that
-    fails raises."""
+    grids of hk + wk <= LONG_MAX_GRID), "tf32x3" (csrc/attention_f32.cu:
+    float32 on the tensor cores in 3xTF32, d <= 128, bias grids of hk + wk
+    <= F32_MAX_GRID) or "stream" (csrc/attention_relpos.cu: the rest). The
+    shape alone decides; a kernel that fails raises."""
     return next(dn for dn in DESIGNS if _takes(dn, dtype, N, d, hk, wk))
 
 
@@ -196,13 +215,14 @@ def launch_attention_relpos(q, k, v, rel_h, rel_w, hk: int, wk: int, design: str
     """Run the rel-pos attention kernel for the windowed and the global
     layers: `design` (by default attention_design's choice for the shape)
     "short" is csrc/attention_short.cu, "long" csrc/attention_long.cu,
-    "stream" csrc/attention_relpos.cu.
+    "tf32x3" csrc/attention_f32.cu, "stream" csrc/attention_relpos.cu.
 
     q, k, v: (B, N, nh, d) CUDA views with a unit last stride (slices of the
     qkv Dense output are fine); rel_h (B, nh, N, hk) and rel_w (B, nh, N, wk)
     contiguous, all of one dtype (float32 or bfloat16). In bfloat16 the
     tensor-core bodies also need d in _BF16_HEAD_DIMS and q/k/v rows that
-    start on 16 bytes. Returns a new contiguous (B, N, nh * d) tensor."""
+    start on 16 bytes (the float32 tf32x3 body reads other views 4 bytes at
+    a time). Returns a new contiguous (B, N, nh * d) tensor."""
     B, N, nh, d = _check_qkv(q, k, v, (rel_h, rel_w))
     if N != hk * wk or rel_h.shape != (B, nh, N, hk) or rel_w.shape != (B, nh, N, wk):
         raise ValueError(f"rel tables {tuple(rel_h.shape)} {tuple(rel_w.shape)} do not fit "
@@ -213,17 +233,16 @@ def launch_attention_relpos(q, k, v, rel_h, rel_w, hk: int, wk: int, design: str
     out = torch.empty((B, N, nh * d), dtype=q.dtype, device=q.device)
     lib = library()
     ptrs, strides = _views(q, k, v)
+    entry = f"{_ENTRIES[design]}_relpos"
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         tail = (B, N, nh, d, hk, wk, float(d ** -0.5))
         rel = (rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr())
-        if design in ("short", "long"):
-            entry = f"pope_attention_{design}_relpos"
-            err = getattr(lib, entry)(*ptrs, *rel, *strides, *tail, stream)
-        else:
-            entry = "pope_attention_relpos"
+        if design == "stream":
             err = lib.pope_attention_relpos(*ptrs, *rel, *strides, *tail,
                                             int(q.dtype == torch.bfloat16), stream)
+        else:
+            err = getattr(lib, entry)(*ptrs, *rel, *strides, *tail, stream)
     _raise_on(err, entry, lib)
     return out
 
@@ -238,15 +257,14 @@ def launch_attention(q, k, v, design: str | None = None):
     out = torch.empty((B, N, nh * d), dtype=q.dtype, device=q.device)
     lib = library()
     ptrs, strides = _views(q, k, v)
+    entry = _ENTRIES[design]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         tail = (B, N, nh, d, float(d ** -0.5))
-        if design in ("short", "long"):
-            entry = f"pope_attention_{design}"
-            err = getattr(lib, entry)(*ptrs, out.data_ptr(), *strides, *tail, stream)
-        else:
-            entry = "pope_attention"
+        if design == "stream":
             err = lib.pope_attention(*ptrs, out.data_ptr(), *strides, *tail,
                                      int(q.dtype == torch.bfloat16), stream)
+        else:
+            err = getattr(lib, entry)(*ptrs, out.data_ptr(), *strides, *tail, stream)
     _raise_on(err, entry, lib)
     return out

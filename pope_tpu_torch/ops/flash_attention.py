@@ -6,7 +6,7 @@ versions.
 - `flash_attention`, bias-free, for DINOv2's blocks (port of
   pope_tpu/ops/flash_attention.py::flash_attention).
 
-Three hand-written CUDA designs serve both wrappers, picked by shape
+Four hand-written CUDA designs serve both wrappers, picked by shape
 (`cuda_kernels.attention_design`; each wrapper counts its launches per design
 in `launches_by_design` and per token count N in `launches_by_tokens`):
 - "short" (csrc/attention_short.cu) holds a whole head in shared memory and
@@ -18,9 +18,13 @@ in `launches_by_design` and per token count N in `launches_by_tokens`):
   rel_h[q, k // wk] + rel_w[q, k % wk] added in registers, so the (N, N)
   logits never reach device memory: the other bf16 shapes, SAM's global
   layers (N = 3072) among them;
+- "tf32x3" (csrc/attention_f32.cu, shared with the windowed layers) takes
+  float32: 64-key tiles past 64-query tiles, split into TF32 big and small
+  parts, each product as three TF32 tensor-core products (mma.sync), about
+  f32's accuracy: the SSL step's f32 DINOv2 (N = 257 and 50), the f32 SAM
+  configs;
 - "stream" (csrc/attention_relpos.cu, shared with the windowed layers) does
-  the same with mma.sync or f32 FMAs: float32 and the head dims the others
-  lack.
+  the same with mma.sync or f32 FMAs: the shapes the others do not take.
 Logits, softmax statistics and sums are f32; the scale is d^-1/2. In bf16
 the kernels round the softmax weights to bf16 for the p . v product on the
 tensor cores, where the plain version keeps them f32.
@@ -44,7 +48,7 @@ from __future__ import annotations
 
 import torch
 
-from pope_tpu_torch.ops.cuda_kernels import attention_design, launch_attention, launch_attention_relpos
+from pope_tpu_torch.ops.cuda_kernels import DESIGNS, attention_design, launch_attention, launch_attention_relpos
 
 
 def flash_attention_relpos_plain(q, k, v, rel_h, rel_w, hk: int, wk: int):
@@ -123,7 +127,7 @@ def flash_attention_relpos(q, k, v, rel_h, rel_w, hk: int, wk: int):
 
 
 flash_attention_relpos.launches = 0
-flash_attention_relpos.launches_by_design = {"short": 0, "long": 0, "stream": 0}
+flash_attention_relpos.launches_by_design = dict.fromkeys(DESIGNS, 0)
 flash_attention_relpos.launches_by_tokens = {}
 
 
@@ -175,5 +179,5 @@ def flash_attention(q, k, v):
 
 
 flash_attention.launches = 0
-flash_attention.launches_by_design = {"short": 0, "long": 0, "stream": 0}
+flash_attention.launches_by_design = dict.fromkeys(DESIGNS, 0)
 flash_attention.launches_by_tokens = {}

@@ -9,12 +9,13 @@ window (N = hk * wk tokens) and head:
 reading q, k and v as column slices of the un-reshaped qkv Dense output and
 writing the `proj` input layout. Logits and softmax are f32; the softmax
 weights are rounded to the input type before p . v, which accumulates in f32.
-On the card it runs one of two hand-written kernels, picked by shape
+On the card it runs one of the hand-written kernels, picked by shape
 (`cuda_kernels.attention_design`) and counted per design in
 `launches_by_design` (and per token count in `launches_by_tokens`): SAM's 14x14 windows in bf16 take csrc/attention_short.cu
 (a whole window-head in shared memory, the bias as a tensor-core product);
-larger bf16 windows csrc/attention_long.cu and float32 csrc/attention_relpos.cu,
-which the global layers' wrapper (ops/flash_attention.py) shares. The
+larger bf16 windows csrc/attention_long.cu, float32 csrc/attention_f32.cu
+(3xTF32 on the tensor cores) and the rest csrc/attention_relpos.cu, which
+the global layers' wrapper (ops/flash_attention.py) shares. The
 wrapper calls the registered op `torch.ops.pope.windowed_attention_relpos`
 (CUDA: the kernel, counted; CPU: the plain version; see ops/flash_attention.py).
 """
@@ -23,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from pope_tpu_torch.ops.cuda_kernels import attention_design, launch_attention_relpos
+from pope_tpu_torch.ops.cuda_kernels import DESIGNS, attention_design, launch_attention_relpos
 from pope_tpu_torch.ops.flash_attention import count_tokens, register_plain_backward
 
 
@@ -91,5 +92,5 @@ def windowed_attention_relpos(qkv, rel_h, rel_w, nh: int, d: int, hk: int, wk: i
 
 
 windowed_attention_relpos.launches = 0
-windowed_attention_relpos.launches_by_design = {"short": 0, "long": 0, "stream": 0}
+windowed_attention_relpos.launches_by_design = dict.fromkeys(DESIGNS, 0)
 windowed_attention_relpos.launches_by_tokens = {}

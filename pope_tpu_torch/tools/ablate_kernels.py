@@ -1,16 +1,24 @@
 #!/usr/bin/env python3
 """Where the attention kernels' time goes, on one NVIDIA GPU.
 
-    python3 pope_tpu_torch/tools/ablate_kernels.py [--kernel short|long|all] [--rounds 2]
+    python3 pope_tpu_torch/tools/ablate_kernels.py [--kernel short|long|f32|all] [--rounds 2]
 
-Builds csrc/attention_short.cu and csrc/attention_long.cu as they ship and a
-few variants of each, every one a copy with text edits that remove or
-replace one step, all with nvcc in parallel into build/ablate/, and times
-each at the main path's shapes: the short kernel at SAM ViT-H's windowed
-layers (80 windows x 16 heads, N = 196, d = 80, with the rel-pos bias) and
-DINOv2 ViT-S/14's retrieval forward (260 crops x 6 heads, N = 197, d = 64);
-the long kernel at SAM ViT-H's global layers (4 frames x 16 heads, 48 x 64
-tokens, d = 80) with the bias and, on the same q/k/v, without it. Variants
+Builds csrc/attention_short.cu, csrc/attention_long.cu and
+csrc/attention_f32.cu as they ship and a few variants of each, every one a
+copy with text edits that remove or replace one step, all with nvcc in
+parallel into build/ablate/, and times each at the main path's shapes: the
+short kernel at SAM ViT-H's windowed layers (80 windows x 16 heads, N = 196,
+d = 80, with the rel-pos bias) and DINOv2 ViT-S/14's retrieval forward (260
+crops x 6 heads, N = 197, d = 64); the long kernel at SAM ViT-H's global
+layers (4 frames x 16 heads, 48 x 64 tokens, d = 80) with the bias and, on
+the same q/k/v, without it; the f32 (tf32x3) kernel at the SSL step's two
+shapes (16 x 6 heads at N = 257 and 64 x 6 at N = 50, d = 64) and at
+kernels 1 and 2's shapes in float32. With the f32 kernel it also times
+mma.sync's TF32 product alone (a kernel of independent m16n8k8 products):
+the rate 3xTF32 divides by three, the SSL shapes again on q/k/v laid out
+head by head (each block's rows one contiguous run, as a block that packed
+an image's heads would read them) and on rows off 16 bytes (its 4-byte
+loads), and 8 x 6 heads at N = 1025. Variants
 that skip work give wrong outputs: they are timings, not kernels. Each
 round times every variant once, in order; CUDA-event means over `--reps`
 launches. Prints the card, ptxas's spills per variant, and one JSON line
@@ -32,7 +40,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[2]
 CSRC = ROOT / "pope_tpu_torch" / "csrc"
-SOURCES = {"short": CSRC / "attention_short.cu", "long": CSRC / "attention_long.cu"}
+SOURCES = {"short": CSRC / "attention_short.cu", "long": CSRC / "attention_long.cu",
+           "f32": CSRC / "attention_f32.cu"}
 OUT = ROOT / "build" / "ablate"
 
 # ---- the short kernel (kernels 1 and 3)
@@ -166,8 +175,80 @@ LONG_VARIANTS = {
         ('    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\\n" ::"n"(LONG_CONSUMER_REGS));\n', ""),
     ],
 }
-VARIANTS = {"short": SHORT_VARIANTS, "long": LONG_VARIANTS}
-ENTRIES = {"short": "pope_attention_short", "long": "pope_attention_long"}
+
+# ---- the f32 kernel (tf32x3: kernels 1, 2 and 3 in float32)
+F32_S = "        mma3(s[nt], qb, qs, lds128(Ks + (nt * 8 + g) * R + ks * 16 + t * 4));"
+F32_PV = "      for (int nt = 0; nt < KS; ++nt) mma3(ot[nt], pb, ps, lds128(Vs + ((j * DP + nt * 8 + g) * 4 + t) * 4));"
+F32_VARIANTS = {
+    "shipped": [],
+    # the products only over 8-key groups holding a live key (a branch each)
+    "skip_empty_key_groups": [
+        (F32_S, F32_S.replace("        mma3(", "        if (nt < (N - k0 + 7) / 8) mma3(")),
+        (F32_PV, F32_PV.replace("mma3(", "if (j < (N - k0 + 7) / 8) mma3(")),
+    ],
+    "no_prefetch": [("  return VEC && DP <= 80;", "  return false;")],
+    # only the first K / V tile is loaded; the others split and store it again
+    "no_tile_loads": [("      if (k0 + TK < N) {  // the next", "      if (false) {  // the next"),
+                      ("      if constexpr (!prefetch<DP, VEC>()) {", "      if constexpr (false) {")],
+    # no products (and so no fragment loads): staging, softmax, stores
+    "no_products": [("  mma_tf32(c, a_small, b.x, b.y);\n  mma_tf32(c, a_big, b.z, b.w);\n"
+                     "  mma_tf32(c, a_big, b.x, b.y);\n", "")],
+    "one_tf32_product": [("  mma_tf32(c, a_small, b.x, b.y);\n  mma_tf32(c, a_big, b.z, b.w);\n", "")],
+    "rounding_by_integer_ops": [('  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(x));',
+                                 "  r = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;")],
+    # 64 query rows a block at every N (shipped: 128 from 1024 keys on at
+    # d_pad <= 80, each K / V tile loaded and split once for twice the
+    # queries), and 128 at every N
+    "query_tile_64": [("constexpr int LONG_N = 1024;", "constexpr int LONG_N = 1 << 30;")],
+    "query_tile_128": [("constexpr int LONG_N = 1024;", "constexpr int LONG_N = 0;")],
+}
+VARIANTS = {"short": SHORT_VARIANTS, "long": LONG_VARIANTS, "f32": F32_VARIANTS}
+ENTRIES = {"short": "pope_attention_short", "long": "pope_attention_long", "f32": "pope_attention_f32"}
+
+# m16n8k8 TF32 products on the tensor cores, ILP independent accumulators a
+# warp, no loads: mma.sync's own rate
+MMA_PROBE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+template <int ILP>
+__global__ void mma_tf32_rate(float* out, int iters) {
+  const uint32_t a[4] = {threadIdx.x, threadIdx.x * 3u, 7u, 9u};
+  float c[ILP][4] = {};
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int j = 0; j < ILP; ++j)
+      asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+                   "{%0,%1,%2,%3};\n"
+                   : "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(i), "r"(j));
+  }
+  float s = 0.f;
+  for (int j = 0; j < ILP; ++j) s += c[j][0] + c[j][1] + c[j][2] + c[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int mma_tf32_probe(float* out, int blocks, int threads, int iters) {
+  mma_tf32_rate<8><<<blocks, threads>>>(out, iters);
+  return cudaGetLastError();
+}
+"""
+
+
+def mma_tf32_tflops(reps: int) -> dict:
+    """mma.sync m16n8k8 TF32 products a second on this card (8 warps of 8
+    independent accumulators on every SM, no loads), in TFLOP/s."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    cu, so = OUT / "mma_tf32_probe.cu", OUT / "mma_tf32_probe.so"
+    cu.write_text(MMA_PROBE)
+    subprocess.run(["/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-shared",
+                    "-Xcompiler", "-fPIC", "-o", str(so), str(cu)], check=True)
+    lib = ctypes.CDLL(str(so))
+    lib.mma_tf32_probe.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, threads, iters = 4 * sms, 256, 4096
+    out = torch.empty(blocks * threads, device="cuda")
+    ms = cuda_ms(lambda: lib.mma_tf32_probe(out.data_ptr(), blocks, threads, iters), reps)
+    flops = blocks * threads // 32 * 8 * iters * 2 * 16 * 8 * 8
+    return {"mma_sync_tf32_tflops": flops / ms / 1e9, "ms": ms}
 
 
 def highest_registers(lib: Path) -> dict:
@@ -237,7 +318,7 @@ def cuda_ms(fn, reps: int) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("short", "long", "all"), default="all")
+    ap.add_argument("--kernel", choices=("short", "long", "f32", "all"), default="all")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
@@ -246,8 +327,10 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(smi, flush=True)
-    kernels = ("short", "long") if args.kernel == "all" else (args.kernel,)
+    kernels = ("short", "long", "f32") if args.kernel == "all" else (args.kernel,)
     libs = build_all(kernels)
+    if "f32" in kernels:
+        print(json.dumps({"mma_probe": mma_tf32_tflops(args.reps), "card": smi}), flush=True)
 
     g = torch.Generator(device="cuda").manual_seed(0)
     bf16, stream = torch.bfloat16, torch.cuda.current_stream().cuda_stream
@@ -291,6 +374,32 @@ def main() -> int:
         out2 = torch.empty(4, 3072, 16 * 80, device="cuda", dtype=bf16)
         shapes["long"] = {"kernel2_ms": relpos("pope_attention_long_relpos", qkv2, rel_h2, rel_w2, out2, 48, 64),
                           "kernel2_no_bias_ms": plain("pope_attention_long", qkv2, out2)}
+
+    if "f32" in kernels:
+        f32 = torch.float32
+        qkv_g = torch.randn(16, 257, 3, 6, 64, device="cuda", generator=g)
+        qkv_l = torch.randn(64, 50, 3, 6, 64, device="cuda", generator=g)
+        out_g, out_l = torch.empty(16, 257, 384, device="cuda"), torch.empty(64, 50, 384, device="cuda")
+        qkv1f = torch.randn(80, 196, 3, 16, 80, device="cuda", generator=g)
+        rel1 = [0.5 * torch.randn(80, 16, 196, 14, device="cuda", generator=g) for _ in "hw"]
+        qkv2f = torch.randn(4, 3072, 3, 16, 80, device="cuda", generator=g)
+        rel2 = [0.5 * torch.randn(4, 16, 3072, n, device="cuda", generator=g) for n in (48, 64)]
+        out1f, out2f = (torch.empty(*x.shape[:2], 16 * 80, device="cuda", dtype=f32) for x in (qkv1f, qkv2f))
+        # rows off 16 bytes (one element into a buffer): the 4-byte load path
+        shifted = torch.randn(qkv_g.numel() + 1, device="cuda", generator=g)[1:].view(qkv_g.shape)
+        qkv_1025 = torch.randn(8, 1025, 3, 6, 64, device="cuda", generator=g)
+        out_1025 = torch.empty(8, 1025, 384, device="cuda")
+        # (B, N, 3, nh, d) views of (3, B, nh, N, d): a head's rows contiguous
+        by_head = [torch.randn(3, x.shape[0], 6, x.shape[1], 64, device="cuda", generator=g).permute(1, 3, 0, 2, 4)
+                   for x in (qkv_g, qkv_l)]
+        shapes["f32"] = {"ssl_n257_ms": plain("pope_attention_f32", qkv_g, out_g),
+                         "ssl_n50_ms": plain("pope_attention_f32", qkv_l, out_l),
+                         "ssl_n257_heads_contiguous_ms": plain("pope_attention_f32", by_head[0], out_g),
+                         "ssl_n50_heads_contiguous_ms": plain("pope_attention_f32", by_head[1], out_l),
+                         "ssl_n257_4byte_loads_ms": plain("pope_attention_f32", shifted, out_g),
+                         "n1025_ms": plain("pope_attention_f32", qkv_1025, out_1025),
+                         "kernel1_f32_ms": relpos("pope_attention_f32_relpos", qkv1f, *rel1, out1f, 14, 14),
+                         "kernel2_f32_ms": relpos("pope_attention_f32_relpos", qkv2f, *rel2, out2f, 48, 64)}
 
     for rnd in range(args.rounds):
         for (kernel, name), lib in libs.items():

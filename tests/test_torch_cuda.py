@@ -25,7 +25,7 @@ from pope_tpu_torch.config import (
 from pope_tpu_torch.models.dinov2 import DinoVisionTransformer
 from pope_tpu_torch.models.matcher import Matcher
 from pope_tpu_torch.models.sam import Sam
-from pope_tpu_torch.ops.cuda_kernels import launch_attention, launch_attention_relpos
+from pope_tpu_torch.ops.cuda_kernels import attention_design, launch_attention, launch_attention_relpos
 from pope_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_plain,
@@ -68,24 +68,43 @@ def card():
     return resolve_device("cuda")  # also turns TF32 off, as the entry points do
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+_RELPOS_CASES = [  # (BW, nh, d, hk, wk), both dtypes; then float32 alone
+    *((dt, *shape) for shape in [(3, 4, 80, 14, 14), (2, 2, 80, 12, 16), (2, 3, 32, 5, 7)]
+      for dt in (torch.float32, torch.bfloat16)),
+    (torch.float32, 1, 2, 80, 48, 64),  # SAM ViT-H's global grid
+    (torch.float32, 2, 3, 20, 5, 7),  # head dims the f32 kernel pads
+    (torch.float32, 2, 2, 48, 14, 14),
+    (torch.float32, 2, 3, 30, 5, 7),  # rows not in whole 16-byte chunks: 4-byte loads
+    (torch.float32, 2, 2, 78, 14, 14),
+    (torch.float32, 2, 1, 126, 5, 7),
+    (torch.float32, 1, 1, 80, 33, 37),  # 128-query blocks, a ragged last one
+]
+
+
 @pytest.mark.parametrize(
-    "BW,nh,d,hk,wk", [(3, 4, 80, 14, 14), (2, 2, 80, 12, 16), (2, 3, 32, 5, 7)]
+    "dtype,BW,nh,d,hk,wk", _RELPOS_CASES,
+    ids=[f"{BW}-{nh}-{d}-{hk}-{wk}-{'f32' if dt == torch.float32 else 'bf16'}"
+         for dt, BW, nh, d, hk, wk in _RELPOS_CASES],
 )
 def test_kernels_match_plain(card, dtype, BW, nh, d, hk, wk):
+    """Both rel-pos wrappers, one launch each through the design the shape
+    picks: float32 always through tf32x3 (csrc/attention_f32.cu)."""
     g = torch.Generator(device=card).manual_seed(0)
     N = hk * wk
     qkv = torch.randn(BW, N, 3 * nh * d, device=card, generator=g).to(dtype)
     rel_h = (0.5 * torch.randn(BW, nh, N, hk, device=card, generator=g)).to(dtype)
     rel_w = (0.5 * torch.randn(BW, nh, N, wk, device=card, generator=g)).to(dtype)
-    n_win, n_flash = windowed_attention_relpos.launches, flash_attention_relpos.launches
+    design = attention_design(dtype, N, d, hk, wk)
+    assert design == "tf32x3" or dtype == torch.bfloat16
+    before = dict(windowed_attention_relpos.launches_by_design)
     out = windowed_attention_relpos(qkv, rel_h, rel_w, nh, d, hk, wk)
     assert_matches_plain(out, windowed_attention_relpos_plain(qkv, rel_h, rel_w, nh, d, hk, wk))
+    assert_one_launch_of(windowed_attention_relpos, before, design)
     q, k, v = qkv.view(BW, N, 3, nh, d).unbind(2)
+    before = dict(flash_attention_relpos.launches_by_design)
     out = flash_attention_relpos(q, k, v, rel_h, rel_w, hk, wk)
     assert_matches_plain(out, flash_attention_relpos_plain(q, k, v, rel_h, rel_w, hk, wk))
-    assert windowed_attention_relpos.launches == n_win + 1
-    assert flash_attention_relpos.launches == n_flash + 1
+    assert_one_launch_of(flash_attention_relpos, before, design)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(card):
@@ -128,21 +147,106 @@ def test_small_sam_on_card_matches_cpu(card):
 
 @pytest.mark.parametrize(
     "dtype,B,N,nh,d",
-    [(torch.bfloat16, 260, 197, 6, 64), (torch.float32, 4, 197, 6, 64), (torch.bfloat16, 3, 50, 2, 32)],
-    ids=["bf16-retrieval", "f32", "bf16-small"],
+    [(torch.bfloat16, 260, 197, 6, 64), (torch.float32, 4, 197, 6, 64), (torch.bfloat16, 3, 50, 2, 32),
+     (torch.float32, 16, 257, 6, 64), (torch.float32, 64, 50, 6, 64), (torch.float32, 2, 37, 3, 20),
+     (torch.float32, 2, 70, 2, 48), (torch.float32, 2, 37, 3, 30), (torch.float32, 2, 37, 2, 78),
+     (torch.float32, 2, 37, 2, 126), (torch.float32, 1, 1100, 2, 80)],
+    ids=["bf16-retrieval", "f32", "bf16-small", "f32-ssl-global", "f32-ssl-local", "f32-d20", "f32-d48",
+         "f32-d30", "f32-d78", "f32-d126", "f32-n1100-d80"],
 )
 def test_flash_attention_matches_plain(card, dtype, B, N, nh, d):
     """Bias-free attention on (B, N, nh, d) views of a (B, N, 3, nh, d) qkv
     tensor, as DINOv2 hands them over; first row: the retrieval forward's
-    shape (4 pairs x 65 crops, 197 tokens, 6 heads of 64)."""
+    shape (4 pairs x 65 crops, 197 tokens, 6 heads of 64); the SSL step's
+    two f32 shapes (16 global crops of 257 tokens, 64 local ones of 50).
+    float32 runs the tf32x3 kernel (csrc/attention_f32.cu): head dims not
+    in whole 16-byte chunks through its 4-byte loads (d 30, 78, 126), 1100
+    tokens at d 80 through its 128-query blocks."""
     g = torch.Generator(device=card).manual_seed(1)
     qkv = torch.randn(B, N, 3, nh, d, device=card, generator=g).to(dtype)
     q, k, v = qkv.unbind(2)
-    before = flash_attention.launches
+    design = attention_design(dtype, N, d)
+    assert design == "tf32x3" or dtype == torch.bfloat16
+    before = dict(flash_attention.launches_by_design)
     out = flash_attention(q, k, v)
     assert out.shape == (B, N, nh * d) and out.dtype == dtype
     assert_matches_plain(out, flash_attention_plain(q, k, v))
-    assert flash_attention.launches == before + 1
+    assert_one_launch_of(flash_attention, before, design)
+
+
+def test_tf32x3_kernel_raises_on_what_it_does_not_take(card):
+    """Asked for the tf32x3 kernel, bf16 operands and f32 head dims past 128
+    raise. Nothing launches, nothing falls back to the streaming kernel or
+    the plain version."""
+    counters = (flash_attention, flash_attention_relpos, windowed_attention_relpos)
+    before = [dict(f.launches_by_design) for f in counters]
+    qkv = torch.randn(2, 50, 3, 2, 64, device=card)
+    q, k, v = qkv.unbind(2)
+    with pytest.raises(ValueError, match="tf32x3 kernel does not take"):
+        launch_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), "tf32x3")
+    wide = torch.randn(2, 50, 3, 2, 160, device=card)
+    with pytest.raises(ValueError, match="head dim 160 > 128"):
+        launch_attention(*wide.unbind(2), "tf32x3")
+    with pytest.raises(ValueError, match="head dim 160 > 128"):
+        flash_attention(*wide.unbind(2))
+    assert [dict(f.launches_by_design) for f in counters] == before
+
+
+def test_tf32x3_reads_rows_not_on_16_bytes(card):
+    """float32 views whose rows do not start on 16 bytes (one element into a
+    buffer; rows of 776 bytes) go through the tf32x3 kernel's 4-byte loads,
+    one launch each, and match the plain versions."""
+    g = torch.Generator(device=card).manual_seed(3)
+    flat = torch.randn(2 * 49 * 3 * 2 * 64 + 1, device=card, generator=g)
+    q, k, v = flat[1:].view(2, 49, 3, 2, 64).unbind(2)  # 4 bytes past 16
+    before = dict(flash_attention.launches_by_design)
+    assert_matches_plain(flash_attention(q, k, v), flash_attention_plain(q, k, v))
+    assert_one_launch_of(flash_attention, before, "tf32x3")
+    rel_h, rel_w = (0.5 * torch.randn(2, 2, 49, 7, device=card, generator=g) for _ in range(2))
+    before = dict(flash_attention_relpos.launches_by_design)
+    out = flash_attention_relpos(q, k, v, rel_h, rel_w, 7, 7)
+    assert_matches_plain(out, flash_attention_relpos_plain(q, k, v, rel_h, rel_w, 7, 7))
+    assert_one_launch_of(flash_attention_relpos, before, "tf32x3")
+    qkv = flat[1:].view(2, 49, 3 * 2 * 64)
+    before = dict(windowed_attention_relpos.launches_by_design)
+    out = windowed_attention_relpos(qkv, rel_h, rel_w, 2, 64, 7, 7)
+    assert_matches_plain(out, windowed_attention_relpos_plain(qkv, rel_h, rel_w, 2, 64, 7, 7))
+    assert_one_launch_of(windowed_attention_relpos, before, "tf32x3")
+    wide = torch.randn(2, 16, 3 * 2 * 32 + 2, device=card, generator=g)  # every other row off 16 bytes
+    q, k, v = (wide.as_strided((2, 16, 2, 32), wide.stride()[:2] + (32, 1), i * 64) for i in range(3))
+    before = dict(flash_attention.launches_by_design)
+    assert_matches_plain(flash_attention(q, k, v), flash_attention_plain(q, k, v))
+    assert_one_launch_of(flash_attention, before, "tf32x3")
+
+
+def test_f32_max_grid_is_the_launchers_fit(card):
+    """F32_MAX_GRID is what csrc/attention_f32.cu's launcher stages at its
+    widest head dim (128): a 1 x 473 grid launches tf32x3 there and matches
+    the plain version, and the launcher itself takes hk + wk = 474 and
+    refuses 475 (cudaErrorInvalidValue), so routing and launcher cannot
+    drift apart. Past it (at d 64) the streaming kernel runs, one launch, a
+    match."""
+    from pope_tpu_torch.ops.cuda_kernels import F32_MAX_GRID, _views, library
+
+    g = torch.Generator(device=card).manual_seed(4)
+    for d, wk, design in ((128, F32_MAX_GRID - 1, "tf32x3"), (64, F32_MAX_GRID, "stream")):
+        q, k, v = torch.randn(1, wk, 3, 1, d, device=card, generator=g).unbind(2)
+        rel_h, rel_w = (0.5 * torch.randn(1, 1, wk, n, device=card, generator=g) for n in (1, wk))
+        assert attention_design(torch.float32, wk, d, 1, wk) == design
+        before = dict(flash_attention_relpos.launches_by_design)
+        out = flash_attention_relpos(q, k, v, rel_h, rel_w, 1, wk)
+        assert_matches_plain(out, flash_attention_relpos_plain(q, k, v, rel_h, rel_w, 1, wk))
+        assert_one_launch_of(flash_attention_relpos, before, design)
+    q, k, v = torch.randn(1, F32_MAX_GRID, 3, 1, 128, device=card, generator=g).unbind(2)
+    out = torch.empty(1, F32_MAX_GRID, 128, device=card)
+    ptrs, strides = _views(q, k, v)
+    stream = torch.cuda.current_stream(card).cuda_stream
+    for wk, want in ((F32_MAX_GRID - 1, 0), (F32_MAX_GRID, 1)):  # cudaSuccess, cudaErrorInvalidValue
+        rel_h, rel_w = torch.zeros(1, 1, wk, 1, device=card), torch.zeros(1, 1, wk, wk, device=card)
+        err = library().pope_attention_f32_relpos(*ptrs, rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(),
+                                                  *strides, 1, wk, 1, 128, 1, wk, 128 ** -0.5, stream)
+        torch.cuda.synchronize()
+        assert err == want
 
 
 def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(card):
@@ -769,7 +873,7 @@ def test_ssl_step_launches_kernel_3_36_times(card):
     """One SSL step of ViT-S/14 (12 blocks, f32): kernel 3 launches 36 times,
     12 each for the teacher's global crops, the student's global crops (17
     tokens) and the student's local crops (5 tokens), all through the f32
-    stream design."""
+    tf32x3 design."""
     import chip_smoke
     from pope_tpu_torch.train.ssl import SSLConfig, SSLMetaArch
 
@@ -778,12 +882,12 @@ def test_ssl_step_launches_kernel_3_36_times(card):
     arch = SSLMetaArch(cfg, DinoV2Config(drop_path_rate=0.3))
     state = arch.init_state(0, card)
     batch = chip_smoke.ssl_batch(cfg, 2, card, seed=0)
-    before, stream = flash_attention.launches, flash_attention.launches_by_design["stream"]
+    before, tf32x3 = flash_attention.launches, flash_attention.launches_by_design["tf32x3"]
     by_tokens = dict(flash_attention.launches_by_tokens)
     state, metrics = arch.train_step(state, batch)
     torch.cuda.synchronize()
     assert flash_attention.launches - before == 36
-    assert flash_attention.launches_by_design["stream"] - stream == 36
+    assert flash_attention.launches_by_design["tf32x3"] - tf32x3 == 36
     grown = {n: c - by_tokens.get(n, 0) for n, c in flash_attention.launches_by_tokens.items()}
     assert {n: c for n, c in grown.items() if c} == {17: 24, 5: 12}
     assert torch.isfinite(metrics["total_loss"])

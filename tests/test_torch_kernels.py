@@ -188,15 +188,27 @@ def test_window_and_flash_plain_agree_in_f32():
         (torch.bfloat16, 600, 64, 1, 600, "stream"),  # rel rows wider than the long kernel stages
         (torch.bfloat16, 196, 48, 14, 14, "stream"),  # a head dim without a tensor-core instantiation
         (torch.bfloat16, 3072, 48, 48, 64, "stream"),
-        (torch.float32, 196, 80, 14, 14, "stream"),
-        (torch.float32, 3072, 80, 48, 64, "stream"),
+        (torch.float32, 196, 80, 14, 14, "tf32x3"),  # SAM's windows in f32
+        (torch.float32, 3072, 80, 48, 64, "tf32x3"),  # SAM's global layers in f32
+        (torch.float32, 257, 64, 0, 0, "tf32x3"),  # the SSL step's global crops
+        (torch.float32, 50, 64, 0, 0, "tf32x3"),  # and its local crops
+        (torch.float32, 4096, 80, 64, 64, "tf32x3"),  # SAM's square grid in f32
+        (torch.float32, 100, 20, 0, 0, "tf32x3"),  # head dims padded to an instantiation
+        (torch.float32, 196, 48, 14, 14, "tf32x3"),
+        (torch.float32, 100, 128, 0, 0, "tf32x3"),
+        (torch.float32, 600, 64, 1, 600, "stream"),  # rel rows wider than the f32 kernel stages
+        (torch.float32, 100, 160, 0, 0, "stream"),  # d > 128
+        (torch.float32, 100, 30, 0, 0, "tf32x3"),  # rows not in whole 16-byte chunks: 4-byte loads
+        (torch.float32, 473, 128, 1, 473, "tf32x3"),  # the widest grid the f32 kernel stages
+        (torch.float32, 474, 128, 1, 474, "stream"),
     ],
 )
 def test_attention_design_by_shape(dtype, N, d, hk, wk, design):
     """The shape alone picks the kernel: bf16, N <= 256, d in (32, 64, 80)
     and a bias grid of hk + wk <= 32 take the short kernel; the other bf16
-    shapes of those head dims with grids of hk + wk <= 500 the long one; the
-    rest, float32 included, the streaming one."""
+    shapes of those head dims with grids of hk + wk <= 500 the long one;
+    float32 with d <= 128 and a bias grid of hk + wk <= 474 the
+    tf32x3 one (3xTF32 on the tensor cores); the rest the streaming one."""
     assert attention_design(dtype, N, d, hk, wk) == design
 
 
