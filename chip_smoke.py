@@ -91,7 +91,28 @@ Phases, each of which raises on failure (exit code != 0):
      BENCH_REPS windows of 4 batches prints its JSON line (bench.py's keys,
      MFU against the H100's bf16 peak, the card's name and power limit).
      The image reader in use is in the eval_phase line.
- 11. matcher training (run_train_phase): a small matcher's two train steps
+ 11. int8 and the rest of the slice (run_quant_phase), with the eval
+     driver's bench models: the int8 encoder's four dense shapes at the
+     bench batch (qkv, proj, mlp_lin1, mlp_lin2: M = 15680 tokens of 80
+     windows) on the card against the CPU (x8, x_scale and the int32
+     product bit for bit, the bf16 output within one bf16 step), each
+     step's ms (quantize, weight quantize, int8 product, epilogue, the whole
+     dense) beside bf16 F.linear and the product's bound at 1979 TOP/s;
+     SAM ViT-H with SamEncoderConfig(quantize='int8') over 4 frames of
+     640x480 beside the bf16 encoder (one forward each with the counts set
+     to 0 just before and read just after: 28 + 4 launches and 128 int8
+     products; ms in turns, peak memory, a profile, the int8 output's
+     cosine and relative error against bf16); evaluate_dataset over 2
+     batches with the bf16 SAM and its int8 twin (pairs/s, launches and int8
+     products per batch, the share of equal ok / pre_bbox); depth-2
+     encoders at ViT-H widths on the card against the CPU (int8 in f32 and
+     bf16, and the bias-free bf16 encoder, use_rel_pos=False, whose kernel-3
+     launches at d 80 go through the short and the long design); kernel 3
+     at (80, 196, 16, 80) and (4, 3072, 16, 80) against its plain version,
+     SDPA and the bound; Vim-small in bf16 at B = 8 (ms, card vs CPU at
+     depth 2); `cli parse-lm` on a two-frame CDPN object with --device
+     cuda and cpu (equal crops, intrinsics within 1e-6);
+ 12. matcher training (run_train_phase): a small matcher's two train steps
      on the card against the CPU from the same weights and batch; then
      MatcherConfig() in f32 at B=4 on 480x640 planar pairs of known depth
      and pose, 2 warm-up and 10 timed steps on one batch (ms per step split
@@ -103,7 +124,7 @@ Phases, each of which raises on failure (exit code != 0):
      top-k checkpoints, then --resume to 3 epochs); the counts set to 0 just
      before the steps and the CLI runs and read just after: none of the
      three kernels launches.
- 12. export (run_export_phase): the four serving programs at full width,
+ 13. export (run_export_phase): the four serving programs at full width,
      each exported with torch.export, saved under build/export/, loaded
      with load_exported and run against the eager module on the same
      inputs: the SAM ViT-H prompt head at 480x640 with 8 slots (all four
@@ -114,7 +135,7 @@ Phases, each of which raises on failure (exit code != 0):
      peak memory eager and exported; the exported matcher within
      EXPORT_PEAK_MARGIN of the eager peak and 2x its time (its convs stay
      outside cuDNN in the program);
- 13. pose regressor (run_regressor_phase): a small 'mkpts+vim' step on the
+ 14. pose regressor (run_regressor_phase): a small 'mkpts+vim' step on the
      card against the CPU; RegressorConfig() at B=8 in three modes
      ('mkpts', 'mkpts+imgs' with ConvNeXtV2-large, 'mkpts+vim' with the
      frozen Vim-small and the transformer fusion), 2 warm-up and 10 timed
@@ -124,7 +145,7 @@ Phases, each of which raises on failure (exit code != 0):
      3, f32: all tf32x3); `cli extract` on 4 of the bench's pairs (28 + 4 + 24 launches a
      pair; seeded weights write none), then `cli train-regressor` (2
      epochs) and `cli test-regressor` over synthetic dumps of known poses.
- 14. SSL (run_ssl_phase), at `cli train-ssl`'s defaults (ViT-S/14 in f32,
+ 15. SSL (run_ssl_phase), at `cli train-ssl`'s defaults (ViT-S/14 in f32,
      batch 8, 2 x 224 + 8 x 98 crops, 65,536 prototypes, bf16 head MLP,
      drop path 0.3): kernel 3 at the step's two f32 shapes, (16, 257, 6,
      64) and (64, 50, 6, 64), through the tf32x3 design, held against its
@@ -141,13 +162,13 @@ Phases, each of which raises on failure (exit code != 0):
      train-ssl` for 4 steps on 24 synthetic images, unbroken and killed at
      step 3 then resumed from its step-2 checkpoint (all tf32x3), ending in
      the unbroken run's state;
- 15. novel views (run_nvs_phase): a small NeRF on the card against the CPU
+ 16. novel views (run_nvs_phase): a small NeRF on the card against the CPU
      with the same draws; `cli render-novel-view` at NerfConfig() on a
      sphere sequence of six 120x160 views (500 steps on five, view 3 held
      out; PSNR above the mean-colour image's, SSIM, LPIPS from seeded
      parameters written as the released files), ms per train step (one
      profiled) and per view, and no kernel launches.
- 16. parallel (run_parallel_phase, right after the eval driver, whose bench
+ 17. parallel (run_parallel_phase, right after the eval driver, whose bench
      models it takes over): two ranks on the one card (parallel.spawn; both
      on cuda:0, so the backend is gloo and every collective is staged
      through pinned host memory). eval at dp 1 in this process and at
@@ -178,7 +199,8 @@ step and feature batch and on the novel-view path, its times and bound, and
 the same at the square grid for kernels 1 and 2, in float32 for kernels 1
 and 2, at the crop grid for kernel 2 and at N = 1025 and the SSL step's two
 shapes for kernel 3, and each dp
-rank's launches per eval batch), the
+rank's launches per eval batch; the int8 encoder's and the int8 eval's
+launches and kernel 3 at d 80), the
 nvidia-smi line and {"ok": true, "device": {...}}. A copy of the results, the full profiles
 included, goes to build/chip_smoke.json (gitignored).
 """
@@ -1969,6 +1991,411 @@ def run_eval_phase(counters, per_batch_counts):
     return row, models
 
 
+# the int8 encoder's four dense shapes at the bench batch (4 frames of
+# 640x480, rect 48x64: 80 windows of 196 tokens in a windowed block):
+# (name, M, K, N, the input's dtype). mlp_lin1 quantizes the f32 LayerNorm
+# output; the others the bf16 activations
+QUANT_SHAPES = (("qkv", 15680, 1280, 3840, "bfloat16"),
+                ("proj", 15680, 1280, 1280, "bfloat16"),
+                ("mlp_lin1", 15680, 1280, 5120, "float32"),
+                ("mlp_lin2", 15680, 5120, 1280, "bfloat16"))
+INT8_OP_PER_S = 1979e12  # H100 SXM dense int8 tensor cores
+INT8_PRODUCTS_PER_FORWARD = 128  # 4 a block x SAM ViT-H's 32 blocks
+QUANT_EVAL_BATCHES = 2  # batches of EVAL_PAIRS_PER_BATCH in the int8 and bf16 eval runs
+QUANT_REPS = 5  # timed encoder forwards of each kind
+# card vs CPU, the int8 encoder at ViT-H widths, depth 2: relative L2 of the
+# output, tests/test_torch_quant.py's whole-encoder limits (the port against
+# pope_tpu): an attention or LayerNorm that rounds differently flips an
+# int8 level of the entries within that rounding of a round-half point, and
+# each flip moves its product by a step
+TOL_QUANT_CARD_CPU = {"float32": 1.2e-2, "bfloat16": 3e-2}
+# card vs CPU, the bias-free bf16 encoder at depth 2: relative L2 of the
+# O(1) neck output; the kernels round the softmax weights to bf16 for the
+# p . v product where the plain version keeps them f32, and every bf16
+# activation carries a 2^-9 rounding (test_torch_encoder.py's bf16 mean limit
+# is 1.5% of values in [1, 2))
+TOL_NOREL_BF16_REL = 1.5e-2
+VIM_B = 8  # RegressorConfig().batch_size
+VIM_CPU_DEPTH = 2  # Vim-small's blocks in the card-vs-CPU check (the CPU's chunked scan is slow)
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in bf16 steps between two bf16 tensors (their bit
+    patterns mapped onto one ordered integer line)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def quant_op_rows() -> list:
+    """Each dense shape of the int8 encoder on the card against the port's
+    CPU path: x8, x_scale and the int32 product bit for bit (the CPU's
+    `_int_mm` is exact: tests/test_torch_quant.py holds it to the int64
+    product), the bf16 output within 1 bf16 step; the ms of the quantize
+    step, the weight's quantization, the int8 product, the epilogue and the
+    whole dense, beside bf16 `F.linear` at the shape and the product's
+    bound."""
+    from pope_tpu_torch.ops.quant import dense_w8a8, int8_matmul, quantize_rows, quantize_weight_cols, rescale_int32
+
+    F = torch.nn.functional
+    dev, bf16 = DEV, torch.bfloat16
+    rows = []
+    for i, (name, M, K, N, x_dtype) in enumerate(QUANT_SHAPES):
+        g = torch.Generator(device=dev).manual_seed(100 + i)
+        x = torch.randn(M, K, device=dev, generator=g).to(getattr(torch, x_dtype))
+        w = torch.randn(N, K, device=dev, generator=g) / K ** 0.5
+        b = 0.1 * torch.randn(N, device=dev, generator=g)
+        x8, xs = quantize_rows(x)
+        w8, ws = quantize_weight_cols(w)
+        y = int8_matmul(x8, w8)
+        out = rescale_int32(y, xs, ws, b, bf16)
+        torch.cuda.synchronize()
+        x8_c, xs_c = quantize_rows(x.cpu())
+        w8_c, ws_c = quantize_weight_cols(w.cpu())
+        y_c = int8_matmul(x8_c, w8_c)
+        out_c = rescale_int32(y_c, xs_c, ws_c, b.cpu(), bf16)
+        row = {
+            "name": name, "M": M, "K": K, "N": N, "x_dtype": x_dtype, "out_dtype": "bfloat16",
+            "x8_equal": torch.equal(x8.cpu(), x8_c), "x_scale_equal": torch.equal(xs.cpu(), xs_c),
+            "w8_equal": torch.equal(w8.cpu(), w8_c), "w_scale_equal": torch.equal(ws.cpu(), ws_c),
+            "int32_equal": torch.equal(y.cpu(), y_c), "out_max_bf16_steps": bf16_ulps(out.cpu(), out_c),
+            "out_equal_share": (out.cpu() == out_c).float().mean().item(),
+        }
+        xb, wb, bb = x.to(bf16), w.to(bf16), b.to(bf16)
+        row.update({
+            "quantize_ms": cuda_ms(lambda: quantize_rows(x), 10),
+            "weight_quantize_ms": cuda_ms(lambda: quantize_weight_cols(w), 10),
+            "product_ms": cuda_ms(lambda: int8_matmul(x8, w8), 10),
+            "epilogue_ms": cuda_ms(lambda: rescale_int32(y, xs, ws, b, bf16), 10),
+            "dense_ms": cuda_ms(lambda: dense_w8a8(x, w8, ws, b, bf16), 10),
+            "bf16_linear_ms": cuda_ms(lambda: F.linear(xb, wb, bb), 10),
+        })
+        ops = 2.0 * M * K * N
+        row["product_bound_ms"], row["product_bound_by"] = bound(M * K + N * K + 4 * M * N, ops, INT8_OP_PER_S)
+        row["dense_bound_ms"], row["dense_bound_by"] = bound(
+            x.element_size() * M * K + N * K + 4 * N + 2 * M * N, ops, INT8_OP_PER_S)
+        row["bf16_linear_bound_ms"], _ = bound(2 * (M * K + N * K + N + M * N), ops)
+        print(json.dumps({"quant_op": row}), flush=True)
+        bad = [k for k in ("x8_equal", "x_scale_equal", "w8_equal", "w_scale_equal", "int32_equal") if not row[k]]
+        if bad or row["out_max_bf16_steps"] > 1:
+            raise AssertionError(f"int8 dense {name}: card vs CPU {bad}, output {row['out_max_bf16_steps']} bf16 steps")
+        rows.append(row)
+        del x, w, x8, w8, y, out, xb, wb
+        torch.cuda.empty_cache()
+    return rows
+
+
+def int8_twin(sam, seed: int = 0):
+    """The bench SAM's int8 twin: SamEncoderConfig(quantize='int8') with the
+    same seeded f32 weights as load_models draws (seed 0), kept f32 (the
+    int8 path quantizes from them), on the card. Its bf16-cast weights must
+    be the bench SAM's bf16 storage."""
+    from pope_tpu_torch.models.sam import Sam
+    from pope_tpu_torch.pipeline.api import init_sam_weights
+    from pope_tpu_torch.utils.bf16_storage import cast_sam_storage
+
+    cfg = dataclasses.replace(sam.config, encoder=dataclasses.replace(sam.config.encoder, quantize="int8"))
+    with torch.device(DEV):
+        sam8 = Sam(cfg)
+    init_sam_weights(sam8, torch.Generator(device=DEV).manual_seed(seed))
+    cast_sam_storage(sam8, cfg.encoder)  # leaves a quantized encoder f32
+    enc, enc8 = sam.image_encoder, sam8.image_encoder
+    if enc8.block_0.qkv.weight.dtype != torch.float32 or not torch.equal(
+            enc8.block_31.mlp_lin2.weight.to(torch.bfloat16), enc.block_31.mlp_lin2.weight):
+        raise AssertionError("int8 twin: weights are not the bench SAM's f32 masters")
+    return sam8.eval()
+
+
+def sam_encoder_input(sam, imgs):
+    """(B, 480, 640, 3) uint8 -> the rect 768x1024 encoder input the AMG
+    driver feeds (48x64 tokens)."""
+    from pope_tpu_torch.models.sam.sam import rect_frame
+    from pope_tpu_torch.ops.resize import resize_bilinear_antialias
+
+    hw = (768, 1024)
+    return sam.preprocess(resize_bilinear_antialias(imgs.float(), hw), hw, rect_frame(hw, 16))
+
+
+def quant_encoder_row(counters, sam, sam8) -> dict:
+    """SAM ViT-H over 4 frames, bf16 against int8: launches of one forward
+    each (the counts set to 0 just before and read just after), ms per
+    forward in turns (bf16, int8, int8, bf16), peak memory, a profile of the
+    int8 forward, and the int8 output's per-position cosine and relative
+    error against the bf16 output (reported: the weights are seeded)."""
+    from pope_tpu_torch.ops.quant import dense_w8a8
+
+    pre = sam_encoder_input(sam, torch.from_numpy(frames(3)).to(DEV))
+    row = {"frames": list(pre.shape)}
+    with torch.no_grad():
+        outs = {}
+        for key, model in (("bf16", sam), ("int8", sam8)):
+            dense_w8a8.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            outs[key], ms, launches, by_design = counted_run(counters, lambda: model.encode_image(pre))
+            row[key] = {"launches": launches, "by_design": by_design, "int8_products": dense_w8a8.launches,
+                        "first_ms": ms, "peak_transient_bytes": torch.cuda.max_memory_allocated() - base}
+        want = {"windowed_attention_relpos": 28, "flash_attention_relpos": 4, "flash_attention": 0}
+        for key, products in (("bf16", 0), ("int8", INT8_PRODUCTS_PER_FORWARD)):
+            if row[key]["launches"] != want or row[key]["int8_products"] != products:
+                raise AssertionError(f"{key} encoder: launches {row[key]['launches']}, int8 products "
+                                     f"{row[key]['int8_products']}; want {want} and {products}")
+        turns = [cuda_ms(lambda m=m: m.encode_image(pre), QUANT_REPS, warmup=1) for m in (sam, sam8, sam8, sam)]
+        row["bf16"]["ms"], row["int8"]["ms"] = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        row["turns_ms"] = turns
+        row["int8"]["profile"] = profile_call(lambda: sam8.encode_image(pre), row["int8"]["ms"])
+        a, b = outs["bf16"].double().flatten(0, 2), outs["int8"].double().flatten(0, 2)
+        cos = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1)).clamp_min(1e-12)
+        row["int8_vs_bf16"] = {"cos_min": cos.min().item(), "cos_mean": cos.mean().item(),
+                               "rel_l2": ((a - b).norm() / a.norm()).item()}
+        if not (torch.isfinite(outs["int8"]).all() and outs["int8"].shape == outs["bf16"].shape):
+            raise AssertionError("int8 encoder: non-finite or misshapen output")
+    return row
+
+
+def quant_eval_rows(counters, models, models8) -> dict:
+    """evaluate_dataset over QUANT_EVAL_BATCHES batches of make_dataset's
+    pairs with the bf16 SAM and with its int8 twin, each run warmed and then
+    counted (the counts set to 0 just before and read just after): pairs/s,
+    launches (28, 4, 12 a batch; the int8 run 128 int8 products a batch),
+    records whole and finite, and the share of records whose ok and
+    pre_bbox equal the bf16 run's."""
+    from pope_tpu_torch import bench
+    from pope_tpu_torch.eval import evaluate_dataset
+    from pope_tpu_torch.ops.quant import dense_w8a8
+    from pope_tpu_torch.pipeline import runner
+
+    B, n = EVAL_PAIRS_PER_BATCH, EVAL_PAIRS_PER_BATCH * QUANT_EVAL_BATCHES
+    finish, records = runner.finish_pairs, []
+
+    def recording_finish(pending):
+        recs = finish(pending)
+        records.extend(recs)
+        return recs
+
+    out = {}
+    runner.finish_pairs = recording_finish
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            data_root, pairs_dir = bench.make_dataset(tmp, n_pairs=n)
+            for key, m in (("bf16", models), ("int8", models8)):
+                run = lambda m=m: evaluate_dataset(m, "linemod", data_root, pairs_dir, batch_size=B, max_pairs=n,
+                                                   progress=False)
+                run()
+                records.clear()
+                dense_w8a8.launches = 0
+                _, ms, launches, _ = counted_run(counters, run)
+                out[key] = {"ms": ms, "pairs_per_s": n / ms * 1e3, "launches": launches,
+                            "int8_products": dense_w8a8.launches, "records": list(records)}
+    finally:
+        runner.finish_pairs = finish
+    for key, products in (("bf16", 0), ("int8", INT8_PRODUCTS_PER_FORWARD)):
+        recs, nb = out[key].pop("records"), QUANT_EVAL_BATCHES
+        want = {"windowed_attention_relpos": 28 * nb, "flash_attention_relpos": 4 * nb, "flash_attention": 12 * nb}
+        if out[key]["launches"] != want or out[key]["int8_products"] != products * nb:
+            raise AssertionError(f"{key} eval: launches {out[key]['launches']}, int8 products "
+                                 f"{out[key]['int8_products']}; want {want} and {products * nb}")
+        if len(recs) != n or len({r["identifier"] for r in recs}) != n or any(
+                r["ok"] and not (np.isfinite(r["R"]).all() and np.isfinite(r["t"]).all()) for r in recs):
+            raise AssertionError(f"{key} eval: {len(recs)} records for {n} pairs, or non-finite R/t where solved")
+        out[key]["ok"] = [bool(r["ok"]) for r in recs]
+        out[key]["pre_bbox"] = [np.asarray(r["pre_bbox"]).tolist() for r in recs]
+        out[key]["by_identifier"] = {r["identifier"]: r for r in recs}
+    same = [out["bf16"]["by_identifier"][i]["ok"] == r["ok"]
+            and np.array_equal(out["bf16"]["by_identifier"][i]["pre_bbox"], r["pre_bbox"])
+            for i, r in out["int8"]["by_identifier"].items()]
+    for key in out:
+        del out[key]["by_identifier"]
+    out["same_ok_and_pre_bbox_share"] = sum(same) / len(same)
+    return out
+
+
+def small_encoder(dtype: str, **enc) -> "torch.nn.Module":
+    """SAM's encoder at ViT-H widths and depth 2 (one windowed block, one
+    global), seeded weights, on the CPU."""
+    from pope_tpu_torch.config import SamConfig, SamEncoderConfig
+    from pope_tpu_torch.models.sam import Sam
+    from pope_tpu_torch.pipeline.api import init_sam_weights
+
+    cfg = SamConfig(encoder=SamEncoderConfig(depth=2, global_attn_indexes=(1,), dtype=dtype,
+                                             gelu="erf" if dtype == "float32" else "tanh", **enc))
+    sam = Sam(cfg)
+    init_sam_weights(sam, torch.Generator().manual_seed(7))
+    return sam.image_encoder.eval()
+
+
+def quant_card_vs_cpu(counters) -> dict:
+    """Depth-2 encoders at ViT-H widths on one 768x1024 frame (a windowed
+    block of 20 windows, a global block of 3072 tokens), on the card and on
+    the CPU (the plain versions; `_int_mm` on both): int8 in f32 and bf16,
+    and the bias-free bf16 encoder (use_rel_pos=False), whose two kernel-3
+    launches at d 80 go through the short and the long design."""
+    from pope_tpu_torch.ops.quant import dense_w8a8
+
+    x = torch.from_numpy(np.random.default_rng(8).uniform(-2, 2, (1, 768, 1024, 3)).astype(np.float32))
+    out = {}
+    for key, dtype, enc, tol in (("int8_f32", "float32", {"quantize": "int8"}, TOL_QUANT_CARD_CPU["float32"]),
+                                 ("int8_bf16", "bfloat16", {"quantize": "int8"}, TOL_QUANT_CARD_CPU["bfloat16"]),
+                                 ("no_rel_pos_bf16", "bfloat16", {"use_rel_pos": False}, TOL_NOREL_BF16_REL)):
+        cpu = small_encoder(dtype, **enc)
+        gpu = copy.deepcopy(cpu).to(DEV)
+        with torch.no_grad():
+            ref = cpu(x)
+            dense_w8a8.launches = 0
+            got, _, launches, by_design = counted_run(counters, lambda: gpu(x.to(DEV)))
+        rel = ((got.cpu() - ref).norm() / ref.norm()).item()
+        out[key] = {"rel_l2": rel, "max_abs_err": (got.cpu() - ref).abs().max().item(), "tol_rel_l2": tol,
+                    "launches": launches, "by_design": by_design, "int8_products": dense_w8a8.launches}
+        if not rel <= tol:
+            raise AssertionError(f"{key} encoder, card vs CPU: rel L2 {rel} > {tol}")
+    want_norel = {"flash_attention": designs(short=1, long=1)}
+    if out["no_rel_pos_bf16"]["by_design"]["flash_attention"] != want_norel["flash_attention"] or any(
+            out["no_rel_pos_bf16"]["launches"][k] for k in ("windowed_attention_relpos", "flash_attention_relpos")):
+        raise AssertionError(f"bias-free encoder: launches {out['no_rel_pos_bf16']['by_design']}, want kernel 3 "
+                             "once through each of the short and the long design, no other kernel")
+    for key in ("int8_f32", "int8_bf16"):
+        if out[key]["int8_products"] != 8:
+            raise AssertionError(f"{key}: {out[key]['int8_products']} int8 products, want 8")
+    return out
+
+
+def d80_kernel_rows(ex2_rate) -> dict:
+    """Kernel 3 at SAM's widths (16 heads, d 80), the bias-free encoder's two
+    shapes: 80 windows of 196 tokens (the short design) and 4 frames of
+    3072 (the long one), against the plain version, SDPA and the bound."""
+    from pope_tpu_torch.ops.cuda_kernels import attention_design
+    from pope_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    F = torch.nn.functional
+    g = torch.Generator(device=DEV).manual_seed(9)
+    rows = {}
+    for key, B, N, source, reps in (("n196", 80, 196, SHORT_SOURCE, 20), ("n3072", 4, 3072, LONG_SOURCE, 10)):
+        nh, d = SAM_H_HEADS, SAM_H_HEAD_DIM
+        qkv = torch.randn(B, N, 3, nh, d, device=DEV, generator=g).to(torch.bfloat16)
+        qn, kn, vn = qkv.unbind(2)
+        q, k, v = (t.transpose(1, 2) for t in (qn, kn, vn))
+        rows[key] = kernel_phase(
+            "flash_attention", "pope_tpu/ops/flash_attention.py:114", source, flash_attention, flash_attention_plain,
+            lambda: F.scaled_dot_product_attention(q, k, v), (qn, kn, vn), reps=reps,
+            nbytes=2 * (qkv.numel() + B * N * nh * d), flops=4.0 * B * nh * N * N * d, exps=B * nh * N * N,
+            ex2_rate=ex2_rate)
+        rows[key]["design"] = attention_design(torch.bfloat16, N, d)
+        if rows[key]["design"] != ("short" if N <= 256 else "long"):
+            raise AssertionError(f"kernel 3 at N = {N}, d 80 takes the {rows[key]['design']} design")
+        del qkv, q, k, v
+    return rows
+
+
+def vim_bf16_row() -> dict:
+    """Vim-small in bf16 (the dtype MkptsRegModel passes it) at B = 8 on
+    224 crops: forward ms beside the f32 Vim's on the same weights (in
+    turns) and peak memory; then card against the CPU at
+    Vim-small widths and VIM_CPU_DEPTH blocks, within test_torch_vim_bf16's
+    limits (bf16 features of O(1))."""
+    from pope_tpu_torch.models.regressor.vim import VimConfig, VisionMamba
+
+    x = torch.from_numpy(np.random.default_rng(10).uniform(0, 1, (VIM_B, 224, 224, 3)).astype(np.float32))
+    torch.manual_seed(11)
+    with torch.device(DEV):
+        vim = VisionMamba(VimConfig(embed_dim=384, depth=24, num_classes=0, dtype="bfloat16")).eval()
+        vim32 = VisionMamba(VimConfig(embed_dim=384, depth=24, num_classes=0)).eval()
+    vim32.load_state_dict(vim.state_dict())
+    xd = x.to(DEV)
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        feat = vim(xd)
+        row = {"B": VIM_B, "peak_bytes": torch.cuda.max_memory_allocated(), "dtype": str(feat.dtype)}
+        turns = [cuda_ms(lambda m=m: m(xd), 2, warmup=1) for m in (vim32, vim, vim, vim32)]
+        row.update({"forward_ms": (turns[1] + turns[2]) / 2, "f32_forward_ms": (turns[0] + turns[3]) / 2,
+                    "turns_ms": turns})
+        del vim32
+        if feat.dtype != torch.bfloat16 or feat.shape != (VIM_B, 384) or not torch.isfinite(feat).all():
+            raise AssertionError(f"Vim-small bf16: {feat.dtype} {tuple(feat.shape)} or non-finite features")
+        torch.manual_seed(12)
+        cpu = VisionMamba(VimConfig(embed_dim=384, depth=VIM_CPU_DEPTH, num_classes=0, dtype="bfloat16")).eval()
+        gpu = copy.deepcopy(cpu).to(DEV)
+        err = (gpu(xd).float().cpu() - cpu(x).float()).abs()
+    row["card_vs_cpu"] = {"depth": VIM_CPU_DEPTH, "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
+                          "tol": [0.06, 0.01]}
+    if not (err.max() < 0.06 and err.mean() < 0.01):
+        raise AssertionError(f"Vim bf16 card vs CPU: {row['card_vs_cpu']}")
+    return row
+
+
+def parse_lm_row(tmp: Path) -> dict:
+    """`cli parse-lm` on a two-frame CDPN-format object (the fixture of
+    tests/test_manifest_cli.py) with --device cuda and --device cpu: the
+    256x256 crops and their intrinsics against the CPU run's."""
+    import cv2
+
+    from pope_tpu_torch.cli import main as cli_main
+
+    base = tmp / "cdpn"
+    seq = base / "real_train" / "ape"
+    seq.mkdir(parents=True)
+    (base / "models").mkdir()
+    (base / "models" / "models_info.txt").write_text(
+        "1 diameter 102.099 min_x -37.93 min_y -38.79 min_z -45.88 size_x 75.86 size_y 77.59 size_z 91.76\n")
+    rng = np.random.default_rng(3)
+    pose = np.hstack([np.eye(3), np.array([[0.0], [0.0], [0.6]])])
+    for i in (0, 1):
+        cv2.imwrite(str(seq / f"{i}-color.png"), rng.uniform(0, 255, (480, 640, 3)).astype(np.uint8))
+        np.savetxt(str(seq / f"{i}-pose.txt"), pose)
+        np.savetxt(str(seq / f"{i}-box.txt"), np.array([200, 150, 120, 100]))
+    t0 = time.perf_counter()
+    for out, dev in (("card", DEV), ("cpu", "cpu")):
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli_main(["parse-lm", "--data-base-dir", str(base), "--output-dir", str(tmp / out), "--obj-id", "1",
+                      "--splits", "train", "--device", dev])
+    row = {"s": time.perf_counter() - t0, "crop_differing_bytes": 0, "crop_max_abs_diff": 0, "K_max_rel_diff": 0.0}
+    sd = Path("0801-lm1-others") / "lm1-1"
+    for i in (0, 1):
+        a, b = (cv2.imread(str(tmp / out / sd / "color" / f"{i}.png")) for out in ("card", "cpu"))
+        if a.shape != (256, 256, 3) or b.shape != a.shape:
+            raise AssertionError(f"parse-lm crops {a.shape} {b.shape}")
+        diff = np.abs(a.astype(int) - b.astype(int))
+        row["crop_differing_bytes"] += int((diff > 0).sum())
+        row["crop_max_abs_diff"] = max(row["crop_max_abs_diff"], int(diff.max()))
+        Ka, Kb = (np.loadtxt(str(tmp / out / sd / "intrin_ba" / f"{i}.txt")) for out in ("card", "cpu"))
+        row["K_max_rel_diff"] = max(row["K_max_rel_diff"], float(np.abs(Ka - Kb).max() / np.abs(Kb).max()))
+    if row["crop_differing_bytes"] or row["K_max_rel_diff"] > 1e-6:
+        raise AssertionError(f"parse-lm on the card vs the CPU: {row}")
+    return row
+
+
+def run_quant_phase(counters, models) -> dict:
+    """The int8 SAM encoder (w8a8, SamEncoderConfig(quantize='int8')) and
+    the rest of this slice on the card, with the eval phase's bench models:
+    quant_op_rows, quant_encoder_row, quant_eval_rows (the int8 main path),
+    quant_card_vs_cpu, kernel 3 at d 80 (d80_kernel_rows), Vim-small in
+    bf16 (vim_bf16_row) and `cli parse-lm` (parse_lm_row). Returns the row;
+    any check that fails raises."""
+    from pope_tpu_torch.models.sam import AutomaticMaskGenerator
+
+    t0 = time.perf_counter()
+    row = {"ops": quant_op_rows()}
+    sam8 = int8_twin(models.sam)
+    models8 = dataclasses.replace(models, sam=sam8, amg=AutomaticMaskGenerator(sam8, models.config.amg, device=DEV))
+    row["encoder"] = quant_encoder_row(counters, models.sam, sam8)
+    print(json.dumps({"quant_encoder": row["encoder"]}), flush=True)
+    row["eval"] = quant_eval_rows(counters, models, models8)
+    print(json.dumps({"quant_eval": row["eval"]}), flush=True)
+    del models8, sam8
+    torch.cuda.empty_cache()
+    row["card_vs_cpu"] = quant_card_vs_cpu(counters)
+    print(json.dumps({"quant_card_vs_cpu": row["card_vs_cpu"]}), flush=True)
+    row["d80"] = d80_kernel_rows(ex2_per_s())
+    row["vim_bf16"] = vim_bf16_row()
+    print(json.dumps({"vim_bf16": row["vim_bf16"]}), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        row["parse_lm"] = parse_lm_row(Path(tmp))
+    print(json.dumps({"parse_lm": row["parse_lm"]}), flush=True)
+    row["s"] = time.perf_counter() - t0
+    print(json.dumps({"quant_phase_s": row["s"]}), flush=True)
+    return row
+
+
 EXPORT_ORIG_HW = (480, 640)  # cli export's default frame
 EXPORT_POINTS = 8  # the prompt heads' slots (cli export's --num-points)
 EXPORT_REPS = 5  # timed calls of each program, eager and exported
@@ -3710,6 +4137,7 @@ def main() -> int:
     del models
     torch.cuda.empty_cache()
     eval_phase, *held = run_eval_phase(counters, launches)
+    quant = run_quant_phase(counters, held[0])
     parallel = run_parallel_phase(counters, launches, held)
     train = run_train_phase(counters)
     export_phase = run_export_phase(counters)
@@ -3743,6 +4171,10 @@ def main() -> int:
         entry["ssl_launches"] = {"train_step": ssl["launches_per_step"][name],
                                  "extract_cls_features_batch": ssl["eval"]["launches_per_batch"][name]}
         entry["nvs_launches"] = nvs["launches"][name]
+        entry["int8_launches"] = {
+            "encoder_forward": quant["encoder"]["int8"]["launches"][name],
+            "eval_per_batch": quant["eval"]["int8"]["launches"][name] // QUANT_EVAL_BATCHES,
+            "no_rel_pos_depth2_forward": quant["card_vs_cpu"]["no_rel_pos_bf16"]["launches"][name]}
         entry["dp2_eval_launches_per_batch_per_rank"] = [
             [b[name] for b in rank] for rank in parallel["eval"]["launches_per_batch_per_rank"]]
         if name == "flash_attention":  # the SSL step's f32 shapes, the tf32x3 design
@@ -3753,6 +4185,10 @@ def main() -> int:
         f32 = kernels.get(f"{name}_f32")
         if f32 is not None:  # kernels 1 and 2 in float32 (the f32 SAM configs), the tf32x3 design
             entry["f32"] = {k: f32[k] for k in timing + ("previous_ms", "design", "source")}
+        if name == "flash_attention":  # SAM's widths, d 80: the bias-free encoder's two shapes
+            for key in ("n196", "n3072"):
+                r = quant["d80"][key]
+                entry[f"d80_{key}"] = {k: r[k] for k in timing} | {"source": r["source"], "design": r["design"]}
         long_n = kernels.get(f"{name}_n1025")
         if long_n is not None:  # demo-dinov2's 1025 tokens through the long design, B=1
             entry["n1025"] = {k: long_n[k] for k in timing} | {
@@ -3767,6 +4203,7 @@ def main() -> int:
         "stage2_reference": reference2, "solver": solver, "main_path": main_path, "serve": serve,
         "records": records,
         "eval": eval_phase,
+        "quant": quant,
         "train": train,
         "export": export_phase,
         "regressor": regressor,

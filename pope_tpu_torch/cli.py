@@ -1,5 +1,5 @@
-"""Command-line entry points of the port (pope_tpu/cli.py's counterpart; the
-other subcommands come with their slices).
+"""Command-line entry points of the port (pope_tpu/cli.py's counterpart:
+every one of its subcommands).
 
 Usage:
   python -m pope_tpu_torch.cli eval --dataset linemod --data-root data --pairs-dir data/pairs
@@ -17,6 +17,7 @@ Usage:
   python -m pope_tpu_torch.cli test-regressor --dataset linemod --points-dir dumps --ckpt ckpt/step_100.pt
   python -m pope_tpu_torch.cli train-ssl --image-root images/ --ckpt-dir ckpt
   python -m pope_tpu_torch.cli render-novel-view --seq-root data/lm/ape/seq --out-dir renders
+  python -m pope_tpu_torch.cli parse-lm --data-base-dir lm_cdpn --output-dir data/lm
 
 Runs on the CUDA card unless `--device cpu` is given; without a GPU the
 default raises.
@@ -134,6 +135,19 @@ def cmd_amg(args):
 DEMO_K0 = ((2442.28864, 0.0, 449.114027), (0.0, 2447.23383, -110.724309), (0.0, 0.0, 1.0))
 DEMO_K1 = ((572.4114, 0.0, 325.2611), (0.0, 573.57043, 242.04899), (0.0, 0.0, 1.0))
 DEMO_EXTENTS = (0.03793430, 0.03879960, 0.04588450)
+
+
+def cmd_parse_lm(args):
+    """parse_lm_real_data.py / scripts/parse_linemod_objs.sh: convert
+    CDPN-format LINEMOD to the OnePose directory layout."""
+    from pope_tpu_torch.eval.parse_lm import convert_all, convert_object
+
+    if args.obj_id is not None:
+        for split in args.splits:
+            convert_object(args.data_base_dir, args.obj_id, args.output_dir, split=split, device=args.device)
+    else:
+        convert_all(args.data_base_dir, args.output_dir, splits=tuple(args.splits), device=args.device)
+    print(f"converted -> {args.output_dir}")
 
 
 def cmd_demo_3dbbox(args):
@@ -343,6 +357,14 @@ def build_parser() -> argparse.ArgumentParser:
     pa.add_argument("--crop-nms-thresh", type=float, default=None)
     _add_model_args(pa)
     pa.set_defaults(fn=cmd_amg)
+
+    pl = sub.add_parser("parse-lm", help="convert CDPN-format LINEMOD to the OnePose layout")
+    pl.add_argument("--data-base-dir", required=True)
+    pl.add_argument("--output-dir", required=True)
+    pl.add_argument("--obj-id", type=int, default=None, help="single object id (default: all)")
+    pl.add_argument("--splits", nargs="+", default=["train", "val"])
+    pl.add_argument("--device", default=None, help="torch device, default cuda")
+    pl.set_defaults(fn=cmd_parse_lm)
 
     pb = sub.add_parser("demo-3dbbox", help="single-pair pipeline + 3-D bbox render")
     pb.add_argument("--prompt", required=True, help="prompt image path")

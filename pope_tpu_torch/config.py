@@ -124,8 +124,8 @@ class SamEncoderConfig:
     use_flash_attention: bool = True
     fused_window_attention: bool = True
     dtype: str = "bfloat16"
-    # 'int8': the JAX package's experimental w8a8 encoder path; the port has
-    # none yet and raises NotImplementedError.
+    # 'int8': the experimental w8a8 encoder path (ops/quant.py::QuantDense on
+    # every block's qkv / proj / MLP; no accuracy gate), as in the JAX package.
     quantize: str = "none"
     # gelu flavor for the MLP halves: the reference uses exact erf gelu
     # (image_encoder.py's nn.GELU default); 'tanh' ships as the default, next

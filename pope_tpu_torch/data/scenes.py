@@ -1,7 +1,8 @@
 """Multi-scene training data: scene datasets, concatenation, per-rank splits
-and scene-balanced sampling (a copy of the matcher-training part of
-pope_tpu/data/scenes.py, which the port does not import: the same numpy
-draws, so the same index order).
+and scene-balanced sampling, and the object-centric pair datasets (CO3D,
+Objaverse renders) with mask2bbox (a copy of pope_tpu/data/scenes.py,
+which the port does not import: the same numpy and `random` draws, so the
+same index order and pairs).
 
 Reference behavior: src/datasets/scannet.py (npz-index pair dataset with
 poses/intrinsics), src/datasets/megadepth.py (per-scene npz with depth),
@@ -220,3 +221,205 @@ class MegaDepthPairDataset:
             out["mask0"] = mask0[::s, ::s]
             out["mask1"] = mask1[::s, ::s]
         return out
+
+
+def mask2bbox(mask: np.ndarray) -> np.ndarray:
+    """xywh bbox of a binary mask; zeros when empty (co3d.py:23-31)."""
+    if np.sum(mask) == 0:
+        return np.asarray([0, 0, 0, 0], np.float32)
+    ys, xs = np.nonzero(mask)
+    return np.asarray(
+        [xs.min(), ys.min(), xs.max() - xs.min(), ys.max() - ys.min()], np.int32
+    )
+
+
+class Co3DResizeDataset:
+    """A resized-CO3D sequence database (src/datasets/co3d.py:33-67):
+    `<root>/<category>/<sequence>/info.pkl` holds (Ks, poses, img_ids,
+    ratios); frames live in images/<id>.jpg with masks/<id>.png. Also acts
+    as a pair dataset: __getitem__(i) pairs consecutive frames (the
+    reference only exposes the per-frame database; the pair view makes the
+    sequence usable by the LoFTR trainer directly)."""
+
+    def __init__(self, seq_root: str):
+        import os.path as osp
+        import pickle
+
+        self.root = seq_root
+        with open(osp.join(seq_root, "info.pkl"), "rb") as f:
+            self.Ks, self.poses, self.img_ids, self.ratios = pickle.load(f)
+
+    # -- database surface (co3d.py:50-67) --
+    def get_image(self, img_id):
+        import cv2
+        import os.path as osp
+
+        im = cv2.imread(osp.join(self.root, "images", f"{img_id}.jpg"))
+        return cv2.cvtColor(im, cv2.COLOR_BGR2RGB)
+
+    def get_mask(self, img_id):
+        import cv2
+        import os.path as osp
+
+        return cv2.imread(
+            osp.join(self.root, "masks", f"{img_id}.png"), cv2.IMREAD_GRAYSCALE
+        ) > 0
+
+    def get_K(self, img_id):
+        return np.asarray(self.Ks[img_id], np.float32).copy()
+
+    def get_pose(self, img_id):
+        return np.asarray(self.poses[img_id], np.float32).copy()
+
+    def get_img_ids(self):
+        return self.img_ids
+
+    def get_bbox(self, img_id):
+        return mask2bbox(self.get_mask(img_id))
+
+    # -- pair-dataset surface --
+    def __len__(self):
+        return max(len(self.img_ids) - 1, 0)
+
+    def __getitem__(self, idx):
+        i0, i1 = self.img_ids[idx], self.img_ids[idx + 1]
+        g0 = self.get_image(i0).astype(np.float32).mean(-1) / 255.0
+        g1 = self.get_image(i1).astype(np.float32).mean(-1) / 255.0
+        P0 = np.vstack([self.get_pose(i0), [0, 0, 0, 1]]) if self.get_pose(i0).shape[0] == 3 else self.get_pose(i0)
+        P1 = np.vstack([self.get_pose(i1), [0, 0, 0, 1]]) if self.get_pose(i1).shape[0] == 3 else self.get_pose(i1)
+        T_0to1 = (P1 @ np.linalg.inv(P0)).astype(np.float32)
+        return {
+            "image0": g0[None], "image1": g1[None],
+            "T_0to1": T_0to1,
+            "T_1to0": np.linalg.inv(T_0to1).astype(np.float32),
+            "K0": self.get_K(i0), "K1": self.get_K(i1),
+            "bbox0": self.get_bbox(i0), "bbox1": self.get_bbox(i1),
+            "pair_name": f"{i0}_{i1}",
+        }
+
+
+class ObjaverseV2PairDataset:
+    """In-memory rendered-views pair dataset (src/datasets/objaversev2.py:
+    38-146): a pickled dict {class: {view_id: {'image', 'pose'}}}; each
+    __getitem__ draws a random 2-view pair of one class, converts frames to
+    grayscale, and returns the relative pose — both as the 4x4 matrix (our
+    trainer's convention) and as the reference's (t, quaternion) 7-vector
+    output (`rel_tq`, objaversev2.py:118-124)."""
+
+    INTRINSIC = np.array([[1120.0, 0, 256], [0, 840, 256], [0, 0, 1]], np.float32)
+
+    def __init__(self, root_dir: str, npz_path: str, mode: str = "train", seed: int = 0):
+        import os.path as osp
+
+        self.data = np.load(osp.join(root_dir, npz_path), allow_pickle=True).item()
+        self.values = list(self.data.values())
+        self.rng = random.Random(seed)
+
+    def __len__(self):
+        return len(self.values)
+
+    @staticmethod
+    def _to_44(pose):
+        pose = np.asarray(pose, np.float64)
+        return np.vstack([pose, [0, 0, 0, 1]]) if pose.shape[0] == 3 else pose
+
+    @staticmethod
+    def _quat_from_R(R):
+        """(x, y, z, w) quaternion, scipy convention (objaversev2.py:122)."""
+        import torch
+
+        from pope_tpu_torch.geometry.pose import matrix_to_quat
+
+        w, x, y, z = matrix_to_quat(torch.as_tensor(np.asarray(R, np.float32))).numpy()
+        return np.array([x, y, z, w], np.float32)
+
+    @staticmethod
+    def _gray(img):
+        img = np.asarray(img)
+        if img.ndim == 3:
+            img = img.astype(np.float32).mean(-1)
+        return img[None].astype(np.float32) / 255.0
+
+    def __getitem__(self, idx):
+        views = self.values[idx]
+        item0, item1 = self.rng.sample(list(views.values()), 2)
+        T_0to1 = (
+            self._to_44(item1["pose"]) @ np.linalg.inv(self._to_44(item0["pose"]))
+        ).astype(np.float32)
+        rel_tq = np.concatenate(
+            [T_0to1[:3, 3], self._quat_from_R(T_0to1[:3, :3])]
+        ).astype(np.float32)
+        return {
+            "image0": self._gray(item0["image"]),
+            "image1": self._gray(item1["image"]),
+            "T_0to1": T_0to1,
+            "T_1to0": np.linalg.inv(T_0to1).astype(np.float32),
+            "rel_tq": rel_tq,
+            "K0": self.INTRINSIC, "K1": self.INTRINSIC,
+            "pair_id": idx,
+        }
+
+
+class RenderedViewsPairDataset:
+    """Object-centric rendered-views pair sampler (the Objaverse-style
+    trainer data source).
+
+    Reference behavior: src/datasets/objaverse.py:26-119 — a class list file
+    names per-object directories of `n_views` rendered frames
+    ('000.png'..'010.png') with matching '000.npy' pose files; __getitem__
+    rejection-samples a view pair until its relative-rotation magnitude
+    falls under a rotation bin drawn from {30,30,30,60,60,90} degrees
+    (:93-95), and returns grayscale frames + the relative pose + the fixed
+    render intrinsics (:47).
+    """
+
+    INTRINSIC = np.array([[1120.0, 0, 256], [0, 840, 256], [0, 0, 1]], np.float32)
+    ANGULAR_BINS = (30, 30, 30, 60, 60, 90)
+
+    def __init__(self, root_dir: str, class_file: str, n_views: int = 11, seed: int = 0, max_tries: int = 64):
+        import os.path as osp
+
+        self.root = root_dir
+        self.classes = [c for c in np.loadtxt(class_file, dtype=str).reshape(-1)]
+        self.n_views = n_views
+        self.rng = random.Random(seed)
+        self.max_tries = max_tries
+
+    def __len__(self):
+        return len(self.classes)
+
+    def __getitem__(self, idx):
+        import os.path as osp
+
+        import torch
+
+        from pope_tpu_torch.data.readers import read_scannet_grayv2
+        from pope_tpu_torch.geometry.pose import rotation_angle_deg
+
+        d = osp.join(self.root, str(self.classes[idx]))
+        for _ in range(self.max_tries):
+            i0, i1 = self.rng.sample(range(self.n_views), 2)
+            p0 = osp.join(d, f"{i0:03d}.png")
+            p1 = osp.join(d, f"{i1:03d}.png")
+            if not (osp.exists(p0) and osp.exists(p1)):
+                continue
+            pose0 = np.load(osp.join(d, f"{i0:03d}.npy"))
+            pose1 = np.load(osp.join(d, f"{i1:03d}.npy"))
+            if pose0.shape[0] == 3:
+                pose0 = np.vstack([pose0, [0, 0, 0, 1]])
+            if pose1.shape[0] == 3:
+                pose1 = np.vstack([pose1, [0, 0, 0, 1]])
+            T_0to1 = pose1 @ np.linalg.inv(pose0)
+            r_err = float(rotation_angle_deg(torch.eye(3), torch.as_tensor(T_0to1[:3, :3], dtype=torch.float32)))
+            bin_deg = self.rng.choice(self.ANGULAR_BINS)
+            if r_err <= bin_deg:
+                return {
+                    "image0": read_scannet_grayv2(p0),
+                    "image1": read_scannet_grayv2(p1),
+                    "T_0to1": T_0to1.astype(np.float32),
+                    "T_1to0": np.linalg.inv(T_0to1).astype(np.float32),
+                    "K0": self.INTRINSIC,
+                    "K1": self.INTRINSIC,
+                    "pair_name": f"{self.classes[idx]}/{i0:03d}_{i1:03d}",
+                }
+        raise RuntimeError(f"no pair within rotation bins for {d}")

@@ -1,12 +1,15 @@
 """Crop geometry, epipolar geometry and pose algebra (port of
-pope_tpu/geometry: the parts the retrieve -> match -> solve stage and the
-matcher's validation and the regressor use)."""
+pope_tpu/geometry)."""
 
 from pope_tpu_torch.geometry.affine import (
+    clamped_scale_box,
+    compact_box,
     crop_resize_bilinear,
     get_affine_transform,
+    get_affine_transform_np,
     get_image_crop_resize,
     get_K_crop_resize,
+    warp_affine,
 )
 from pope_tpu_torch.geometry.epipolar import (
     compute_symmetric_epipolar_errors,

@@ -27,6 +27,14 @@ from pope_tpu_torch.utils.metrics import aggregate_metrics_mean
 METRICS = ("R:ACC15", "R:ACC30", "R:auc@30", "R:medianErr", "R:meanErr")
 
 
+def load_ckpt(path: str, like):
+    """Restore the checkpoint directory `path` (utils/checkpoint.py's format,
+    as train_main writes it) into `like`, a RegressorTrainState of the same
+    architecture, in place; returns it. pope_tpu restores an orbax
+    checkpoint here."""
+    return load_checkpoint(path, like)
+
+
 def _on(batch, dev):
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
@@ -69,7 +77,7 @@ def test_main(args):
     _, val = train_val_split(data, seed=cfg.seed)
     with torch.device(dev):
         state = create_train_state(MkptsRegModel(cfg), cfg)
-    load_checkpoint(args.ckpt, state)
+    load_ckpt(args.ckpt, state)
     R_errs, t_errs = [], []
     for batch in make_batches(val, cfg.num_sample, cfg.batch_size, seed=cfg.seed, shuffle=False):
         out = eval_step(state, _on(batch, dev))

@@ -16,6 +16,11 @@ nothing overflows; the chunks' end states are then carried across the
 chunks in a short loop, and each position adds exp(S_t) times the state its
 chunk starts from. A loop over the 197 steps would be thousands of small
 launches a forward.
+
+`VimConfig.dtype` is the compute dtype, as in the JAX package: the patch
+embedding, the denses and the depthwise convs run in it (weights cast at
+use), RMSNorm computes in f32 and returns its input's dtype, the scan takes
+f32 operands and casts its output back; a head runs in f32.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ import dataclasses
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from pope_tpu_torch.models.sam.encoder import conv_nhwc, dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,8 +100,9 @@ class MambaMixer(nn.Module):
     backward direction (suffix _b) on the flipped in_proj output."""
 
     def __init__(self, d_model: int, d_state: int = 16, expand: int = 2, d_conv: int = 4,
-                 bidirectional: bool = True):
+                 bidirectional: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         d_inner = expand * d_model
         self.d_inner, self.d_state, self.d_conv = d_inner, d_state, d_conv
         self.dt_rank = max(d_model // 16, 1)
@@ -109,27 +117,31 @@ class MambaMixer(nn.Module):
             self.register_parameter(f"D{s}", nn.Parameter(torch.ones(d_inner)))
         self.out_proj = nn.Linear(d_inner, d_model, bias=False)
 
-    def _direction(self, xs, s: str):
-        L = xs.shape[1]
-        h = F.silu(getattr(self, f"conv1d{s}")(xs.transpose(1, 2))[..., :L].transpose(1, 2))
-        dt, Bc, Cc = torch.split(getattr(self, f"x_proj{s}")(h), [self.dt_rank, self.d_state, self.d_state], dim=-1)
-        dt = F.softplus(getattr(self, f"dt_proj{s}")(dt))
-        A = -torch.exp(getattr(self, f"A_log{s}"))
-        return selective_scan(h, dt, A, Bc, Cc, getattr(self, f"D{s}")).to(xs.dtype)
+    def _direction(self, xs, s: str, out_dtype):
+        L, dt_ = xs.shape[1], self.dtype
+        conv = getattr(self, f"conv1d{s}")  # causal depthwise: keep the first L of L + d_conv - 1
+        h = F.silu(F.conv1d(xs.transpose(1, 2).to(dt_), conv.weight.to(dt_), conv.bias.to(dt_),
+                            padding=conv.padding, groups=conv.groups)[..., :L].transpose(1, 2))
+        dt, Bc, Cc = torch.split(dense(getattr(self, f"x_proj{s}"), h, dt_),
+                                 [self.dt_rank, self.d_state, self.d_state], dim=-1)
+        dt = F.softplus(dense(getattr(self, f"dt_proj{s}"), dt, dt_))
+        A = -torch.exp(getattr(self, f"A_log{s}").float())
+        return selective_scan(h, dt, A, Bc, Cc, getattr(self, f"D{s}")).to(out_dtype)
 
     def forward(self, x):
-        xs, z = self.in_proj(x).chunk(2, dim=-1)
-        y = self._direction(xs, "")
+        xs, z = dense(self.in_proj, x, self.dtype).chunk(2, dim=-1)
+        y = self._direction(xs, "", x.dtype)
         if self.bidirectional:
-            y = y + self._direction(xs.flip(1), "_b").flip(1)
-        return self.out_proj(y * F.silu(z))
+            y = y + self._direction(xs.flip(1), "_b", x.dtype).flip(1)
+        return dense(self.out_proj, y * F.silu(z), self.dtype)
 
 
 class VimBlock(nn.Module):
-    def __init__(self, d_model: int, d_state: int, expand: int, d_conv: int, bidirectional: bool):
+    def __init__(self, d_model: int, d_state: int, expand: int, d_conv: int, bidirectional: bool,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm = RMSNorm(d_model)
-        self.mixer = MambaMixer(d_model, d_state, expand, d_conv, bidirectional)
+        self.mixer = MambaMixer(d_model, d_state, expand, d_conv, bidirectional, dtype)
 
     def forward(self, x):
         return x + self.mixer(self.norm(x))
@@ -142,15 +154,15 @@ class VisionMamba(nn.Module):
     def __init__(self, config: VimConfig = VimConfig()):
         super().__init__()
         cfg = self.config = config
-        if cfg.dtype != "float32":
-            raise NotImplementedError(f"Vim in {cfg.dtype}: the port runs it in float32, as the regressor does")
+        self.dtype = getattr(torch, cfg.dtype)
         D, p = cfg.embed_dim, cfg.patch_size
         n = (cfg.img_size // p) ** 2 + 1
         self.patch_embed = nn.Conv2d(3, D, p, stride=p)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, D))
         self.pos_embed = nn.Parameter(torch.zeros(1, n, D))
         for i in range(cfg.depth):
-            self.add_module(f"block_{i}", VimBlock(D, cfg.d_state, cfg.expand, cfg.d_conv, cfg.bidirectional))
+            self.add_module(f"block_{i}", VimBlock(D, cfg.d_state, cfg.expand, cfg.d_conv, cfg.bidirectional,
+                                                   self.dtype))
         self.norm_f = RMSNorm(D)
         self.head = nn.Linear(D, cfg.num_classes) if cfg.num_classes else None
         nn.init.normal_(self.cls_token, std=0.02)
@@ -159,11 +171,19 @@ class VisionMamba(nn.Module):
     def forward(self, x):
         cfg = self.config
         B = x.shape[0]
-        x = self.patch_embed(x.float().permute(0, 3, 1, 2)).flatten(2).transpose(1, 2)
+        x = conv_nhwc(self.patch_embed, x, self.dtype).flatten(1, 2)
         mid = x.shape[1] // 2
         x = torch.cat([x[:, :mid], self.cls_token.to(x.dtype).expand(B, 1, -1), x[:, mid:]], dim=1)
         x = x + self.pos_embed.to(x.dtype)
         for i in range(cfg.depth):
             x = getattr(self, f"block_{i}")(x)
         feat = self.norm_f(x)[:, mid]
-        return self.head(feat) if self.head is not None else feat
+        return dense(self.head, feat, torch.float32) if self.head is not None else feat
+
+
+def vim_tiny(**kw):
+    return VisionMamba(VimConfig(embed_dim=192, depth=24, **kw))
+
+
+def vim_small(**kw):
+    return VisionMamba(VimConfig(embed_dim=384, depth=24, **kw))

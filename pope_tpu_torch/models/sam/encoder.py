@@ -7,6 +7,15 @@ compute dtype before the window partition, the output is f32. Windowed
 layers call the windowed-attention kernel on the un-reshaped qkv output;
 global layers call the streaming rel-pos kernel on strided q/k/v views. The
 rel-table einsums stay outside both kernels, as in the JAX package.
+
+`quantize='int8'` builds the block's four dense layers as w8a8 `QuantDense`
+(ops/quant.py; experimental, as in pope_tpu: no accuracy gate). They
+quantize what the float layers would cast: qkv and proj the compute-dtype
+activations, mlp_lin1 the f32 LayerNorm output (not cast first), mlp_lin2
+the gelu output; the weights from their f32 master copy. `use_rel_pos=False`
+registers no rel tables, and both windowed and global layers run the
+bias-free attention kernel (ops/flash_attention.py::flash_attention, what
+pope_tpu's `jax.nn.dot_product_attention` computes) on views of qkv.
 """
 
 from __future__ import annotations
@@ -16,7 +25,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from pope_tpu_torch.config import SamEncoderConfig
-from pope_tpu_torch.ops.flash_attention import flash_attention_relpos
+from pope_tpu_torch.ops.flash_attention import flash_attention, flash_attention_relpos
+from pope_tpu_torch.ops.quant import QuantDense, dense_w8a8, make_dense, quantize_weight_cols
 from pope_tpu_torch.ops.window_attention import windowed_attention_relpos
 
 
@@ -42,8 +52,12 @@ def tp_shard(layer: nn.Module):
 
 def dense(layer: nn.Linear, x, dtype):
     """flax nn.Dense(dtype=dtype): inputs, kernel and bias cast to dtype (a
-    tp-sharded layer's output gathered over tp)."""
+    tp-sharded layer's output gathered over tp). A QuantDense quantizes x as
+    it comes and its weight from the stored copy, and returns dtype."""
     tp = tp_shard(layer)
+    if isinstance(layer, QuantDense):
+        w8, w_scale = quantize_weight_cols(layer.weight)
+        return tp.gather(dense_w8a8(tp.enter(x, -1), w8, w_scale, layer.bias, dtype), -1)
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return tp.gather(F.linear(tp.enter(x, -1).to(dtype), layer.weight.to(dtype), bias), -1)
 
@@ -62,7 +76,7 @@ def conv_nhwc(layer: nn.Conv2d, x, dtype):
     bias = None if layer.bias is None else layer.bias.to(dtype)
     y = F.conv2d(
         tp.enter(x.permute(0, 3, 1, 2)).to(dtype), layer.weight.to(dtype), bias,
-        stride=layer.stride, padding=layer.padding,
+        stride=layer.stride, padding=layer.padding, groups=layer.groups,
     )
     return tp.gather(y, 1).permute(0, 2, 3, 1)
 
@@ -108,22 +122,26 @@ def _rel_tables(q, rel_pos_h, rel_pos_w, hw, dtype):
 
 class EncoderBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, window_size: int,
-                 grid: int, dtype: torch.dtype, gelu: str = "erf"):
+                 grid: int, dtype: torch.dtype, gelu: str = "erf", use_rel_pos: bool = True,
+                 quantize: str = "none"):
         super().__init__()
         self.num_heads = num_heads
         self.window_size = window_size  # 0 = global
         self.dtype = dtype
         self.gelu = gelu
+        self.use_rel_pos = use_rel_pos
+        Dense = make_dense(quantize)
         d = dim // num_heads
         side = window_size if window_size > 0 else grid
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.rel_pos_h = nn.Parameter(torch.zeros(2 * side - 1, d))
-        self.rel_pos_w = nn.Parameter(torch.zeros(2 * side - 1, d))
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Dense(dim, 3 * dim)
+        if use_rel_pos:
+            self.rel_pos_h = nn.Parameter(torch.zeros(2 * side - 1, d))
+            self.rel_pos_w = nn.Parameter(torch.zeros(2 * side - 1, d))
+        self.proj = Dense(dim, dim)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp_lin1 = nn.Linear(dim, int(dim * mlp_ratio))
-        self.mlp_lin2 = nn.Linear(int(dim * mlp_ratio), dim)
+        self.mlp_lin1 = Dense(dim, int(dim * mlp_ratio))
+        self.mlp_lin2 = Dense(int(dim * mlp_ratio), dim)
 
     def forward(self, x):
         B, H, W, C = x.shape
@@ -142,17 +160,24 @@ class EncoderBlock(nn.Module):
             hp = hp.reshape(B, Hp // ws, ws, Wp // ws, ws, C).permute(0, 1, 3, 2, 4, 5)
             tokens = hp.reshape(-1, ws * ws, C)
             qkv = dense(self.qkv, tokens, dt)  # (BW, ws*ws, 3C)
-            q = qkv[..., :C].unflatten(-1, (nh, d))
-            rel_h, rel_w = _rel_tables(q, self.rel_pos_h, self.rel_pos_w, (ws, ws), dt)
-            attn = windowed_attention_relpos(qkv, rel_h, rel_w, nh, d, ws, ws)
+            if self.use_rel_pos:
+                q = qkv[..., :C].unflatten(-1, (nh, d))
+                rel_h, rel_w = _rel_tables(q, self.rel_pos_h, self.rel_pos_w, (ws, ws), dt)
+                attn = windowed_attention_relpos(qkv, rel_h, rel_w, nh, d, ws, ws)
+            else:
+                qkv = qkv.view(*tokens.shape[:2], 3, nh, d)
+                attn = flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
             attn = dense(self.proj, attn, dt)
             attn = attn.reshape(B, Hp // ws, Wp // ws, ws, ws, C).permute(0, 1, 3, 2, 4, 5)
             attn_sp = attn.reshape(B, Hp, Wp, C)[:, :H, :W]
         else:
             qkv = dense(self.qkv, h.reshape(B, H * W, C), dt).view(B, H * W, 3, nh, d)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-            rel_h, rel_w = _rel_tables(q, self.rel_pos_h, self.rel_pos_w, (H, W), dt)
-            attn = flash_attention_relpos(q, k, v, rel_h, rel_w, H, W)
+            if self.use_rel_pos:
+                rel_h, rel_w = _rel_tables(q, self.rel_pos_h, self.rel_pos_w, (H, W), dt)
+                attn = flash_attention_relpos(q, k, v, rel_h, rel_w, H, W)
+            else:
+                attn = flash_attention(q, k, v)
             attn_sp = dense(self.proj, attn, dt).reshape(B, H, W, C)
 
         x = shortcut + attn_sp
@@ -173,10 +198,6 @@ class ImageEncoderViT(nn.Module):
     def __init__(self, config: SamEncoderConfig = SamEncoderConfig()):
         super().__init__()
         cfg = config
-        if cfg.quantize != "none":
-            raise NotImplementedError(f"quantize={cfg.quantize!r}: the port has no int8 path yet")
-        if not cfg.use_rel_pos:
-            raise NotImplementedError("the port's encoder implements rel-pos attention only")
         self.config = cfg
         self.dtype = getattr(torch, cfg.dtype)
         grid = cfg.img_size // cfg.patch_size
@@ -188,7 +209,7 @@ class ImageEncoderViT(nn.Module):
             self.add_module(name, EncoderBlock(
                 cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio,
                 0 if i in cfg.global_attn_indexes else cfg.window_size,
-                grid, self.dtype, cfg.gelu,
+                grid, self.dtype, cfg.gelu, cfg.use_rel_pos, cfg.quantize,
             ))
             self.block_names.append(name)
         self.neck_conv1 = nn.Conv2d(cfg.embed_dim, cfg.out_chans, 1, bias=False)

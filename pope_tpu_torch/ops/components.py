@@ -85,6 +85,13 @@ def component_roots(labels, mask, k: int = 64):
     return -torch.sort(neg, dim=-1, descending=True, stable=True).values[..., :k]
 
 
+def component_roots_and_areas(labels, mask, k: int = 64):
+    """The k raster-first roots of labelled (..., H, W) masks and their exact
+    areas ((..., k) int32 each; padding roots hold H*W with area 0)."""
+    roots = component_roots(labels, mask, k)
+    return roots, _membership(labels, roots).sum(dim=-2, dtype=torch.int32)
+
+
 def _membership(labels, roots):
     """(..., H*W, k) bool [label_p == root_k]; padding roots match nothing."""
     big = labels.shape[-2] * labels.shape[-1]

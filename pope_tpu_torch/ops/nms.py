@@ -1,5 +1,5 @@
-"""Greedy box NMS over a precomputed IoU matrix, batched over images
-(port of pope_tpu/ops/nms.py::nms)."""
+"""Greedy box NMS over a precomputed IoU matrix, batched over images, and
+its category-aware form (port of pope_tpu/ops/nms.py)."""
 
 from __future__ import annotations
 
@@ -37,3 +37,12 @@ def nms(boxes, scores, iou_threshold: float, valid=None):
         alive &= ~(take[:, None] & (iou[rows, idx] > iou_threshold))
         alive[rows, idx] |= take
     return (keep & valid).reshape(*lead, N)
+
+
+def batched_nms(boxes, scores, idxs, iou_threshold: float, valid=None):
+    """Category-aware NMS (torchvision batched_nms): boxes (..., N, 4) are
+    offset per category idxs (..., N) so that cross-category pairs never
+    overlap. Returns nms's keep mask."""
+    max_coord = boxes.abs().amax(dim=(-2, -1), keepdim=True) + 1.0
+    offsets = idxs.to(boxes.dtype)[..., None] * (2.0 * max_coord)
+    return nms(boxes + offsets, scores, iou_threshold, valid)

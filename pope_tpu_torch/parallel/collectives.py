@@ -53,6 +53,23 @@ class CommStats:
 STATS = CommStats()
 
 
+def initialize_distributed(device=None, **kwargs):
+    """Bring up torch.distributed through parallel/launch.py::initialize,
+    for the topology resolve_env finds from kwargs (`coordinator`,
+    `num_processes`, `process_id`) or the POPE_* / SLURM environment. A
+    no-op returning None in a single process or when the process group
+    already exists, as pope_tpu's jax.distributed wrapper is; else the
+    Topology."""
+    from pope_tpu_torch.parallel.launch import initialize, resolve_env
+
+    if dist.is_initialized():
+        return None
+    env = resolve_env(**kwargs)
+    if not env.is_multiprocess:
+        return None
+    return initialize(env, device)
+
+
 def get_world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 

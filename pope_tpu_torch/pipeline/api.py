@@ -15,7 +15,6 @@ import dataclasses
 import math
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn as nn
 
@@ -27,6 +26,7 @@ from pope_tpu_torch.models.sam import AutomaticMaskGenerator, Sam, convert_torch
 from pope_tpu_torch.models.sam.decoder import UpConvT
 from pope_tpu_torch.models.sam.encoder import LayerNorm2d
 from pope_tpu_torch.utils.bf16_storage import cast_sam_storage
+from pope_tpu_torch.utils.checkpoint import load_torch_state_dict
 from pope_tpu_torch.utils.device import resolve_device
 from pope_tpu_torch.utils.state_manifest import check_state_dict
 from pope_tpu_torch.weights import dinov2_state_from_jax, matcher_state_from_jax, sam_state_from_jax
@@ -48,15 +48,6 @@ class PopeModels:
     matcher: Optional[Matcher]
     config: PipelineConfig
     device: torch.device
-
-
-def _load_torch_state(path: str):
-    obj = torch.load(path, map_location="cpu", weights_only=False)
-    if isinstance(obj, dict) and "state_dict" in obj:
-        obj = obj["state_dict"]
-    if isinstance(obj, dict) and "model" in obj and isinstance(obj["model"], dict):
-        obj = obj["model"]
-    return {k: v.numpy() if hasattr(v, "numpy") else np.asarray(v) for k, v in obj.items()}
 
 
 def _init_dense_and_norm(mod: nn.Module, g: torch.Generator) -> bool:
@@ -148,7 +139,7 @@ def load_models(
         with torch.device(dev):
             sam = Sam(sam_cfg)
         if sam_checkpoint:
-            sd = _load_torch_state(sam_checkpoint)
+            sd = load_torch_state_dict(sam_checkpoint)
             if validate_checkpoints:
                 check_state_dict(sd, f"sam_vit_{sam_type}")
             tree = convert_torch_sam_state(sd, depth=sam_cfg.encoder.depth)
@@ -161,7 +152,7 @@ def load_models(
         with torch.device(dev):
             dinov2 = DinoVisionTransformer(config.dinov2).eval()
         if dinov2_checkpoint:
-            sd = _load_torch_state(dinov2_checkpoint)
+            sd = load_torch_state_dict(dinov2_checkpoint)
             # only the released flat-key vits14 layout is checked; SSL-style
             # student/teacher- or backbone.-wrapped files go straight to the
             # converter's key normalisation
@@ -178,7 +169,7 @@ def load_models(
         with torch.device(dev):
             matcher = Matcher(config.matcher).eval()
         if matcher_checkpoint:
-            sd = _load_torch_state(matcher_checkpoint)
+            sd = load_torch_state_dict(matcher_checkpoint)
             if validate_checkpoints and config.matcher == MatcherConfig():
                 check_state_dict(sd, "matcher")
             variables = convert_torch_matcher_state(sd)

@@ -249,3 +249,13 @@ class PipelineExecutor:
             one(amg_result.valid), one(ref_cls), noise, one(getattr(amg_result, "n_dropped", None)),
         )
         return PairResult(*(None if x is None else x[0] for x in res))
+
+
+def estimate_pair(models, image0_rgb01, image1_rgb01, K0, K1, amg_result, ref_cls, noise,
+                  crop_size: int = 256) -> PairResult:
+    """Retrieve -> match -> solve for one (prompt, target) pair, given its
+    AMG candidates and the prompt's cls token: PipelineExecutor.estimate_pair
+    at `crop_size`. Where pope_tpu takes a PRNG key, the port takes the
+    solver's noise (n_rounds, n_hyps, M) or a torch.Generator."""
+    return PipelineExecutor(models, crop_size).estimate_pair(
+        image0_rgb01, image1_rgb01, K0, K1, amg_result, ref_cls, noise)

@@ -7,7 +7,7 @@ step, and the multi-scene driver with validation and top-k checkpoints."""
 from pope_tpu_torch.train.supervision import warp_kpts, spvs_coarse, spvs_fine
 from pope_tpu_torch.train.loss import coarse_loss, fine_loss, matcher_loss
 from pope_tpu_torch.train.optim import build_optimizer
-from pope_tpu_torch.train.trainer import matcher_train_step
+from pope_tpu_torch.train.trainer import make_sharded_train_step, matcher_train_step
 from pope_tpu_torch.train.matcher_driver import (
     TopKCheckpointer,
     TrainMatcherConfig,

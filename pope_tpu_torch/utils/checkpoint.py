@@ -1,5 +1,5 @@
-"""Training checkpoints (port of pope_tpu/utils/checkpoint.py's save /
-load / latest; orbax checkpoints are not read).
+"""Training checkpoints and reference weights (port of
+pope_tpu/utils/checkpoint.py; orbax checkpoints are not read).
 
 A checkpoint is a directory holding one `torch.save` file: for matcher
 training the model's state_dict, the optimizer's and the scheduler's state
@@ -14,6 +14,7 @@ import os
 import tempfile
 from typing import Optional
 
+import numpy as np
 import torch
 
 FILE = "checkpoint.pt"
@@ -74,3 +75,15 @@ def latest_checkpoint(ckpt_dir: str, prefix: str = "step_") -> Optional[str]:
     if not steps:
         return None
     return os.path.join(ckpt_dir, max(steps)[1])
+
+
+def load_torch_state_dict(path: str, checkpoint_key: Optional[str] = None) -> dict:
+    """A reference .pth as {name: np.ndarray}, unwrapping the common
+    {checkpoint_key: ...} / {'state_dict': ...} / {'model': ...} layouts.
+    The file is unpickled in full (weights_only=False, as pope_tpu reads
+    it): load only files you trust."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    for key in (checkpoint_key, "state_dict", "model"):
+        if key and isinstance(obj, dict) and key in obj and isinstance(obj[key], dict):
+            obj = obj[key]
+    return {k: v.numpy() if hasattr(v, "numpy") else np.asarray(v) for k, v in obj.items()}

@@ -901,3 +901,64 @@ def test_nerf_on_card_matches_cpu(card):
 
     errs = chip_smoke.nerf_card_vs_cpu()
     assert errs["rgb_coarse"] <= chip_smoke.TOL_NVS_COARSE
+
+
+def _ordered_bf16(t):
+    i = t.contiguous().view(torch.int16).int()
+    return torch.where(i < 0, -(i & 0x7FFF), i)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_dense_w8a8_on_card_equals_cpu(card, x_dtype):
+    """x8, the scales and the int32 product bit for bit; the output within
+    one step of its dtype (bf16 and f32 outputs)."""
+    from pope_tpu_torch.ops.quant import dense_w8a8, int8_matmul, quantize_rows, quantize_weight_cols, rescale_int32
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(100, 256, generator=g).to(x_dtype)
+    w = torch.randn(192, 256, generator=g) / 16
+    b = 0.1 * torch.randn(192, generator=g)
+    (x8, xs), (w8, ws) = quantize_rows(x), quantize_weight_cols(w)
+    (x8_g, xs_g), (w8_g, ws_g) = quantize_rows(x.to(card)), quantize_weight_cols(w.to(card))
+    for got, want in ((x8_g, x8), (xs_g, xs), (w8_g, w8), (ws_g, ws)):
+        assert torch.equal(got.cpu(), want)
+    y, y_g = int8_matmul(x8, w8), int8_matmul(x8_g, w8_g)
+    assert torch.equal(y_g.cpu(), y) and torch.equal(y.long(), x8.long() @ w8.long().t())
+    out_bf16 = rescale_int32(y, xs, ws, b, torch.bfloat16)
+    got_bf16 = dense_w8a8(x.to(card), w8_g, ws_g, b.to(card), torch.bfloat16).cpu()
+    assert (_ordered_bf16(got_bf16) - _ordered_bf16(out_bf16)).abs().max() <= 1
+    out_f32 = rescale_int32(y, xs, ws, b, torch.float32).numpy()
+    got_f32 = dense_w8a8(x.to(card), w8_g, ws_g, b.to(card), torch.float32).cpu().numpy()
+    assert (np.abs(got_f32 - out_f32) <= np.spacing(np.abs(out_f32))).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_encoder_on_card_matches_cpu(card, dtype):
+    """A depth-2 int8 encoder (16 heads of d 80 at width 1280 would be
+    ViT-H; here 2 heads of 80) on the card against the CPU, within
+    tests/test_torch_quant.py's whole-encoder limits (relative L2)."""
+    from pope_tpu_torch.ops.quant import dense_w8a8
+
+    cfg = SamConfig(
+        encoder=SamEncoderConfig(img_size=256, embed_dim=160, num_heads=2, depth=2, global_attn_indexes=(1,),
+                                 dtype=dtype, quantize="int8", gelu="erf" if dtype == "float32" else "tanh"),
+        image_embedding_size=16)
+    cpu = Sam(cfg)
+    init_sam_weights(cpu, torch.Generator().manual_seed(1))
+    gpu = copy.deepcopy(cpu).to(card)
+    x = torch.from_numpy(np.random.default_rng(2).uniform(-2, 2, (2, 192, 256, 3)).astype(np.float32))
+    before = dense_w8a8.launches
+    with torch.no_grad():
+        ref, out = cpu.encode_image(x), gpu.encode_image(x.to(card)).cpu()
+    assert dense_w8a8.launches - before == 16
+    rel = ((out - ref).norm() / ref.norm()).item()
+    assert rel <= {"float32": 1.2e-2, "bfloat16": 3e-2}[dtype], rel
+
+
+@pytest.mark.parametrize("B,N,design", [(80, 196, "short"), (1, 3072, "long")])
+def test_kernel_3_at_sam_widths_matches_plain(card, B, N, design):
+    """The bias-free encoder's kernel-3 shapes at 16 heads of d 80."""
+    q, k, v = torch.randn(3, B, N, 16, 80, device=card).to(torch.bfloat16).unbind(0)
+    before = flash_attention.launches_by_design[design]
+    assert_matches_plain(flash_attention(q, k, v), flash_attention_plain(q, k, v))
+    assert flash_attention.launches_by_design[design] == before + 1
