@@ -430,7 +430,9 @@ def run_kernel_phases():
         if f32:
             rows[key]["simt_bound_ms"] = bound(nbytes, flops, F32_FLOP_PER_S)[0]
         else:
-            rows[key]["long_layout"] = long_layout(d, H, W)  # the launcher's Q and K/V stages
+            # the launcher's Q and K/V stages, shared memory, blocks per cluster
+            # and the clusters the card holds at once
+            rows[key]["long_layout"] = long_layout(d, H, W)
 
     # kernel 1: 28 windowed layers; 4 frames x 20 windows of 14x14 (the rect
     # 48x64 grid pads to 56x70)
@@ -2264,7 +2266,7 @@ def d80_kernel_rows(ex2_rate) -> dict:
     """Kernel 3 at SAM's widths (16 heads, d 80), the bias-free encoder's two
     shapes: 80 windows of 196 tokens (the short design) and 4 frames of
     3072 (the long one), against the plain version, SDPA and the bound."""
-    from pope_tpu_torch.ops.cuda_kernels import attention_design
+    from pope_tpu_torch.ops.cuda_kernels import attention_design, long_layout
     from pope_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
     F = torch.nn.functional
@@ -2283,6 +2285,9 @@ def d80_kernel_rows(ex2_rate) -> dict:
         rows[key]["design"] = attention_design(torch.bfloat16, N, d)
         if rows[key]["design"] != ("short" if N <= 256 else "long"):
             raise AssertionError(f"kernel 3 at N = {N}, d 80 takes the {rows[key]['design']} design")
+        if rows[key]["design"] == "long":  # the launcher's stages, cluster and resident clusters
+            rows[key]["long_layout"] = long_layout(d)
+            print(json.dumps({"long_layout": {f"flash_attention_d80_{key}": rows[key]["long_layout"]}}), flush=True)
         del qkv, q, k, v
     return rows
 

@@ -32,8 +32,8 @@
 //   - the bias was gathered per logit from shared memory with a running
 //     (kh, kw) wrap.  With wk = 64 (SAM's global grids) a 128-key tile is
 //     two whole key rows, so each thread's accumulator columns have the same
-//     kw in every tile: its 16 rel_w values per row are re-laid once per
-//     item so that a tile reads them as 16 conflict-free words, its rel_h
+//     kw in every tile: its 16 rel_w values per row are read once per item
+//     into 16 registers (bf16 pairs), its rel_h
 //     values are 2 per row per tile, and each logit is one FFMA (s * d^-1/2
 //     + rel_w), the rel_h term folded into the exponent's offset.  Other
 //     grids gather both terms from the staged slabs per logit (right, not
@@ -48,26 +48,59 @@
 //     make the warpgroups take turns at the tensor cores) measured no faster
 //     here, and with named barriers shared by the two warpgroups ptxas held
 //     every thread at the 168 registers of a 384-thread block, ignoring the
-//     consumers' setmaxnreg, so the d = 80 bias instantiations spilled
-//     (tools/ablate_kernels.py, variant "pingpong").
-// Operands are d/16 slabs of 32-byte rows with the 32-byte swizzle (as in
-// attention_short.cu; the TMA maps are 4-D (d, nh, N, B) over the strided
-// q/k/v views, rows past N read as zeros).  Ragged key tails are masked,
-// ragged query tails are not written.  The output leaves through shared
-// memory (the warpgroup's own Q rows, dead after its last S) as 16-byte
-// stores of whole row segments.
+//     consumers' setmaxnreg, so the d = 80 bias instantiations spilled.
+// (Times in this note: tools/ablate_kernels.py --kernel long on an NVIDIA
+// H100 80GB HBM3 at 700 W.)  Every operand tile is d/16 slabs of 128 rows
+// of 32 bytes (16 bf16 columns) under the 32-byte swizzle, one TMA box a
+// slab: S = Q K^T is d/16 k16 steps, one a slab, and P V one m64n{d}k16 a
+// 16-key step with V MN-major across the slabs.  Q and K at d = 80 as a
+// 64-column slab under the 128-byte swizzle beside a 16-column one measured
+// within 1% of this at every shape (S is not what holds this body), and V
+// split the same way (P V an m64n64 beside an m64n16) 0.04-0.07 ms slower,
+// the short product costing about what a long one does; neither ships.
+// The TMA maps are 4-D (d, nh, N, B) over the strided q/k/v views, rows
+// past N read as zeros.
+//
+// Blocks run in clusters of two.  A cluster takes two query items of the
+// same head side by side, and each K/V tile is loaded once for both: block
+// 0 of the cluster loads K, block 1 V, each with TMA multicast into both
+// blocks, which halves the 1.5 GB a launch read from L2 at kernel 2's shape
+// (loads alone: 0.26 ms, from 0.31-0.34).  A K/V stage is refilled only
+// after the consumers of both blocks have released it: each consumer warp
+// arrives on its own block's empty barrier and, across the cluster, on its
+// peer's, with the plain arrive (release semantics at cluster scope cost
+// 0.2-0.3 ms a launch, variant "remote_arrive_release_cluster").  A head
+// with an odd number of items leaves the second block of its last pair
+// without queries: that block loads no Q, computes and writes nothing (its
+// consumers release each K/V tile as it lands), and still loads its half of
+// every K/V tile and arrives on every barrier its peer counts.
+// A block's producer leaves only once the consumers of both blocks have
+// released every stage (a cluster barrier at the end, shared by producer
+// and consumers, made ptxas ignore setmaxnreg as named barriers do).  The
+// grid is the clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters), at most one block per SM.
+//
+// Ragged key tails are masked, ragged query tails are not written.  The
+// output leaves through shared memory (the warpgroup's own Q rows, dead
+// after its last S, in the same swizzled layout) as 16-byte stores of whole
+// row segments.
 //
 // Budget at kernel 2's shape: a Q stage is 20 KB of Q and 28 KB of rel slabs
 // (48 KB), a K/V stage 40 KB; 2 + 3 stages take 216 KB of the 227 KB a
-// block may use.  Registers: S 64 f32 accumulators a thread, O d/2, P's
-// fragments 8 x 4; the producer warpgroup gives its registers to the
-// consumers (setmaxnreg 40 / 232), and ptxas uses them: the SASS of the
-// d = 80 instantiations reaches register 186 (wk = 64 bias), 229 (gathered
-// bias) and 173 (no bias).
+// block may use, every stage on 1024 bytes (one Q stage and four K/V stages
+// measured 4% slower).  Registers: S 64 f32 accumulators a thread, O d/2,
+// P's fragments 8 x 4, ROWS64's rel_w words 16; the producer warpgroup
+// gives its registers to the consumers (setmaxnreg 40 / 232), and ptxas
+// uses them (tools/ablate_kernels.py prints the highest register each
+// instantiation's SASS reaches).  What holds the body is the softmax and
+// its dependence on S (kernel 2's shape: products alone 0.27 ms, loads
+// alone 0.26, the whole 0.47).
 //
 // Precision as the other kernels: f32 logits, softmax statistics and O, P
 // rounded to bf16 for P V, bf16 output.  The softmax runs in base 2 (ex2 of
-// logits scaled by log2 e), which is the same function.
+// logits scaled by log2 e), which is the same function; without the bias the
+// scale d^-1/2 log2 e and the row maximum are one FFMA per logit (8% faster
+// than a multiply by d^-1/2 first, variant "scale_unfolded").
 
 #include <math.h>
 
@@ -84,7 +117,11 @@ constexpr int LONG_CONSUMER_REGS = 232, LONG_PRODUCER_REGS = 40;
 constexpr int TQ = 128;  // query rows per item, 64 per consumer warpgroup
 constexpr int TK = 128;  // keys per K/V tile
 constexpr int MAX_Q_STAGES = 2, MAX_KV_STAGES = 4;
+// blocks per cluster: the query items of one head side by side, each K/V
+// tile loaded once for all of them by TMA multicast
+constexpr int LONG_CLUSTER = 2;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr uint32_t SLAB = TQ * SLAB_ROW;  // one 16-column slab of an operand tile (TQ = TK rows)
 
 enum Bias { NO_BIAS = 0, GATHER = 1, ROWS64 = 2 };
 
@@ -97,6 +134,10 @@ struct LongArgs {
   int q_stages, kv_stages;
   int q_stage_bytes, kv_stage_bytes;  // multiples of 1024
   int rh_alloc;                       // bytes of an item's rel_h slab, a multiple of 16
+  // blocks per cluster, LONG_CLUSTER, read here by every instantiation but
+  // the bias-free d = 80 one: the constant made ptxas spill 16 bytes in five
+  // bias instantiations and slowed the bias-free d = 32 and 64 ones
+  int cluster;
   float scale;                        // d^-1/2
 };
 
@@ -118,22 +159,45 @@ __device__ __forceinline__ float lds_bf16(uint32_t addr) {
   return __uint_as_float((uint32_t)v << 16);
 }
 
+// One operand tile (rows row0 .. row0 + 127 of head h in frame b) by TMA
+// into its d/16 slabs at dst, completing on bar; multicast to the blocks of
+// the cluster in `mask` (0: this block alone).
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar, int row0, int h,
+                                          int b, uint16_t mask) {
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j) {
+    if (mask) tma_load_4d_multicast(dst + j * SLAB, map, bar, mask, 16 * j, h, row0, b);
+    else tma_load_4d(dst + j * SLAB, map, bar, 16 * j, h, row0, b);
+  }
+}
+
+// The byte offset of 16-byte chunk ch (columns 8 ch .. 8 ch + 7) of row r in
+// an operand tile, where TMA's 32-byte swizzle puts it: chunk (ch mod 2) xor
+// (r / 4 mod 2) of the row in slab ch / 2.
+__device__ __forceinline__ uint32_t chunk_offset(int r, int ch) {
+  return (ch >> 1) * SLAB + r * SLAB_ROW + (((ch & 1) ^ ((r >> 2) & 1)) << 4);
+}
+
 // The online softmax of one 128-key tile for this thread's rows r0 and r1
 // (rows rr0, rr1 of the staged rel slabs): the logits x = s * scale + bias
 // become the weights p = 2^((x - m) log2 e) in s, m (the row maxima of x) and
 // l (this thread's part of the row sums) are updated, and corr gets the
-// factor by which O must be rescaled.  Accumulator layout of m64n128:
+// factor by which O must be rescaled.  Without the bias, m holds the maxima
+// of s itself and p = 2^(s k2 - m k2) with k2 = scale log2 e: one FFMA a
+// logit.  Accumulator layout of m64n128:
 // s[4 * blk + {0, 1}] are row r0's keys 8 blk + 2t + {0, 1}, s[4 * blk +
 // {2, 3}] row r1's.  rh0 and rh1 are the shared addresses of the two rows'
-// rel_h entries, rw0 and rw1 of their rel_w entries; ROWS64 reads its rel_w
-// values instead as the 16 words at rw0 + 128 i (bf16 pairs: row r0's
+// rel_h entries, rw0 and rw1 of their rel_w entries; ROWS64 holds its rel_w
+// values instead in registers, as the 16 words w (bf16 pairs: row r0's
 // columns 8i + 2t, +1 for i < 8, row r1's for i >= 8).
 template <int BIAS>
 __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2], float (&corr)[2],
-                                             uint32_t rh0, uint32_t rh1, uint32_t rw0, uint32_t rw1, int k0,
-                                             int N, int hk, int wk, int t, float c) {
-  const bool ragged = k0 + TK > N;
-  float off[2][2];  // row maxima of x, less rel_h of keys 0-63 and 64-127 of the tile (ROWS64)
+                                             uint32_t rh0, uint32_t rh1, uint32_t rw0, uint32_t rw1,
+                                             const uint32_t (&w)[16], int k0, int N, int hk, int wk, int t,
+                                             float c) {
+  const float k2 = BIAS == NO_BIAS ? c * LOG2E : LOG2E;  // the exponent's scale of m's units
+  float off[2][2];  // row maxima, less rel_h of keys 0-63 and 64-127 of the tile (ROWS64)
   float mx0, mx1;
   if constexpr (BIAS == ROWS64) {
     // the tile is key rows k0 / 64 and k0 / 64 + 1 (past hk only when masked)
@@ -143,25 +207,31 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
     float mh[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
 #pragma unroll
     for (int cb = 0; cb < 8; ++cb) {
-      const uint32_t w0 = lds_u32(rw0 + 128 * cb), w1 = lds_u32(rw0 + 128 * (8 + cb));
+      const uint32_t w0 = w[cb], w1 = w[8 + cb];
       const float b00 = __uint_as_float(w0 << 16), b01 = __uint_as_float(w0 & 0xffff0000u);
       const float b10 = __uint_as_float(w1 << 16), b11 = __uint_as_float(w1 & 0xffff0000u);
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int blk = 8 * half + cb;
-        float* e = &s[4 * blk];
+        float* e = &s[4 * (8 * half + cb)];
         e[0] = fmaf(e[0], c, b00);
         e[1] = fmaf(e[1], c, b01);
         e[2] = fmaf(e[2], c, b10);
         e[3] = fmaf(e[3], c, b11);
-        if (ragged) {
-          const int key = k0 + 8 * blk + 2 * t;
-          if (key >= N) e[0] = e[2] = -INFINITY;
-          if (key + 1 >= N) e[1] = e[3] = -INFINITY;
-        }
-        mh[0][half] = fmaxf(mh[0][half], fmaxf(e[0], e[1]));
-        mh[1][half] = fmaxf(mh[1][half], fmaxf(e[2], e[3]));
       }
+    }
+    if (k0 + TK > N) {  // keys past N: a pass of its own, taken by the last tile alone
+#pragma unroll
+      for (int blk = 0; blk < 16; ++blk) {
+        const int key = k0 + 8 * blk + 2 * t;
+        if (key >= N) s[4 * blk] = s[4 * blk + 2] = -INFINITY;
+        if (key + 1 >= N) s[4 * blk + 1] = s[4 * blk + 3] = -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int blk = 0; blk < 16; ++blk) {
+      const float* e = &s[4 * blk];
+      mh[0][blk >> 3] = fmaxf(mh[0][blk >> 3], fmaxf(e[0], e[1]));
+      mh[1][blk >> 3] = fmaxf(mh[1][blk >> 3], fmaxf(e[2], e[3]));
     }
     mx0 = fmaxf(mh[0][0] + h00, mh[0][1] + h01);
     mx1 = fmaxf(mh[1][0] + h10, mh[1][1] + h11);
@@ -175,6 +245,9 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
     off[0][0] = mx0 - h00, off[0][1] = mx0 - h01;
     off[1][0] = mx1 - h10, off[1][1] = mx1 - h11;
   } else {
+    // masked as the maxima are taken (a separate pass, as ROWS64 takes,
+    // spilled with the gathered bias and slowed the bias-free d 32 and 64)
+    const bool ragged = k0 + TK > N;
     mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
     for (int blk = 0; blk < 16; ++blk) {
@@ -188,9 +261,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
         e[1] = fmaf(e[1], c, lds_bf16(rh0 + 2 * kh1) + lds_bf16(rw0 + 2 * kw1));
         e[2] = fmaf(e[2], c, lds_bf16(rh1 + 2 * kh) + lds_bf16(rw1 + 2 * kw));
         e[3] = fmaf(e[3], c, lds_bf16(rh1 + 2 * kh1) + lds_bf16(rw1 + 2 * kw1));
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) e[i] *= c;
       }
       if (ragged) {
         if (key >= N) e[0] = e[2] = -INFINITY;
@@ -211,23 +281,23 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
   }
   // every tile holds a live key, so the new maxima are finite; the first
   // tile's corr is 2^-inf = 0
-  corr[0] = ex2((m[0] - mx0) * LOG2E);
-  corr[1] = ex2((m[1] - mx1) * LOG2E);
+  corr[0] = ex2((m[0] - mx0) * k2);
+  corr[1] = ex2((m[1] - mx1) * k2);
   m[0] = mx0;
   m[1] = mx1;
 #pragma unroll
   for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) off[r][half] *= -LOG2E;
+    for (int half = 0; half < 2; ++half) off[r][half] *= -k2;
   float ls0 = 0.f, ls1 = 0.f;
 #pragma unroll
   for (int blk = 0; blk < 16; ++blk) {
     float* e = &s[4 * blk];
     const int half = blk >> 3;
-    e[0] = ex2(fmaf(e[0], LOG2E, off[0][half]));
-    e[1] = ex2(fmaf(e[1], LOG2E, off[0][half]));
-    e[2] = ex2(fmaf(e[2], LOG2E, off[1][half]));
-    e[3] = ex2(fmaf(e[3], LOG2E, off[1][half]));
+    e[0] = ex2(fmaf(e[0], k2, off[0][half]));
+    e[1] = ex2(fmaf(e[1], k2, off[0][half]));
+    e[2] = ex2(fmaf(e[2], k2, off[1][half]));
+    e[3] = ex2(fmaf(e[3], k2, off[1][half]));
     ls0 += e[0] + e[1];
     ls1 += e[2] + e[3];
   }
@@ -246,19 +316,20 @@ __device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&pf)[8][4
   }
 }
 
-// Shared memory: q_stages Q stages (Q as D/16 slabs of 128 rows x 32 B, then
-// the item's rel_h and rel_w rows, [row][hk] and [row][wk] bf16), then
-// kv_stages K/V stages (K then V, D/16 slabs of 128 rows each), then the
-// mbarriers: Q full / empty, K/V full / empty.  An item is (b * nh + h,
-// 128-query tile), numbered head-major; block i takes items i, i + grid, ...
+// Shared memory: q_stages Q stages (an item's Q tile, then its rel_h and
+// rel_w rows, [row][hk] and [row][wk] bf16), then kv_stages K/V stages (K's
+// tile then V's), then the mbarriers: Q full / empty, K/V full / empty.  A
+// tile is D/16 slabs of 128 rows x 32 B.  A unit is (b * nh + h, pair of
+// 128-query tiles), numbered head-major; cluster i takes units i, i +
+// clusters, ..., and its block of rank r the unit's tile r.
 template <int D, int BIAS>
 __global__ void __launch_bounds__(LONG_NT, 1)
     attn_long_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const LongArgs a) {
-  constexpr int DK = D / 16;  // k-steps of S, slabs per operand
+  constexpr int DK = D / 16;  // k-steps of S, slabs per operand tile
   constexpr int DB = D / 8;   // 8-column blocks of O, 16-byte chunks of an output row
-  constexpr uint32_t slab = TQ * SLAB_ROW;  // = TK * SLAB_ROW
-  constexpr uint32_t rel_off = DK * slab;
+  constexpr uint32_t tile = DK * SLAB;
+  constexpr uint32_t rel_off = tile;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -269,9 +340,15 @@ __global__ void __launch_bounds__(LONG_NT, 1)
   auto q_empty = [&](int s) { return bars + 8u * (MAX_Q_STAGES + s); };
   auto kv_full = [&](int s) { return bars + 8u * (2 * MAX_Q_STAGES + s); };
   auto kv_empty = [&](int s) { return bars + 8u * (2 * MAX_Q_STAGES + MAX_KV_STAGES + s); };
-  const int N = a.N, nh = a.nh;
+  // the cluster size: the constant in the bias-free d = 80 instantiation (6%
+  // faster there; 11% slower at d = 64, variant "cluster_constant"), read
+  // from LongArgs in the others (variant "cluster_at_run_time")
+  const int N = a.N, nh = a.nh, cl = BIAS == NO_BIAS && D == 80 ? LONG_CLUSTER : a.cluster;
   const int ntq = (N + TQ - 1) / TQ, nkt = (N + TK - 1) / TK;
-  const int n_items = a.B * nh * ntq;
+  const int per_head = (ntq + cl - 1) / cl;  // units of a head
+  const int n_units = a.B * nh * per_head;
+  const int rank = (int)cluster_ctarank();
+  const int unit0 = blockIdx.x / cl, units_step = gridDim.x / cl;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
@@ -281,27 +358,30 @@ __global__ void __launch_bounds__(LONG_NT, 1)
     }
     for (int s = 0; s < a.kv_stages; ++s) {
       mbar_init(kv_full(s), 1);
-      mbar_init(kv_empty(s), 8);  // one arrival per consumer warp, after its own wait
+      mbar_init(kv_empty(s), 8 * cl);  // one arrival per consumer warp of every block the stage feeds
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  // the peer's barriers are set before any multicast or arrival reaches them
+  cluster_sync();
 
   if (warp >= 8) {
     // producer warpgroup: hands its registers to the consumers; one warp
-    // stays, and its lane 0 issues the copies
+    // works, and its lane 0 issues the copies
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(LONG_PRODUCER_REGS));
     if (warp > 8) return;
+    // in a cluster, block 0 loads K and block 1 V, each into both blocks
+    const uint16_t mask = cl > 1 ? (uint16_t)((1u << cl) - 1u) : (uint16_t)0;
     int kv_i = 0, it = 0;
-    for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
-      const int bh = item / ntq, q0 = (item - bh * ntq) * TQ;
+    for (int unit = unit0; unit < n_units; unit += units_step, ++it) {
+      const int bh = unit / per_head, q0 = ((unit - bh * per_head) * cl + rank) * TQ;
       const int b = bh / nh, h = bh - b * nh;
+      const int rows = max(0, min(TQ, N - q0));  // 0: no queries (the second half of a head's last pair)
       const int qs = it % a.q_stages;
       mbar_wait(q_empty(qs), ((uint32_t)(it / a.q_stages) & 1u) ^ 1u);
       const uint32_t st = base + (uint32_t)(qs * a.q_stage_bytes);
-      uint32_t tx = rel_off;
+      uint32_t tx = rows > 0 ? tile : 0u;
       if constexpr (BIAS != NO_BIAS) {
-        const int rows = min(TQ, N - q0);
         const __nv_bfloat16* rh = a.rel_h + ((int64_t)bh * N + q0) * a.hk;
         const __nv_bfloat16* rw = a.rel_w + ((int64_t)bh * N + q0) * a.wk;
         if (a.rel_bulk) {
@@ -309,8 +389,10 @@ __global__ void __launch_bounds__(LONG_NT, 1)
           tx += rh_bytes + rw_bytes;
           if (lane == 0) {
             mbar_arrive_expect_tx(q_full(qs), tx);
-            bulk_load(st + rel_off, rh, rh_bytes, q_full(qs));
-            bulk_load(st + rel_off + a.rh_alloc, rw, rw_bytes, q_full(qs));
+            if (rows > 0) {
+              bulk_load(st + rel_off, rh, rh_bytes, q_full(qs));
+              bulk_load(st + rel_off + a.rh_alloc, rw, rw_bytes, q_full(qs));
+            }
           }
         } else {  // slabs that do not start and end on 16 bytes: plain copies
           __nv_bfloat16* dh = reinterpret_cast<__nv_bfloat16*>(gbase + (st - base) + rel_off);
@@ -324,25 +406,24 @@ __global__ void __launch_bounds__(LONG_NT, 1)
       } else {
         if (lane == 0) mbar_arrive_expect_tx(q_full(qs), tx);
       }
-      if (lane == 0) {
-#pragma unroll
-        for (int j = 0; j < DK; ++j) tma_load_4d(st + j * slab, &tq, q_full(qs), 16 * j, h, q0, b);
-      }
+      if (lane == 0 && rows > 0) load_tile<D>(st, &tq, q_full(qs), q0, h, b, 0);
       for (int kt = 0; kt < nkt; ++kt, ++kv_i) {
         const int s = kv_i % a.kv_stages;
         mbar_wait(kv_empty(s), ((uint32_t)(kv_i / a.kv_stages) & 1u) ^ 1u);
         if (lane == 0) {
           const uint32_t ks = kv_base + (uint32_t)(s * a.kv_stage_bytes);
-          mbar_arrive_expect_tx(kv_full(s), 2 * DK * slab);
-#pragma unroll
-          for (int j = 0; j < DK; ++j) {
-            tma_load_4d(ks + j * slab, &tk, kv_full(s), 16 * j, h, kt * TK, b);
-            tma_load_4d(ks + (DK + j) * slab, &tv, kv_full(s), 16 * j, h, kt * TK, b);
-          }
+          mbar_arrive_expect_tx(kv_full(s), 2 * tile);  // K and V, whichever block loads them
+          if (rank == 0) load_tile<D>(ks, &tk, kv_full(s), kt * TK, h, b, mask);
+          if (rank == cl - 1) load_tile<D>(ks + tile, &tv, kv_full(s), kt * TK, h, b, mask);
         }
       }
       __syncwarp();
     }
+    // the tail: until the consumers of both blocks have released every
+    // stage, so that no arrival from the peer reaches this block after it
+    // leaves (its own consumers wait for every multicast into it)
+    for (int i = 0; i < a.kv_stages; ++i, ++kv_i)
+      mbar_wait(kv_empty(kv_i % a.kv_stages), ((uint32_t)(kv_i / a.kv_stages) & 1u) ^ 1u);
   } else {
     // consumers: warpgroup wg takes rows 64 wg .. 64 wg + 63 of every item
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(LONG_CONSUMER_REGS));
@@ -357,53 +438,66 @@ __global__ void __launch_bounds__(LONG_NT, 1)
     for (int i = 0; i < 64; ++i) sacc[i] = 0.f;
     float oacc[D / 2];
     uint32_t pf[8][4];
+    uint32_t w[16];  // ROWS64: this thread's rel_w words of the item
+    // a K/V stage is free once this block's and the peer's consumers are done with it
+    auto release = [&](int s) {
+      if (lane == 0) {
+        mbar_arrive(kv_empty(s));
+        if (cl > 1) mbar_arrive_cluster(kv_empty(s), (uint32_t)(rank ^ 1));
+      }
+    };
     int kv_i = 0, it = 0;
-    for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
-      const int bh = item / ntq, q0 = (item - bh * ntq) * TQ;
+    for (int unit = unit0; unit < n_units; unit += units_step, ++it) {
+      const int bh = unit / per_head, q0 = ((unit - bh * per_head) * cl + rank) * TQ;
       const int b = bh / nh, h = bh - b * nh;
       const int qs = it % a.q_stages;
       mbar_wait(q_full(qs), (uint32_t)(it / a.q_stages) & 1u);
-      const uint32_t Qs = base + (uint32_t)(qs * a.q_stage_bytes) + wg * 64 * SLAB_ROW;
-      unsigned char* qg = gbase + (qs * a.q_stage_bytes);
       const int rows = min(TQ, N - q0);
+      if (rows <= 0) {
+        // no queries (the second half of a head's last pair): each K/V tile
+        // is released as it lands, for the peer's producer
+        for (int kt = 0; kt < nkt; ++kt, ++kv_i) {
+          const int s = kv_i % a.kv_stages;
+          mbar_wait(kv_full(s), (uint32_t)(kv_i / a.kv_stages) & 1u);
+          release(s);
+        }
+        if (tw == 0) mbar_arrive(q_empty(qs));
+        continue;
+      }
+      const uint32_t qst = base + (uint32_t)(qs * a.q_stage_bytes);
+      const uint32_t Qs = qst + wg * 64 * SLAB_ROW;
+      unsigned char* qg = gbase + (qs * a.q_stage_bytes);
       // the shared addresses of rows r0 and r1 of the item's rel_h and rel_w
       // slabs; rows past N read the last row's (GATHER; ROWS64 reads its own
       // rows, whatever they hold: those rows are not written)
       const int rr0 = BIAS == ROWS64 ? lr0 : min(lr0, rows - 1), rr1 = BIAS == ROWS64 ? lr1 : min(lr1, rows - 1);
-      const uint32_t rh_s = base + (uint32_t)(qs * a.q_stage_bytes) + rel_off, rw_s = rh_s + a.rh_alloc;
+      const uint32_t rh_s = qst + rel_off, rw_s = rh_s + a.rh_alloc;
       const uint32_t rh0 = rh_s + 2 * rr0 * a.hk, rh1 = rh_s + 2 * rr1 * a.hk;
-      uint32_t rw0 = rw_s + 2 * rr0 * a.wk, rw1 = rw_s + 2 * rr1 * a.wk;
+      const uint32_t rw0 = rw_s + 2 * rr0 * a.wk, rw1 = rw_s + 2 * rr1 * a.wk;
       if constexpr (BIAS == ROWS64) {
-        // this warp's 16 rows of rel_w (2 KB of the staged slab) re-laid in
-        // place as [word i][lane], so that each tile reads them back without
-        // bank conflicts (rows are 128 B apart: the slab's own order puts the
-        // 8 rows a warp reads at once in one bank)
-        uint32_t* words = reinterpret_cast<uint32_t*>(qg + rel_off + a.rh_alloc) + (wg * 64 + wq * 16) * 32;
-        uint32_t w[16];
+        // the 16 rel_w words this thread's accumulator columns read in every
+        // tile, held in registers for the item
 #pragma unroll
         for (int cb = 0; cb < 8; ++cb) {
           w[cb] = lds_u32(rw0 + 16 * cb + 4 * t);
           w[8 + cb] = lds_u32(rw1 + 16 * cb + 4 * t);
         }
-        __syncwarp();
-#pragma unroll
-        for (int i = 0; i < 16; ++i) words[32 * i + lane] = w[i];
-        __syncwarp();
-        rw0 = smem_u32(words + lane);
       }
       float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
 
+      // S = Q K^T: one k16 step a slab
       auto issue_s = [&](uint32_t Ks) {
 #pragma unroll
         for (int ks = 0; ks < DK; ++ks)
-          wgmma_ss_n128(sacc, desc_b32(Qs + ks * slab, 16), desc_b32(Ks + ks * slab, 16), ks > 0);
+          wgmma_ss_n128(sacc, desc_b32(Qs + ks * SLAB, 16), desc_b32(Ks + ks * SLAB, 16), ks > 0);
         wgmma_commit();
       };
+      // O += P V: one m64n{D}k16 a 16-key step, V MN-major across the slabs
       auto issue_pv = [&](uint32_t Vs) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) wgmma_rs<D>(oacc, pf[j], desc_b32(Vs + j * 16 * SLAB_ROW, slab), 1);
+        for (int j = 0; j < 8; ++j) wgmma_rs<D>(oacc, pf[j], desc_b32(Vs + j * 16 * SLAB_ROW, SLAB), 1);
         wgmma_commit();
       };
 
@@ -415,7 +509,7 @@ __global__ void __launch_bounds__(LONG_NT, 1)
       issue_s(kv_base + (uint32_t)(s * a.kv_stage_bytes));
       wgmma_wait0();
       fence_regs(sacc);
-      softmax_tile<BIAS>(sacc, m, l, corr, rh0, rh1, rw0, rw1, 0, N, a.hk, a.wk, t, c);
+      softmax_tile<BIAS>(sacc, m, l, corr, rh0, rh1, rw0, rw1, w, 0, N, a.hk, a.wk, t, c);
       pack_p(sacc, pf);
 
       // tile kt: S of kt and P V of kt - 1 issued together; the softmax of
@@ -430,14 +524,14 @@ __global__ void __launch_bounds__(LONG_NT, 1)
         fence_regs(pf);
         wgmma_fence();
         issue_s(kv_base + (uint32_t)(s * a.kv_stage_bytes));
-        issue_pv(kv_base + (uint32_t)(sp * a.kv_stage_bytes) + DK * slab);
+        issue_pv(kv_base + (uint32_t)(sp * a.kv_stage_bytes) + tile);
         wgmma_wait1();
         fence_regs(sacc);
-        softmax_tile<BIAS>(sacc, m, l, corr, rh0, rh1, rw0, rw1, kt * TK, N, a.hk, a.wk, t, c);
+        softmax_tile<BIAS>(sacc, m, l, corr, rh0, rh1, rw0, rw1, w, kt * TK, N, a.hk, a.wk, t, c);
         wgmma_wait0();
         fence_regs(oacc);
         fence_regs(pf);
-        if (lane == 0) mbar_arrive(kv_empty(sp));
+        release(sp);
 #pragma unroll
         for (int i = 0; i < D / 2; i += 4) {
           oacc[i] *= corr[0];
@@ -452,15 +546,15 @@ __global__ void __launch_bounds__(LONG_NT, 1)
       fence_regs(oacc);
       fence_regs(pf);
       wgmma_fence();
-      issue_pv(kv_base + (uint32_t)(s * a.kv_stage_bytes) + DK * slab);
+      issue_pv(kv_base + (uint32_t)(s * a.kv_stage_bytes) + tile);
       wgmma_wait0();
       fence_regs(oacc);
       fence_regs(pf);
-      if (lane == 0) mbar_arrive(kv_empty(s));
+      release(s);
       ++kv_i;
 
       // epilogue: normalise, stage the rows in this warpgroup's own Q rows
-      // (dead since its last S) with the 32-byte swizzle, then 16-byte
+      // (dead since its last S) in the tile's swizzled layout, then 16-byte
       // stores of whole row segments
       float l0 = l[0], l1 = l[1];
 #pragma unroll
@@ -471,19 +565,16 @@ __global__ void __launch_bounds__(LONG_NT, 1)
       const float inv0 = 1.f / l0, inv1 = 1.f / l1;
 #pragma unroll
       for (int nb = 0; nb < DB; ++nb) {
-        unsigned char* col = qg + (nb >> 1) * slab + 4 * t;
-        const int hh = nb & 1;
-        *reinterpret_cast<uint32_t*>(col + lr0 * SLAB_ROW + ((hh ^ ((lr0 >> 2) & 1)) << 4)) =
+        *reinterpret_cast<uint32_t*>(qg + chunk_offset(lr0, nb) + 4 * t) =
             pack_bf16(oacc[4 * nb] * inv0, oacc[4 * nb + 1] * inv0);
-        *reinterpret_cast<uint32_t*>(col + lr1 * SLAB_ROW + ((hh ^ ((lr1 >> 2) & 1)) << 4)) =
+        *reinterpret_cast<uint32_t*>(qg + chunk_offset(lr1, nb) + 4 * t) =
             pack_bf16(oacc[4 * nb + 2] * inv1, oacc[4 * nb + 3] * inv1);
       }
       bar_sync_wg(1 + wg);
       for (int e = tw; e < 64 * DB; e += 128) {
         const int r = wg * 64 + e / DB, ch = e % DB, n = q0 + r;
         if (n >= N) break;
-        const uint4 v = *reinterpret_cast<const uint4*>(qg + (ch >> 1) * slab + r * SLAB_ROW +
-                                                        (((ch & 1) ^ ((r >> 2) & 1)) << 4));
+        const uint4 v = *reinterpret_cast<const uint4*>(qg + chunk_offset(r, ch));
         *reinterpret_cast<uint4*>(a.out + ((int64_t)b * N + n) * C + (int64_t)h * D + ch * 8) = v;
       }
       // the stage's generic reads and writes before the producer's next TMA
@@ -500,11 +591,12 @@ __global__ void __launch_bounds__(LONG_NT, 1)
 // SMEM_LIMIT beside the alignment slack and the mbarriers. Returns the dynamic
 // shared memory in bytes, or 0 when not even one Q and two K/V stages fit.
 int long_layout(int d, int hk, int wk, LongArgs* a) {
-  const int dk = d / 16;
+  const int tile = d / 16 * (int)SLAB;
   a->rh_alloc = hk > 0 ? (TQ * hk * 2 + 15) / 16 * 16 : 0;
   const int rw_alloc = wk > 0 ? (TQ * wk * 2 + 15) / 16 * 16 : 0;
-  a->q_stage_bytes = (dk * TQ * SLAB_ROW + a->rh_alloc + rw_alloc + 1023) / 1024 * 1024;
-  a->kv_stage_bytes = 2 * dk * TK * SLAB_ROW;
+  a->q_stage_bytes = (tile + a->rh_alloc + rw_alloc + 1023) / 1024 * 1024;
+  a->kv_stage_bytes = 2 * tile;
+  a->cluster = LONG_CLUSTER;
   const int fixed = 1024 + 16 * (MAX_Q_STAGES + MAX_KV_STAGES);
   a->q_stages = a->kv_stages = 0;
   for (int qs = MAX_Q_STAGES; qs >= 1 && a->q_stages == 0; --qs)
@@ -514,6 +606,47 @@ int long_layout(int d, int hk, int wk, LongArgs* a) {
         break;
       }
   return a->q_stages == 0 ? 0 : a->q_stages * a->q_stage_bytes + a->kv_stages * a->kv_stage_bytes + fixed;
+}
+
+// The launch configuration of the long kernel: `grid` blocks in clusters of
+// LONG_CLUSTER, `smem` bytes of shared memory each.
+cudaLaunchConfig_t long_config(int grid, int smem, cudaStream_t stream, cudaLaunchAttribute* cluster) {
+  cluster->id = cudaLaunchAttributeClusterDimension;
+  cluster->val.clusterDim.x = LONG_CLUSTER;
+  cluster->val.clusterDim.y = 1;
+  cluster->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(LONG_NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The clusters of LONG_CLUSTER blocks with `smem` bytes each that the card
+// holds at once (cudaOccupancyMaxActiveClusters: a cluster's blocks share a
+// GPC), the persistent grid's size; 0 on an error.  Asked once per device,
+// layout and instantiation.
+template <int D, int BIAS>
+int resident_clusters(int smem) {
+  static int key_dev = -1, key_smem = -1, clusters = 0;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev != key_dev || smem != key_smem) {
+    if (cudaFuncSetAttribute(attn_long_kernel<D, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+        cudaSuccess)
+      return 0;
+    cudaLaunchAttribute cluster;
+    const cudaLaunchConfig_t cfg = long_config(LONG_CLUSTER, smem, nullptr, &cluster);
+    int n = 0;
+    if (cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(attn_long_kernel<D, BIAS>), &cfg) !=
+        cudaSuccess)
+      return 0;
+    key_dev = dev, key_smem = smem, clusters = n;
+  }
+  return clusters;
 }
 
 template <int D, int BIAS>
@@ -530,15 +663,19 @@ cudaError_t launch_long_d(const View& q, const View& k, const View& v, LongArgs 
       !make_map(&tk, k.ptr, k.sb, k.sn, k.sh, a.B, N, a.nh, D, TK) ||
       !make_map(&tv, v.ptr, v.sb, v.sn, v.sh, a.B, N, a.nh, D, TK))
     return cudaErrorInvalidValue;
-  const int sms = sm_count();
-  if (sms == 0) return cudaErrorInvalidDevice;
+  // a multiple of the cluster size: the clusters the card holds at once, at
+  // most one block per SM
+  const int cl = a.cluster, resident = resident_clusters<D, BIAS>(smem);
+  if (resident == 0) return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(attn_long_kernel<D, BIAS>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int64_t items = (int64_t)a.B * a.nh * ((N + TQ - 1) / TQ);
-  const int grid = (int)std::min<int64_t>(items, sms);
-  attn_long_kernel<D, BIAS><<<grid, LONG_NT, smem, stream>>>(tq, tk, tv, a);
-  return cudaGetLastError();
+  const int64_t units = (int64_t)a.B * a.nh * ((N + TQ * cl - 1) / (TQ * cl));
+  const int grid = cl * (int)std::min<int64_t>(units, resident);
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg = long_config(grid, smem, stream, &cluster);
+  void* args[] = {&tq, &tk, &tv, &a};
+  return cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(attn_long_kernel<D, BIAS>), args);
 }
 
 template <int BIAS>
@@ -565,8 +702,8 @@ cudaError_t launch_long(const View& q, const View& k, const View& v, const LongA
 
 // The long kernel with the rel-pos bias (SAM's global layers), bf16 only,
 // N = hk * wk, d in {32, 64, 80}, hk + wk <= 500.  Strides in elements.
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// shapes it does not take.
+// Returns the launch's error, or cudaErrorInvalidValue for shapes it does
+// not take.
 extern "C" int pope_attention_long_relpos(const void* q, const void* k, const void* v, const void* rel_h,
                                           const void* rel_w, void* out, int64_t sq_b, int64_t sq_n,
                                           int64_t sq_h, int64_t sk_b, int64_t sk_n, int64_t sk_h,
@@ -582,14 +719,26 @@ extern "C" int pope_attention_long_relpos(const void* q, const void* k, const vo
 }
 
 // The shared-memory layout the launcher picks at head dim d on an hk x wk bias
-// grid (0 x 0: the bias-free kernel): Q stages, K/V stages and the dynamic
-// shared memory in bytes. Returns 0, or cudaErrorInvalidValue when nothing
-// fits.
-extern "C" int pope_attention_long_layout(int d, int hk, int wk, int* q_stages, int* kv_stages, int* smem) {
+// grid (0 x 0: the bias-free kernel): Q stages, K/V stages, the dynamic
+// shared memory in bytes, the blocks per cluster and the clusters the card
+// holds at once. Returns 0, or cudaErrorInvalidValue when nothing fits.
+extern "C" int pope_attention_long_layout(int d, int hk, int wk, int* q_stages, int* kv_stages, int* smem,
+                                          int* cluster, int* resident) {
   LongArgs a{};
   *smem = long_layout(d, hk, wk, &a);
-  *q_stages = a.q_stages, *kv_stages = a.kv_stages;
-  return *smem == 0 ? (int)cudaErrorInvalidValue : 0;
+  *q_stages = a.q_stages, *kv_stages = a.kv_stages, *cluster = LONG_CLUSTER, *resident = 0;
+  if (*smem == 0) return (int)cudaErrorInvalidValue;
+  const int bias = hk == 0 ? NO_BIAS : wk == 64 ? ROWS64 : GATHER;
+  switch (d * 4 + bias) {
+#define POPE_LONG_RESIDENT(D, BIAS) \
+  case D * 4 + BIAS: *resident = resident_clusters<D, BIAS>(*smem); break;
+    POPE_LONG_RESIDENT(32, NO_BIAS) POPE_LONG_RESIDENT(32, GATHER) POPE_LONG_RESIDENT(32, ROWS64)
+    POPE_LONG_RESIDENT(64, NO_BIAS) POPE_LONG_RESIDENT(64, GATHER) POPE_LONG_RESIDENT(64, ROWS64)
+    POPE_LONG_RESIDENT(80, NO_BIAS) POPE_LONG_RESIDENT(80, GATHER) POPE_LONG_RESIDENT(80, ROWS64)
+#undef POPE_LONG_RESIDENT
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return *resident == 0 ? (int)cudaErrorInvalidValue : 0;
 }
 
 // The bias-free long kernel (flash_attention above N = 256), bf16 only.

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels
-// attention_short.cu and attention_long.cu: mbarriers, TMA and bulk copies,
-// named barriers, wgmma (shared-memory descriptors with the 32-byte swizzle,
-// the products both kernels issue) and the host-side tensor maps.
+// attention_short.cu and attention_long.cu: mbarriers (local and across a
+// cluster), TMA and bulk copies (multicast too), named and cluster barriers,
+// wgmma (shared-memory descriptors with the 32-byte swizzle, the products
+// both kernels issue) and the host-side tensor maps.
 //
 // Operands are laid out as d/16 column slabs of 32-byte rows (16 bf16
 // columns) with the 32-byte swizzle, one TMA box per slab: d = 80 rows (160
@@ -37,6 +38,30 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t byt
                : "memory");
 }
 
+// an arrival on the barrier at the same shared-memory offset in block `cta`
+// of this block's cluster (default semantics, as CUTLASS's ClusterBarrier:
+// a consumer arrives after its wgmma reads are complete, so there is no
+// memory to order)
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster (a grid launched without
+// clusters: of this block); all threads of each warp together
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // A wait that never ends (a phase that never completes) traps after about
 // 2^26 polls, seconds, instead of hanging the card.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
@@ -58,6 +83,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// the same box into the blocks of this block's cluster set in `mask`, each
+// at the same shared-memory offset, each completing on its own barrier there
+__device__ __forceinline__ void tma_load_4d_multicast(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                                      uint16_t mask, int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1, {%4, %5, %6, %7}], [%2], %3;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 

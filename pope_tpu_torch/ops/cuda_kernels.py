@@ -12,8 +12,10 @@ Four attention designs, picked by shape (`attention_design`):
   N <= 256, d in _BF16_HEAD_DIMS, bias grids of hk + wk <= 32;
 - "long" (csrc/attention_long.cu): streams 128-key tiles past 128-query
   items, a TMA producer warp and two wgmma consumer warpgroups, each of
-  which runs one tile's softmax while its own next products run; the other
-  bf16 shapes of those head dims, bias grids of hk + wk <= 500;
+  which runs one tile's softmax while its own next products run; clusters
+  of two blocks take two items of a head and share each K/V tile (TMA
+  multicast); the other bf16 shapes of those head dims, bias grids of
+  hk + wk <= 500;
 - "tf32x3" (csrc/attention_f32.cu): float32 on the tensor cores, each
   product as three TF32 products (mma.sync) of operands split into a
   rounded big and small part; d <= 128, bias grids of hk + wk <=
@@ -44,7 +46,8 @@ _BF16_HEAD_DIMS = (32, 64, 80)
 SHORT_MAX_N = 256  # attention_short.cu: a whole head in shared memory, one TMA box of rows
 SHORT_MAX_GRID = 32  # and a bias grid of hk + wk <= 32: two k-steps of its bias product
 # attention_long.cu: an item's rel rows (128 x (hk + wk) bf16) and one Q stage
-# beside two K/V stages fit in shared memory at d = 80
+# beside two K/V stages fit in shared memory at d = 80 (its launcher refuses
+# 501, which tests/test_torch_cuda.py holds it to)
 LONG_MAX_GRID = 500
 # attention_f32.cu: the query tile's rel rows (64 x (hk + wk) f32) beside the
 # split query, K and V tiles fit in shared memory at every padded head dim
@@ -124,7 +127,7 @@ def library() -> ctypes.CDLL:
         lib.pope_attention_f32_relpos.restype = i32
         lib.pope_attention_f32.argtypes = lib.pope_attention_short.argtypes
         lib.pope_attention_f32.restype = i32
-        lib.pope_attention_long_layout.argtypes = [i32] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3
+        lib.pope_attention_long_layout.argtypes = [i32] * 3 + [ctypes.POINTER(ctypes.c_int)] * 5
         lib.pope_attention_long_layout.restype = i32
         lib.pope_cuda_error_string.argtypes = [i32]
         lib.pope_cuda_error_string.restype = ctypes.c_char_p
@@ -135,13 +138,14 @@ def library() -> ctypes.CDLL:
 def long_layout(d: int, hk: int = 0, wk: int = 0) -> dict:
     """The shared-memory layout csrc/attention_long.cu's launcher picks at
     head dim d on an hk x wk bias grid (0 x 0: no bias): its Q stages, K/V
-    stages and dynamic shared memory in bytes."""
+    stages, dynamic shared memory in bytes, blocks per cluster (the blocks
+    that share each K/V tile by TMA multicast) and the clusters the card
+    holds at once (the persistent grid, in clusters, on this device)."""
     lib = library()
-    q_stages, kv_stages, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    err = lib.pope_attention_long_layout(d, hk, wk, ctypes.byref(q_stages), ctypes.byref(kv_stages),
-                                         ctypes.byref(smem))
+    out = [ctypes.c_int() for _ in range(5)]
+    err = lib.pope_attention_long_layout(d, hk, wk, *map(ctypes.byref, out))
     _raise_on(err, "pope_attention_long_layout", lib)
-    return {"q_stages": q_stages.value, "kv_stages": kv_stages.value, "smem_bytes": smem.value}
+    return dict(zip(("q_stages", "kv_stages", "smem_bytes", "cluster", "resident_clusters"), (o.value for o in out)))
 
 
 def _check_qkv(q, k, v, others=()):

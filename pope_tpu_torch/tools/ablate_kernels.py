@@ -2,6 +2,7 @@
 """Where the attention kernels' time goes, on one NVIDIA GPU.
 
     python3 pope_tpu_torch/tools/ablate_kernels.py [--kernel short|long|f32|all] [--rounds 2]
+                                                   [--variants a,b] [--against CSRC]
 
 Builds csrc/attention_short.cu, csrc/attention_long.cu and
 csrc/attention_f32.cu as they ship and a few variants of each, every one a
@@ -21,9 +22,19 @@ an image's heads would read them) and on rows off 16 bytes (its 4-byte
 loads), and 8 x 6 heads at N = 1025. Variants
 that skip work give wrong outputs: they are timings, not kernels. Each
 round times every variant once, in order; CUDA-event means over `--reps`
-launches. Prints the card, ptxas's spills per variant, and one JSON line
-per round and variant. An edit whose text is no longer in its source stops
-the script.
+launches. Prints the card, ptxas's spills per variant (and the SASS's highest
+register and F2FP / PRMT counts per kernel), and one JSON line
+per round and variant. An edit whose text is not in its source exactly
+once stops the script (tests/test_torch_ablate_kernels.py holds every edit
+to that on the CPU).
+
+With `--against CSRC` (a csrc directory of an earlier version, e.g. from
+`git archive <commit> pope_tpu_torch/csrc` unpacked under build/), it
+builds that attention_long.cu beside the shipped one and times the two in
+turns (against, shipped, shipped, against) at the long design's shapes:
+kernel 2 on the main, square and crop grids and on portrait frames' (64 x
+48, a 64 x 52 crop: the gathered bias), kernel 3 at d 80 N = 3072 and at
+demo-dinov2's N = 1025 (d 64), and d 64 / d 32 at N = 3072.
 """
 
 from __future__ import annotations
@@ -95,85 +106,66 @@ SHORT_VARIANTS = {
 }
 
 
-# ---- the long kernel (kernel 2)
-NO_S = ("          wgmma_ss_n128(sacc, desc_b32(Qs + ks * slab, 16), desc_b32(Ks + ks * slab, 16), ks > 0);",
-        "          ;")
-NO_PV = ("        for (int j = 0; j < 8; ++j) wgmma_rs<D>(oacc, pf[j], desc_b32(Vs + j * 16 * SLAB_ROW, slab), 1);",
-         "")
+# ---- the long kernel (kernel 2, and kernel 3 above 256 tokens)
+NO_S = [("        for (int ks = 0; ks < DK; ++ks)\n          wgmma_ss_n128",
+         "        for (int ks = 0; ks < 0; ++ks)\n          wgmma_ss_n128")]
+NO_PV = [("        for (int j = 0; j < 8; ++j) wgmma_rs<D>(", "        for (int j = 0; j < 0; ++j) wgmma_rs<D>(")]
 NO_SOFTMAX = [
-    ("      softmax_tile<BIAS>(sacc, m, l, corr, rh0, rh1, rw0, rw1, 0, N, a.hk, a.wk, t, c);", ""),
-    ("        softmax_tile<BIAS>(sacc, m, l, corr, rh0, rh1, rw0, rw1, kt * TK, N, a.hk, a.wk, t, c);", ""),
+    ("      softmax_tile<BIAS>(sacc, m, l, corr, rh0, rh1, rw0, rw1, w, 0, N, a.hk, a.wk, t, c);", ""),
+    ("        softmax_tile<BIAS>(sacc, m, l, corr, rh0, rh1, rw0, rw1, w, kt * TK, N, a.hk, a.wk, t, c);", ""),
 ]
 # the producer loads each block's first items and tiles (one per stage) and
 # then only signals, so the consumers recompute data already in shared memory
 LONG_LOADS_ONCE = [
-    ("      uint32_t tx = rel_off;\n", "      uint32_t tx = it < a.q_stages ? rel_off : 0u;\n"),
+    ("      uint32_t tx = rows > 0 ? tile : 0u;\n", "      uint32_t tx = rows > 0 && it < a.q_stages ? tile : 0u;\n"),
     ("          tx += rh_bytes + rw_bytes;\n", "          if (it < a.q_stages) tx += rh_bytes + rw_bytes;\n"),
-    ("            bulk_load(st + rel_off, rh, rh_bytes, q_full(qs));\n",
-     "            if (it < a.q_stages) bulk_load(st + rel_off, rh, rh_bytes, q_full(qs));\n"),
-    ("            bulk_load(st + rel_off + a.rh_alloc, rw, rw_bytes, q_full(qs));\n",
-     "            if (it < a.q_stages) bulk_load(st + rel_off + a.rh_alloc, rw, rw_bytes, q_full(qs));\n"),
-    ("        for (int j = 0; j < DK; ++j) tma_load_4d(st + j * slab, &tq, q_full(qs), 16 * j, h, q0, b);",
-     "        for (int j = 0; j < (it < a.q_stages ? DK : 0); ++j) tma_load_4d(st + j * slab, &tq, q_full(qs), 16 * j, h, q0, b);"),
-    ("          mbar_arrive_expect_tx(kv_full(s), 2 * DK * slab);",
-     "          mbar_arrive_expect_tx(kv_full(s), kv_i < a.kv_stages ? 2 * DK * slab : 0u);"),
-    ("          for (int j = 0; j < DK; ++j) {\n            tma_load_4d(ks + j * slab",
-     "          for (int j = 0; j < (kv_i < a.kv_stages ? DK : 0); ++j) {\n            tma_load_4d(ks + j * slab"),
+    ("            if (rows > 0) {\n", "            if (rows > 0 && it < a.q_stages) {\n"),
+    ("      if (lane == 0 && rows > 0) load_tile<D>(", "      if (lane == 0 && rows > 0 && it < a.q_stages) load_tile<D>("),
+    ("          mbar_arrive_expect_tx(kv_full(s), 2 * tile);",
+     "          mbar_arrive_expect_tx(kv_full(s), kv_i < a.kv_stages ? 2 * tile : 0u);"),
+    ("          if (rank == 0) load_tile<D>(", "          if (rank == 0 && kv_i < a.kv_stages) load_tile<D>("),
+    ("          if (rank == cl - 1) load_tile<D>(", "          if (rank == cl - 1 && kv_i < a.kv_stages) load_tile<D>("),
 ]
-# FA3's ping-pong: the two consumer warpgroups take turns at the tensor
-# cores (named barriers 3 and 4), one issuing its products while the other
-# runs its softmax
-PINGPONG = [
-    ("    const float c = a.scale;\n",
-     "    const float c = a.scale;\n    const int my_turn = 3 + wg, other_turn = 4 - wg;\n"
-     '    if (wg == 1) asm volatile("bar.arrive 3, 256;\\n" ::: "memory");\n'),
-    ("wgmma_fence();\n      issue", 'asm volatile("bar.sync %0, 256;\\n" ::"r"(my_turn) : "memory");\n      wgmma_fence();\n      issue'),
-    ("wgmma_fence();\n        issue",
-     'asm volatile("bar.sync %0, 256;\\n" ::"r"(my_turn) : "memory");\n        wgmma_fence();\n        issue'),
-    ("      issue_s(kv_base + (uint32_t)(s * a.kv_stage_bytes));\n      wgmma_wait0();",
-     '      issue_s(kv_base + (uint32_t)(s * a.kv_stage_bytes));\n'
-     '      asm volatile("bar.arrive %0, 256;\\n" ::"r"(other_turn) : "memory");\n      wgmma_wait0();'),
-    ("        issue_pv(kv_base + (uint32_t)(sp * a.kv_stage_bytes) + DK * slab);\n",
-     "        issue_pv(kv_base + (uint32_t)(sp * a.kv_stage_bytes) + DK * slab);\n"
-     '        asm volatile("bar.arrive %0, 256;\\n" ::"r"(other_turn) : "memory");\n'),
-    ("      issue_pv(kv_base + (uint32_t)(s * a.kv_stage_bytes) + DK * slab);\n",
-     "      issue_pv(kv_base + (uint32_t)(s * a.kv_stage_bytes) + DK * slab);\n"
-     '      asm volatile("bar.arrive %0, 256;\\n" ::"r"(other_turn) : "memory");\n'),
-    ("      if (tw == 0) mbar_arrive(q_empty(qs));\n    }\n",
-     "      if (tw == 0) mbar_arrive(q_empty(qs));\n    }\n"
-     '    if (wg == 0) asm volatile("bar.sync 3, 256;\\n" ::: "memory");\n'),
-]
-# the same with the barrier ids written into each warpgroup's own branch
-# instead of a register operand
-PINGPONG_IMM = [(old, new.replace('asm volatile("bar.sync %0, 256;\\n" ::"r"(my_turn) : "memory");',
-                                  'if (wg == 0) asm volatile("bar.sync 3, 256;\\n" ::: "memory"); '
-                                  'else asm volatile("bar.sync 4, 256;\\n" ::: "memory");')
-                 .replace('asm volatile("bar.arrive %0, 256;\\n" ::"r"(other_turn) : "memory");',
-                          'if (wg == 0) asm volatile("bar.arrive 4, 256;\\n" ::: "memory"); '
-                          'else asm volatile("bar.arrive 3, 256;\\n" ::: "memory");'))
-                for old, new in PINGPONG]
 LONG_VARIANTS = {
     "shipped": [],
-    "loads_only": [NO_S, NO_PV, *NO_SOFTMAX],
+    "loads_only": [*NO_S, *NO_PV, *NO_SOFTMAX],
     "compute_only": LONG_LOADS_ONCE,
     "products_only": NO_SOFTMAX,
-    "no_S": [NO_S],
-    "no_PV": [NO_PV],
-    "no_exp": [(f"    e[{i}] = ex2(fmaf(e[{i}], LOG2E, off[{i // 2}][half]));",
-                f"    e[{i}] = fmaf(e[{i}], LOG2E, off[{i // 2}][half]);") for i in range(4)],
-    "pingpong": PINGPONG,
-    "pingpong_immediate_ids": PINGPONG_IMM,
+    "no_S": NO_S,
+    "no_PV": NO_PV,
+    "no_exp": [(f"    e[{i}] = ex2(fmaf(e[{i}], k2, off[{i // 2}][half]));",
+                f"    e[{i}] = fmaf(e[{i}], k2, off[{i // 2}][half]);") for i in range(4)],
     # each warpgroup's softmax waits for its own P V as well
     "no_overlap": [("        wgmma_wait1();", "        wgmma_wait0();")],
-    "gather_bias": [("  return a.wk == 64 ? launch_long_bias<ROWS64>", "  return false ? launch_long_bias<ROWS64>")],
+    # clusters of one block: each block loads its own K/V tiles
+    "no_multicast": [("constexpr int LONG_CLUSTER = 2;", "constexpr int LONG_CLUSTER = 1;")],
+    # the empty half of a head's last pair (an odd number of items) runs S,
+    # the softmax and P V on its stale Q stage instead of only releasing
+    # each K/V tile
+    "empty_half_computes": [("      if (rows <= 0) {\n        // no queries", "      if (false) {\n        // no queries")],
+    # the cluster size as the compile-time constant in every instantiation,
+    # and read from LongArgs in every one
+    "cluster_constant": [("  const int N = a.N, nh = a.nh, cl = BIAS == NO_BIAS && D == 80 ? LONG_CLUSTER : a.cluster;",
+                          "  const int N = a.N, nh = a.nh, cl = LONG_CLUSTER;")],
+    "cluster_at_run_time": [("  const int N = a.N, nh = a.nh, cl = BIAS == NO_BIAS && D == 80 ? LONG_CLUSTER : a.cluster;",
+                             "  const int N = a.N, nh = a.nh, cl = a.cluster;")],
     "one_q_stage": [("constexpr int MAX_Q_STAGES = 2,", "constexpr int MAX_Q_STAGES = 1,")],
     "two_kv_stages": [("MAX_KV_STAGES = 4;", "MAX_KV_STAGES = 2;")],
-    # one producer warp (288 threads) and no setmaxnreg
-    "one_producer_warp": [
-        ("constexpr int LONG_NT = 384;", "constexpr int LONG_NT = 288;"),
-        ('    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\\n" ::"n"(LONG_PRODUCER_REGS));\n', ""),
-        ('    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\\n" ::"n"(LONG_CONSUMER_REGS));\n', ""),
+    # the remote arrival with release semantics at cluster scope
+    "remote_arrive_release_cluster": [(
+        "        if (cl > 1) mbar_arrive_cluster(kv_empty(s), (uint32_t)(rank ^ 1));",
+        '        if (cl > 1) asm volatile("{\\n.reg .b32 remote;\\nmapa.shared::cluster.u32 remote, %0, %1;\\n"\n'
+        '                                 "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\\n}\\n"'
+        ' ::"r"(kv_empty(s)), "r"(rank ^ 1) : "memory");')],
+    # without the bias, d^-1/2 applied by its own FMUL a logit before the
+    # maximum (the exponent's FFMA then scales by log2 e alone)
+    "scale_unfolded": [
+        ("  const float k2 = BIAS == NO_BIAS ? c * LOG2E : LOG2E;", "  const float k2 = LOG2E;"),
+        ("        e[3] = fmaf(e[3], c, lds_bf16(rh1 + 2 * kh1) + lds_bf16(rw1 + 2 * kw1));\n      }\n",
+         "        e[3] = fmaf(e[3], c, lds_bf16(rh1 + 2 * kh1) + lds_bf16(rw1 + 2 * kw1));\n      } else {\n"
+         "#pragma unroll\n        for (int i = 0; i < 4; ++i) e[i] *= c;\n      }\n"),
     ],
+    "gather_bias": [("  return a.wk == 64 ? launch_long_bias<ROWS64>", "  return false ? launch_long_bias<ROWS64>")],
 }
 
 # ---- the f32 kernel (tf32x3: kernels 1, 2 and 3 in float32)
@@ -251,39 +243,62 @@ def mma_tf32_tflops(reps: int) -> dict:
     return {"mma_sync_tf32_tflops": flops / ms / 1e9, "ms": ms}
 
 
-def highest_registers(lib: Path) -> dict:
-    """The highest register index each kernel's SASS uses (cuobjdump): what
-    ptxas allocated, whatever setmaxnreg asks for at run time."""
+def sass_profile(lib: Path) -> dict:
+    """Per kernel, from its SASS (cuobjdump): the highest register index it
+    uses (what ptxas allocated, whatever setmaxnreg asks for at run time) and
+    how many F2FP (float pairs to bf16) and PRMT (byte permutes) it holds,
+    which shows whether P's packing for P V takes more than one F2FP a pair."""
     sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    top, func = {}, None
+    prof, func = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : \S*(attn_\w+_kernelI\w+?E)E", line)
         if m or "Function :" in line:
             func = m.group(1) if m else None
+            if func:
+                prof[func] = {"highest_register": 0, "F2FP": 0, "PRMT": 0}
         elif func:
-            top[func] = max([top.get(func, 0), *map(int, re.findall(r"\bR(\d+)\b", line))])
-    return top
+            p = prof[func]
+            p["highest_register"] = max([p["highest_register"], *map(int, re.findall(r"\bR(\d+)\b", line))])
+            p["F2FP"] += " F2FP." in line
+            p["PRMT"] += " PRMT " in line
+    return prof
 
 
-def build_all(kernels) -> dict:
+def variant_source(kernel: str, name: str) -> str:
+    """The shipped source of `kernel` with the edits of variant `name`; each
+    edit's text must be in the shipped source exactly once."""
+    src = SOURCES[kernel].read_text()
+    text = src
+    for old, new in VARIANTS[kernel][name]:
+        if src.count(old) != 1:
+            raise SystemExit(f"{kernel}/{name}: the edit's text is in {SOURCES[kernel].name} {src.count(old)} "
+                             f"times, not once: {old[:70]!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def build_all(kernels, variants=None, against=None) -> dict:
+    """Build every variant of `kernels` (or those named in `variants`) and,
+    with `against` (a csrc directory of another version of the long kernel),
+    that version's attention_long.cu as the long kernel's variant "against"."""
     OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    sources = {}
     for kernel in kernels:
-        src = SOURCES[kernel].read_text()
-        for name, edits in VARIANTS[kernel].items():
-            text = src
-            for old, new in edits:
-                if old not in text:
-                    raise SystemExit(f"{kernel}/{name}: the edit's text is not in {SOURCES[kernel].name}: {old[:70]!r}")
-                text = text.replace(old, new)
-            cu = OUT / f"{kernel}_{name}.cu"
-            cu.write_text(text)
-            procs[kernel, name] = subprocess.Popen(
-                ["/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                 "-Xptxas", "-v", "-I", str(CSRC), "-shared", "-Xcompiler", "-fPIC",
-                 "-o", str(OUT / f"{kernel}_{name}.so"), str(cu)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in VARIANTS[kernel]:
+            if variants is None or name in variants:
+                sources[kernel, name] = (variant_source(kernel, name), CSRC)
+    if against is not None:
+        sources["long", "against"] = ((Path(against) / "attention_long.cu").read_text(), Path(against))
+    procs = {}
+    for (kernel, name), (text, include) in sources.items():
+        cu = OUT / f"{kernel}_{name}.cu"
+        cu.write_text(text)
+        procs[kernel, name] = subprocess.Popen(
+            ["/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-Xptxas", "-v", "-I", str(include), "-shared", "-Xcompiler", "-fPIC",
+             "-o", str(OUT / f"{kernel}_{name}.so"), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for (kernel, name), proc in procs.items():
         log = proc.communicate()[0]
@@ -293,7 +308,7 @@ def build_all(kernels) -> dict:
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
         print(json.dumps({"kernel": kernel, "variant": name, "spill_stores_per_function": spills,
                           "registers_per_function": regs,
-                          "highest_register_in_sass": highest_registers(OUT / f"{kernel}_{name}.so")}), flush=True)
+                          "sass": sass_profile(OUT / f"{kernel}_{name}.so")}), flush=True)
         lib = ctypes.CDLL(str(OUT / f"{kernel}_{name}.so"))
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         entry = ENTRIES[kernel]
@@ -321,6 +336,11 @@ def main() -> int:
     ap.add_argument("--kernel", choices=("short", "long", "f32", "all"), default="all")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--variants", help="comma-separated variants to build (default: all)")
+    ap.add_argument("--against", metavar="CSRC",
+                    help="a csrc directory of another version of the long kernel (a git archive of an earlier "
+                         "commit): times it and the shipped one in turns (against, shipped, shipped, against) "
+                         "at the long design's shapes instead of ablating")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ablate_kernels.py runs on a CUDA card")
@@ -328,7 +348,10 @@ def main() -> int:
                          capture_output=True, text=True).stdout.strip()
     print(smi, flush=True)
     kernels = ("short", "long", "f32") if args.kernel == "all" else (args.kernel,)
-    libs = build_all(kernels)
+    if args.against:
+        kernels = ("long",)
+    variants = {"shipped"} if args.against else (set(args.variants.split(",")) if args.variants else None)
+    libs = build_all(kernels, variants, args.against)
     if "f32" in kernels:
         print(json.dumps({"mma_probe": mma_tf32_tflops(args.reps), "card": smi}), flush=True)
 
@@ -366,14 +389,39 @@ def main() -> int:
         out3 = torch.empty(260, 197, 6 * 64, device="cuda", dtype=bf16)
         shapes["short"] = {"kernel1_ms": relpos("pope_attention_short_relpos", qkv1, rel_h, rel_w, out1, 14, 14),
                            "kernel3_ms": plain("pope_attention_short", qkv3, out3)}
+    def global_grid(B, hk, wk, nh, d, bias=True):
+        """q/k/v views of a (B, N, 3, nh, d) tensor on an hk x wk grid, with
+        the rel-pos bias or without it"""
+        N = hk * wk
+        qkv = torch.randn(B, N, 3, nh, d, device="cuda", generator=g).to(bf16)
+        out = torch.empty(B, N, nh * d, device="cuda", dtype=bf16)
+        if not bias:
+            return plain("pope_attention_long", qkv, out)
+        rel_h = (0.5 * torch.randn(B, nh, N, hk, device="cuda", generator=g)).to(bf16)
+        rel_w = (0.5 * torch.randn(B, nh, N, wk, device="cuda", generator=g)).to(bf16)
+        return relpos("pope_attention_long_relpos", qkv, rel_h, rel_w, out, hk, wk)
+
     if "long" in kernels:
-        # kernel 2: global layers, 4 frames of 48 x 64 tokens
-        qkv2 = torch.randn(4, 3072, 3, 16, 80, device="cuda", generator=g).to(bf16)
-        rel_h2 = (0.5 * torch.randn(4, 16, 3072, 48, device="cuda", generator=g)).to(bf16)
-        rel_w2 = (0.5 * torch.randn(4, 16, 3072, 64, device="cuda", generator=g)).to(bf16)
-        out2 = torch.empty(4, 3072, 16 * 80, device="cuda", dtype=bf16)
-        shapes["long"] = {"kernel2_ms": relpos("pope_attention_long_relpos", qkv2, rel_h2, rel_w2, out2, 48, 64),
-                          "kernel2_no_bias_ms": plain("pope_attention_long", qkv2, out2)}
+        # kernel 2: global layers, 4 frames of 48 x 64 tokens, with the bias
+        # and, on q/k/v of the same shape, without it (kernel 3 at d 80); the
+        # sweep's 52 x 64 crops, demo-dinov2's 1025 tokens (6 heads of d 64,
+        # fewer items than SMs), the gathered bias of portrait frames (4 of
+        # 64 x 48 tokens, a 64 x 52 crop) and of a 20 x 55 grid (9 items a
+        # head)
+        shapes["long"] = {"kernel2_ms": global_grid(4, 48, 64, 16, 80),
+                          "kernel2_no_bias_ms": global_grid(4, 48, 64, 16, 80, bias=False),
+                          "kernel2_crop_ms": global_grid(1, 52, 64, 16, 80),
+                          "kernel3_n1025_d64_ms": global_grid(1, 25, 41, 6, 64, bias=False),
+                          "kernel2_portrait_ms": global_grid(4, 64, 48, 16, 80),
+                          "kernel2_portrait_crop_ms": global_grid(1, 64, 52, 16, 80),
+                          "d80_n1100_gather_ms": global_grid(2, 20, 55, 16, 80)}
+        if args.against:
+            # the serving path's square frame and the other head dims
+            shapes["long"] |= {"kernel2_square_ms": global_grid(1, 64, 64, 16, 80),
+                               "d64_n3072_ms": global_grid(4, 48, 64, 16, 64),
+                               "d64_n3072_no_bias_ms": global_grid(4, 48, 64, 16, 64, bias=False),
+                               "d32_n3072_ms": global_grid(4, 48, 64, 16, 32),
+                               "d32_n3072_no_bias_ms": global_grid(4, 48, 64, 16, 32, bias=False)}
 
     if "f32" in kernels:
         f32 = torch.float32
@@ -401,6 +449,15 @@ def main() -> int:
                          "kernel1_f32_ms": relpos("pope_attention_f32_relpos", qkv1f, *rel1, out1f, 14, 14),
                          "kernel2_f32_ms": relpos("pope_attention_f32_relpos", qkv2f, *rel2, out2f, 48, 64)}
 
+    if args.against:
+        old, new = libs["long", "against"], libs["long", "shipped"]
+        for rnd in range(args.rounds):
+            for key, fn in shapes["long"].items():
+                turns = [cuda_ms(lambda lib=lib: fn(lib), args.reps) for lib in (old, new, new, old)]
+                print(json.dumps({"round": rnd, "shape": key, "against_ms": (turns[0] + turns[3]) / 2,
+                                  "shipped_ms": (turns[1] + turns[2]) / 2, "turns_ms": turns, "card": smi}),
+                      flush=True)
+        return 0
     for rnd in range(args.rounds):
         for (kernel, name), lib in libs.items():
             row = {"round": rnd, "kernel": kernel, "variant": name}

@@ -327,20 +327,27 @@ def test_short_kernel_raises_on_what_it_does_not_take(card):
 @pytest.mark.parametrize("bias", [True, False], ids=["bias", "no-bias"])
 @pytest.mark.parametrize("d", [32, 64, 80])
 @pytest.mark.parametrize(
-    "hk,wk", [(1, 257), (8, 40), (3, 64), (8, 64), (20, 50), (45, 64), (48, 64)],
-    ids=["257", "320-8x40", "192-3x64", "512-8x64", "1000-ragged", "2880-45x64", "3072-48x64"],
+    "hk,wk",
+    [(1, 100), (1, 257), (8, 40), (3, 64), (8, 64), (20, 50), (25, 41), (20, 55), (45, 64), (48, 64), (64, 48)],
+    ids=["100-1x100", "257", "320-8x40", "192-3x64", "512-8x64", "1000-ragged", "1025-25x41", "1100-20x55",
+         "2880-45x64", "3072-48x64", "3072-64x48"],
 )
-@pytest.mark.parametrize("B,nh", [(1, 3), (2, 70)], ids=["3-heads", "140-heads"])
+@pytest.mark.parametrize("B,nh", [(1, 1), (1, 3), (2, 70)], ids=["1-head", "3-heads", "140-heads"])
 def test_long_kernel_matches_plain(card, B, nh, hk, wk, d, bias):
     """The long kernel (csrc/attention_long.cu) on views of a (B, N, 3, nh, d)
     qkv tensor, on grids the short kernel does not take: with the rel-pos
     bias on the grid (wk = 64: two whole key rows a 128-key tile, the bias
-    from re-laid words; other grids gathered; 1 x 257 staged by plain copies,
-    its rows not 16-byte multiples) and without it; ragged key and query
-    tails at 192, 257, 320, 1000 and 2880 (an odd number of 64-key rows:
-    the last tile's second key row masked); fewer and more heads than the
-    card has SMs. Every launch goes through the long design and matches the
-    plain version; without the bias, N = 192 is asked of the long design,
+    from per-thread words; other grids gathered; 1 x 257 staged by plain
+    copies, its rows not 16-byte multiples) and without it; ragged key and
+    query tails at 100, 192, 257, 320, 1000, 1025, 1100 and 2880 (an odd
+    number of 64-key rows: the last tile's second key row masked); fewer and
+    more heads than the card has SMs, and one; a portrait frame's 64 x 48
+    grid (gathered bias at SAM's N). The kernel's clusters pair two
+    128-query items of a head and share their K/V tiles: 100 tokens are one
+    item (its pair's second block has no queries), 257, 1025 and 1100 an odd
+    number of items a head (3, 9, 9), so the last pair of every head has an
+    empty half. Every launch goes through the long design and matches the
+    plain version; without the bias, N <= 256 is asked of the long design,
     since the wrapper takes the short one there."""
     g = torch.Generator(device=card).manual_seed(hk * 1000 + wk * 10 + d)
     N = hk * wk
@@ -360,6 +367,63 @@ def test_long_kernel_matches_plain(card, B, nh, hk, wk, d, bias):
         out = flash_attention(q, k, v)
         assert_matches_plain(out, flash_attention_plain(q, k, v))
         assert_one_launch_of(flash_attention, before, "long")
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no-bias"])
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("hk,wk", [(1, 100), (25, 41), (48, 64)], ids=["100-1x100", "1025-25x41", "3072-48x64"])
+def test_long_kernel_on_head_major_views(card, hk, wk, d, bias):
+    """The long kernel on q/k/v strided off the qkv layout: (B, N, nh, d)
+    views of (3, B, nh, N, d), each head's rows one contiguous run (the TMA
+    maps' token stride d, head stride N d), a single item, an odd number of
+    items a head and SAM's grid, with the bias and without it."""
+    g = torch.Generator(device=card).manual_seed(hk * 7 + wk + d)
+    B, nh, N = 2, 3, hk * wk
+    q, k, v = torch.randn(3, B, nh, N, d, device=card, generator=g).to(torch.bfloat16).transpose(2, 3).unbind(0)
+    assert q.stride() == (nh * N * d, d, N * d, 1)
+    if bias:
+        rel_h = (0.5 * torch.randn(B, nh, N, hk, device=card, generator=g)).to(torch.bfloat16)
+        rel_w = (0.5 * torch.randn(B, nh, N, wk, device=card, generator=g)).to(torch.bfloat16)
+        out = launch_attention_relpos(q, k, v, rel_h, rel_w, hk, wk, "long")
+        assert_matches_plain(out, flash_attention_relpos_plain(q, k, v, rel_h, rel_w, hk, wk))
+    else:
+        assert_matches_plain(launch_attention(q, k, v, "long"), flash_attention_plain(q, k, v))
+
+
+def test_long_max_grid_is_the_launchers_fit(card):
+    """LONG_MAX_GRID is what csrc/attention_long.cu's launcher stages at its
+    widest head dim (80): a 1 x (LONG_MAX_GRID - 1) grid launches the long
+    design there and matches the plain version, and the launcher itself
+    takes hk + wk = LONG_MAX_GRID and refuses one more
+    (cudaErrorInvalidValue, and long_layout raises), so routing and launcher
+    cannot drift apart. Past it the streaming kernel runs, one launch, a
+    match."""
+    from pope_tpu_torch.ops.cuda_kernels import LONG_MAX_GRID, _views, library, long_layout
+
+    g = torch.Generator(device=card).manual_seed(5)
+    bf16 = torch.bfloat16
+    for wk, design in ((LONG_MAX_GRID - 1, "long"), (LONG_MAX_GRID, "stream")):
+        q, k, v = torch.randn(1, wk, 3, 1, 80, device=card, generator=g).to(bf16).unbind(2)
+        rel_h, rel_w = ((0.5 * torch.randn(1, 1, wk, n, device=card, generator=g)).to(bf16) for n in (1, wk))
+        assert attention_design(bf16, wk, 80, 1, wk) == design
+        before = dict(flash_attention_relpos.launches_by_design)
+        out = flash_attention_relpos(q, k, v, rel_h, rel_w, 1, wk)
+        assert_matches_plain(out, flash_attention_relpos_plain(q, k, v, rel_h, rel_w, 1, wk))
+        assert_one_launch_of(flash_attention_relpos, before, design)
+    assert long_layout(80, 1, LONG_MAX_GRID - 1)["q_stages"] >= 1
+    with pytest.raises(RuntimeError, match="pope_attention_long_layout"):
+        long_layout(80, 1, LONG_MAX_GRID)
+    stream = torch.cuda.current_stream(card).cuda_stream
+    for wk, want in ((LONG_MAX_GRID - 1, 0), (LONG_MAX_GRID, 1)):  # cudaSuccess, cudaErrorInvalidValue
+        q, k, v = torch.randn(1, wk, 3, 1, 80, device=card, generator=g).to(bf16).unbind(2)
+        out = torch.empty(1, wk, 80, device=card, dtype=bf16)
+        rel_h = torch.zeros(1, 1, wk, 1, device=card, dtype=bf16)
+        rel_w = torch.zeros(1, 1, wk, wk, device=card, dtype=bf16)
+        ptrs, strides = _views(q, k, v)
+        err = library().pope_attention_long_relpos(*ptrs, rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(),
+                                                   *strides, 1, wk, 1, 80, 1, wk, 80 ** -0.5, stream)
+        torch.cuda.synchronize()
+        assert err == want
 
 
 def test_long_kernel_raises_on_what_it_does_not_take(card):
