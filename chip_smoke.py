@@ -8,7 +8,7 @@ Phases, each of which raises on failure (exit code != 0):
   2. build: compile the CUDA kernels from pope_tpu_torch/csrc with nvcc (one
      process per source, in parallel), print ptxas's registers, shared
      memory and spills for the short kernel's 12 instantiations, the long
-     kernel's 9 and the f32 tf32x3 kernel's 8, none of which may spill;
+     kernel's 18 and the f32 tf32x3 kernel's 18, none of which may spill;
   3. kernels: each ported kernel at the shape the main path gives it (SAM
      ViT-H's AMG program on B=4 640x480 frames, rect 48x64 token grid, for
      the two rel-pos kernels; DINOv2 ViT-S/14's retrieval forward over 4
@@ -25,10 +25,13 @@ Phases, each of which raises on failure (exit code != 0):
      sleep on the card, so the host's time per call does not enter it.
      Kernels 1 and 2 are also held and timed at the serving path's square
      64x64 token grid (one frame: 25 windows, N = 4096), kernel 2 at the
-     multi-crop sweep's 52x64 grid (one crop, N = 3328) and kernel 3 through
-     the long bias-free design at demo-dinov2's N = 1025 (one image, a
-     masked key tail); the long kernel's launcher reports the Q and K/V
-     stages it picks at the three grids. Kernels 1 and 2 in float32 (the
+     multi-crop sweep's 52x64 grid (one crop, N = 3328), at portrait
+     frames' 64x48 grid (4 frames) and their crops' 64x52 (one crop), and
+     kernel 3 through the long bias-free design at demo-dinov2's N = 1025
+     (one image, a masked key tail); the long kernel's launcher reports the
+     bias layout, row width, Q and K/V stages it picks at the five grids of
+     kernel 2, and each must take whole key rows (not the gather). Kernels 1
+     and 2 in float32 (the
      f32 SAM configs: 80 windows of 14x14, 4 frames of 48x64) through the
      tf32x3 design (csrc/attention_f32.cu: 3xTF32 on the tensor cores),
      beside the streaming design's f32 body, SDPA with the bias as a float
@@ -447,9 +450,16 @@ def run_kernel_phases():
     # crop_n_layers=1): each 321-322 x 401-402 px, resized to about 820x1024,
     # padded to a 52x64 token grid
     global_row("flash_attention_relpos_crop", 1, 52, 64, 20, None)
-    print(json.dumps({"long_layout": {key: rows[key]["long_layout"] for key in
-                                      ("flash_attention_relpos", "flash_attention_relpos_square",
-                                       "flash_attention_relpos_crop")}}), flush=True)
+    # portrait frames (rect_frame: a 1024x768 portrait is 64x48 tokens) and
+    # their sweep crops (64x52): whole key rows of 48 and 56 slots
+    global_row("flash_attention_relpos_portrait", 4, 64, 48, 10, None)
+    global_row("flash_attention_relpos_portrait_crop", 1, 64, 52, 20, None)
+    global_keys = ("flash_attention_relpos", "flash_attention_relpos_square", "flash_attention_relpos_crop",
+                   "flash_attention_relpos_portrait", "flash_attention_relpos_portrait_crop")
+    print(json.dumps({"long_layout": {key: rows[key]["long_layout"] for key in global_keys}}), flush=True)
+    for key in global_keys:  # SAM's global grids (wk 48-64) all on whole key rows, none gathered
+        if rows[key]["long_layout"]["bias"] != "rows":
+            raise AssertionError(f"{key} takes the {rows[key]['long_layout']['bias']} bias layout, not rows")
     # kernels 1 and 2 in float32 (the f32 SAM configs) through the tf32x3
     # design, the streaming design's f32 body timed beside them
     windowed_row("windowed_attention_relpos_f32", 80, windowed_stream, torch.float32)
@@ -498,7 +508,7 @@ def run_kernel_phases():
 
 PTXAS_KERNELS = {  # the hand-written Hopper kernels' instantiations, by mangled name
     "attn_short_kernel": (re.compile(r"attn_short_kernelILi(\d+)ELb([01])ELb([01])E"), 12),
-    "attn_long_kernel": (re.compile(r"attn_long_kernelILi(\d+)ELi(\d)E"), 9),
+    "attn_long_kernel": (re.compile(r"attn_long_kernelILi(\d+)ELi(\d)ELi(\d)E"), 18),
     "attn_f32_kernel": (re.compile(r"attn_f32_kernelILi(\d+)ELb([01])ELi(\d+)ELb([01])E"), 18),
 }
 
@@ -506,7 +516,7 @@ PTXAS_KERNELS = {  # the hand-written Hopper kernels' instantiations, by mangled
 def ptxas_rows(log: str) -> list:
     """ptxas's registers, shared memory and spills for each instantiation of
     the short kernel (attn_short_kernel<D, HAS_BIAS, WIDE>), the long one
-    (attn_long_kernel<D, BIAS>) and the f32 one (attn_f32_kernel<DP,
+    (attn_long_kernel<D, BIAS, RB>) and the f32 one (attn_f32_kernel<DP,
     HAS_BIAS, TQ, VEC>), from nvcc's -v log."""
     rows, cur = [], None
     for line in log.splitlines():
@@ -4173,6 +4183,12 @@ def main() -> int:
         if crop is not None:  # the multi-crop sweep's 52x64 grid, B=1
             entry["crop_52x64"] = {k: crop[k] for k in timing} | {
                 "source": crop["source"], "launches": records_launches["records_crop1"][name]}
+        for key, grid in (("portrait", "portrait_4x64x48"), ("portrait_crop", "portrait_crop_64x52")):
+            r = kernels.get(f"{name}_{key}")
+            if r is not None:  # portrait frames' grids, on whole key rows
+                entry[grid] = {k: r[k] for k in timing} | {
+                    "source": r["source"], "bias_layout": r["long_layout"]["bias"],
+                    "row_slots": r["long_layout"]["row_slots"]}
         entry["ssl_launches"] = {"train_step": ssl["launches_per_step"][name],
                                  "extract_cls_features_batch": ssl["eval"]["launches_per_batch"][name]}
         entry["nvs_launches"] = nvs["launches"][name]

@@ -30,14 +30,24 @@
 //     items head-major, so the query tiles of a head run side by side and
 //     its 0.98 MB of K and V comes from L2, not device memory;
 //   - the bias was gathered per logit from shared memory with a running
-//     (kh, kw) wrap.  With wk = 64 (SAM's global grids) a 128-key tile is
-//     two whole key rows, so each thread's accumulator columns have the same
-//     kw in every tile: its 16 rel_w values per row are read once per item
-//     into 16 registers (bf16 pairs), its rel_h
-//     values are 2 per row per tile, and each logit is one FFMA (s * d^-1/2
-//     + rel_w), the rel_h term folded into the exponent's offset.  Other
-//     grids gather both terms from the staged slabs per logit (right, not
-//     fast);
+//     (kh, kw) wrap.  Here, as the Pallas kernel's key tiles cover whole key
+//     rows, a K/V tile is two whole key rows, each padded to 8 RB slots, RB
+//     = ceil(wk / 8): K's and V's TMA maps are 5-D, (d, nh, wk, hk, B), a
+//     box two rows of 8 RB slots, slots past wk read as zeros, and S is an
+//     m64n{16 RB} product (96 keys at a portrait frame's wk = 48, 112 at
+//     its crops' 52, 128 at wk = 64).  Each thread's accumulator columns
+//     then have the same kw in every tile: its rel_w values per row are
+//     read once per item into RB registers (bf16 pairs, -inf in a slot past
+//     wk, so that a padded key weighs 0 without a pass of its own), its
+//     rel_h values are 2 per row per tile (-inf for a second row past an
+//     odd hk), and each logit is one FFMA (s * d^-1/2 + rel_w), the rel_h
+//     term folded into the exponent's offset.
+//     That takes every grid of 32 < wk <= 64, SAM's global grids all.
+//     Padding every row to 64 slots, one instantiation for all, read 11-16%
+//     slower at 4 x 64x48 and 7-9% at 64x52 (variant "row_slots_64").  Other
+//     grids (wk <= 32 or > 64; no SAM caller at 1024 px) gather both terms
+//     per logit from the staged slabs, walking (kh, kw) along the thread's
+//     keys;
 //   - loads, S, softmax and P V ran in series in every warp.  Here one
 //     producer warp keeps Q (with the item's rel slabs) and 128-key K/V tiles
 //     in flight by TMA through mbarrier rings (2 Q stages, 2-4 K/V stages);
@@ -58,8 +68,8 @@
 // within 1% of this at every shape (S is not what holds this body), and V
 // split the same way (P V an m64n64 beside an m64n16) 0.04-0.07 ms slower,
 // the short product costing about what a long one does; neither ships.
-// The TMA maps are 4-D (d, nh, N, B) over the strided q/k/v views, rows
-// past N read as zeros.
+// The other TMA maps are 4-D (d, nh, N, B) over the strided q/k/v views,
+// rows past N read as zeros.
 //
 // Blocks run in clusters of two.  A cluster takes two query items of the
 // same head side by side, and each K/V tile is loaded once for both: block
@@ -86,10 +96,11 @@
 // row segments.
 //
 // Budget at kernel 2's shape: a Q stage is 20 KB of Q and 28 KB of rel slabs
-// (48 KB), a K/V stage 40 KB; 2 + 3 stages take 216 KB of the 227 KB a
+// (48 KB), a K/V stage 40 KB (whatever RB: a tile of 16 RB keys fills the
+// first 16 RB rows of its slabs); 2 + 3 stages take 216 KB of the 227 KB a
 // block may use, every stage on 1024 bytes (one Q stage and four K/V stages
-// measured 4% slower).  Registers: S 64 f32 accumulators a thread, O d/2,
-// P's fragments 8 x 4, ROWS64's rel_w words 16; the producer warpgroup
+// measured 4% slower).  Registers: S 8 RB f32 accumulators a thread (64
+// at RB = 8), O d/2, P's fragments RB x 4, the rows' rel_w words 2 RB; the producer warpgroup
 // gives its registers to the consumers (setmaxnreg 40 / 232), and ptxas
 // uses them (tools/ablate_kernels.py prints the highest register each
 // instantiation's SASS reaches).  What holds the body is the softmax and
@@ -123,7 +134,17 @@ constexpr int LONG_CLUSTER = 2;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr uint32_t SLAB = TQ * SLAB_ROW;  // one 16-column slab of an operand tile (TQ = TK rows)
 
-enum Bias { NO_BIAS = 0, GATHER = 1, ROWS64 = 2 };
+// the bias's layout: none, gathered per logit, or whole key rows (two a K/V
+// tile, each padded to a multiple of 8 slots, at most ROW_SLOTS) with
+// per-thread rel_w words
+enum Bias { NO_BIAS = 0, GATHER = 1, ROWS = 2 };
+constexpr int ROW_SLOTS = TK / 2;
+
+// The layout of an hk x wk grid (hk = 0: no bias): whole key rows where a
+// row fills more than half of ROW_SLOTS, else gathered.
+int bias_layout(int hk, int wk) { return hk == 0 ? NO_BIAS : wk > ROW_SLOTS / 2 && wk <= ROW_SLOTS ? ROWS : GATHER; }
+// ROWS: the 8-slot blocks of a key row, wk padded to a multiple of 8 (RB)
+int row_blocks(int wk) { return (wk + 7) / 8; }
 
 struct LongArgs {
   const __nv_bfloat16* rel_h;  // (B, nh, N, hk), contiguous
@@ -148,15 +169,57 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // shared-memory loads by 32-bit address (a generic pointer takes two registers)
-__device__ __forceinline__ uint32_t lds_u32(uint32_t addr) {
-  uint32_t v;
-  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
-  return v;
-}
 __device__ __forceinline__ float lds_bf16(uint32_t addr) {
   unsigned short v;
   asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr) : "memory");
   return __uint_as_float((uint32_t)v << 16);
+}
+
+// rel_h of key row kh from its staged entry at `at`, or -inf where kh is
+// past hk: a load predicated in one asm statement, which measured faster
+// than a select of -inf after the load and than an instantiation of its own
+// for odd hk that left the other grids' tiles unmasked (which read 4-7%
+// slower: ptxas schedules that body worse)
+__device__ __forceinline__ float lds_rel_h(uint32_t at, int kh, int hk) {
+  uint32_t v;
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b16 h, z;\nmov.b16 h, 0xff80;\nmov.b16 z, 0;\nsetp.lt.s32 p, %2, %3;\n"
+      "@p ld.shared.u16 h, [%1];\nmov.b32 %0, {z, h};\n}\n"
+      : "=r"(v)
+      : "r"(at), "r"(kh), "r"(hk)
+      : "memory");
+  return __uint_as_float(v);
+}
+
+// rel_w of slots kw = 2t + KW0 and kw + 1 of a staged row as a bf16 pair,
+// -inf (0xff80) in a slot past wk; `at` is the shared address of slot 2t.
+// One asm statement: written in C++, the compiler hoisted each slot's
+// compare out of the item loop and held them across it, 13-22 registers
+// more (variant "rel_w_pad_in_cxx").
+template <int KW0>
+__device__ __forceinline__ uint32_t rel_w_pair(uint32_t at, int t2, int wk) {
+  uint32_t v;
+  asm volatile(
+      "{\n.reg .pred p, q;\n.reg .b32 kw;\n.reg .b16 lo, hi;\n"
+      "add.s32 kw, %2, %4;\nsetp.lt.s32 p, kw, %3;\nadd.s32 kw, kw, 1;\nsetp.lt.s32 q, kw, %3;\n"
+      "mov.b16 lo, 0xff80;\nmov.b16 hi, 0xff80;\n"
+      "@p ld.shared.u16 lo, [%1+%5];\n@q ld.shared.u16 hi, [%1+%6];\n"
+      "mov.b32 %0, {lo, hi};\n}\n"
+      : "=r"(v)
+      : "r"(at), "r"(t2), "r"(wk), "n"(KW0), "n"(2 * KW0), "n"(2 * KW0 + 2)
+      : "memory");
+  return v;
+}
+
+// this thread's rel_w words of an item (rows r0 and r1 from their slot 2t
+// at at0 and at1): slots 8 cb + 2t, +1 in w[cb] and w[8 + cb], cb < RB
+template <int RB, int CB = 0>
+__device__ __forceinline__ void load_rel_w(uint32_t (&w)[16], uint32_t at0, uint32_t at1, int t2, int wk) {
+  if constexpr (CB < RB) {
+    w[CB] = rel_w_pair<8 * CB>(at0, t2, wk);
+    w[8 + CB] = rel_w_pair<8 * CB>(at1, t2, wk);
+    load_rel_w<RB, CB + 1>(w, at0, at1, t2, wk);
+  }
 }
 
 // One operand tile (rows row0 .. row0 + 127 of head h in frame b) by TMA
@@ -172,6 +235,22 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, 
   }
 }
 
+// K/V tile kt: keys kt * 128 .. kt * 128 + 127 by the 4-D map, or (ROWS) key
+// rows 2 kt and 2 kt + 1 by the 5-D map, each at slots 0-63 of its half
+template <int D, int BIAS>
+__device__ __forceinline__ void load_kv_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar, int kt, int h,
+                                             int b, uint16_t mask) {
+  if constexpr (BIAS == ROWS) {
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) {
+      if (mask) tma_load_5d_multicast(dst + j * SLAB, map, bar, mask, 16 * j, h, 0, 2 * kt, b);
+      else tma_load_5d(dst + j * SLAB, map, bar, 16 * j, h, 0, 2 * kt, b);
+    }
+  } else {
+    load_tile<D>(dst, map, bar, kt * TK, h, b, mask);
+  }
+}
+
 // The byte offset of 16-byte chunk ch (columns 8 ch .. 8 ch + 7) of row r in
 // an operand tile, where TMA's 32-byte swizzle puts it: chunk (ch mod 2) xor
 // (r / 4 mod 2) of the row in slab ch / 2.
@@ -179,59 +258,55 @@ __device__ __forceinline__ uint32_t chunk_offset(int r, int ch) {
   return (ch >> 1) * SLAB + r * SLAB_ROW + (((ch & 1) ^ ((r >> 2) & 1)) << 4);
 }
 
-// The online softmax of one 128-key tile for this thread's rows r0 and r1
+// The online softmax of one K/V tile (2 RB blocks of 8 keys: 128 keys, or
+// with ROWS two key rows of 8 RB slots) for this thread's rows r0 and r1
 // (rows rr0, rr1 of the staged rel slabs): the logits x = s * scale + bias
 // become the weights p = 2^((x - m) log2 e) in s, m (the row maxima of x) and
 // l (this thread's part of the row sums) are updated, and corr gets the
 // factor by which O must be rescaled.  Without the bias, m holds the maxima
 // of s itself and p = 2^(s k2 - m k2) with k2 = scale log2 e: one FFMA a
-// logit.  Accumulator layout of m64n128:
+// logit.  Accumulator layout of m64n{16 RB}:
 // s[4 * blk + {0, 1}] are row r0's keys 8 blk + 2t + {0, 1}, s[4 * blk +
 // {2, 3}] row r1's.  rh0 and rh1 are the shared addresses of the two rows'
-// rel_h entries, rw0 and rw1 of their rel_w entries; ROWS64 holds its rel_w
-// values instead in registers, as the 16 words w (bf16 pairs: row r0's
-// columns 8i + 2t, +1 for i < 8, row r1's for i >= 8).
-template <int BIAS>
-__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2], float (&corr)[2],
+// rel_h entries, rw0 and rw1 of their rel_w entries; ROWS holds its rel_w
+// values instead in registers, as the words w (bf16 pairs: row r0's slots
+// 8i + 2t, +1 in w[i], row r1's in w[8 + i], i < RB), and reads k0 (tile
+// kt's kt * 128) as key rows from k0 / 64.
+template <int BIAS, int RB>
+__device__ __forceinline__ void softmax_tile(float (&s)[8 * RB], float (&m)[2], float (&l)[2], float (&corr)[2],
                                              uint32_t rh0, uint32_t rh1, uint32_t rw0, uint32_t rw1,
                                              const uint32_t (&w)[16], int k0, int N, int hk, int wk, int t,
                                              float c) {
   const float k2 = BIAS == NO_BIAS ? c * LOG2E : LOG2E;  // the exponent's scale of m's units
-  float off[2][2];  // row maxima, less rel_h of keys 0-63 and 64-127 of the tile (ROWS64)
+  float off[2][2];  // row maxima, less rel_h of the tile's first and second key row (ROWS)
   float mx0, mx1;
-  if constexpr (BIAS == ROWS64) {
-    // the tile is key rows k0 / 64 and k0 / 64 + 1 (past hk only when masked)
-    const int kh0 = min(k0 / 64, hk - 1), kh1 = min(k0 / 64 + 1, hk - 1);
-    const float h00 = lds_bf16(rh0 + 2 * kh0), h01 = lds_bf16(rh0 + 2 * kh1);
-    const float h10 = lds_bf16(rh1 + 2 * kh0), h11 = lds_bf16(rh1 + 2 * kh1);
+  if constexpr (BIAS == ROWS) {
+    // the tile is key rows kh0 and kh0 + 1; a second row past hk (the last
+    // tile of an odd hk) gets rel_h -inf, so its offset below is -inf and
+    // its weights 0
+    const int kh0 = k0 / ROW_SLOTS;
+    const float h00 = lds_bf16(rh0 + 2 * kh0), h10 = lds_bf16(rh1 + 2 * kh0);
+    const float h01 = lds_rel_h(rh0 + 2 * kh0 + 2, kh0 + 1, hk), h11 = lds_rel_h(rh1 + 2 * kh0 + 2, kh0 + 1, hk);
     float mh[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
 #pragma unroll
-    for (int cb = 0; cb < 8; ++cb) {
+    for (int cb = 0; cb < RB; ++cb) {
       const uint32_t w0 = w[cb], w1 = w[8 + cb];
       const float b00 = __uint_as_float(w0 << 16), b01 = __uint_as_float(w0 & 0xffff0000u);
       const float b10 = __uint_as_float(w1 << 16), b11 = __uint_as_float(w1 & 0xffff0000u);
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        float* e = &s[4 * (8 * half + cb)];
+        float* e = &s[4 * (RB * half + cb)];
         e[0] = fmaf(e[0], c, b00);
         e[1] = fmaf(e[1], c, b01);
         e[2] = fmaf(e[2], c, b10);
         e[3] = fmaf(e[3], c, b11);
       }
     }
-    if (k0 + TK > N) {  // keys past N: a pass of its own, taken by the last tile alone
 #pragma unroll
-      for (int blk = 0; blk < 16; ++blk) {
-        const int key = k0 + 8 * blk + 2 * t;
-        if (key >= N) s[4 * blk] = s[4 * blk + 2] = -INFINITY;
-        if (key + 1 >= N) s[4 * blk + 1] = s[4 * blk + 3] = -INFINITY;
-      }
-    }
-#pragma unroll
-    for (int blk = 0; blk < 16; ++blk) {
+    for (int blk = 0; blk < 2 * RB; ++blk) {
       const float* e = &s[4 * blk];
-      mh[0][blk >> 3] = fmaxf(mh[0][blk >> 3], fmaxf(e[0], e[1]));
-      mh[1][blk >> 3] = fmaxf(mh[1][blk >> 3], fmaxf(e[2], e[3]));
+      mh[0][blk / RB] = fmaxf(mh[0][blk / RB], fmaxf(e[0], e[1]));
+      mh[1][blk / RB] = fmaxf(mh[1][blk / RB], fmaxf(e[2], e[3]));
     }
     mx0 = fmaxf(mh[0][0] + h00, mh[0][1] + h01);
     mx1 = fmaxf(mh[1][0] + h10, mh[1][1] + h11);
@@ -245,22 +320,31 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
     off[0][0] = mx0 - h00, off[0][1] = mx0 - h01;
     off[1][0] = mx1 - h10, off[1][1] = mx1 - h11;
   } else {
-    // masked as the maxima are taken (a separate pass, as ROWS64 takes,
-    // spilled with the gathered bias and slowed the bias-free d 32 and 64)
+    // masked as the maxima are taken (a separate pass spilled with the
+    // gathered bias and slowed the bias-free d 32 and 64)
     const bool ragged = k0 + TK > N;
     mx0 = -INFINITY, mx1 = -INFINITY;
+    // GATHER: (kh, kw) of this thread's first key, then walked 8 keys (dkh
+    // rows and dkw slots) a column block
+    int kh = 0, kw = 0, dkh = 0, dkw = 0;
+    if constexpr (BIAS == GATHER) {
+      kh = (k0 + 2 * t) / wk, kw = k0 + 2 * t - kh * wk;
+      dkh = 8 / wk, dkw = 8 - dkh * wk;
+    }
 #pragma unroll
-    for (int blk = 0; blk < 16; ++blk) {
+    for (int blk = 0; blk < 2 * RB; ++blk) {
       float* e = &s[4 * blk];
       const int key = k0 + 8 * blk + 2 * t;
       if constexpr (BIAS == GATHER) {
-        int kh = key / wk, kw = key - kh * wk, kh1 = kh, kw1 = kw + 1;
+        int kh1 = kh, kw1 = kw + 1;
         if (kw1 == wk) kw1 = 0, ++kh1;
-        kh = min(kh, hk - 1), kh1 = min(kh1, hk - 1);
-        e[0] = fmaf(e[0], c, lds_bf16(rh0 + 2 * kh) + lds_bf16(rw0 + 2 * kw));
-        e[1] = fmaf(e[1], c, lds_bf16(rh0 + 2 * kh1) + lds_bf16(rw0 + 2 * kw1));
-        e[2] = fmaf(e[2], c, lds_bf16(rh1 + 2 * kh) + lds_bf16(rw1 + 2 * kw));
-        e[3] = fmaf(e[3], c, lds_bf16(rh1 + 2 * kh1) + lds_bf16(rw1 + 2 * kw1));
+        const int ch = min(kh, hk - 1), ch1 = min(kh1, hk - 1);
+        e[0] = fmaf(e[0], c, lds_bf16(rh0 + 2 * ch) + lds_bf16(rw0 + 2 * kw));
+        e[1] = fmaf(e[1], c, lds_bf16(rh0 + 2 * ch1) + lds_bf16(rw0 + 2 * kw1));
+        e[2] = fmaf(e[2], c, lds_bf16(rh1 + 2 * ch) + lds_bf16(rw1 + 2 * kw));
+        e[3] = fmaf(e[3], c, lds_bf16(rh1 + 2 * ch1) + lds_bf16(rw1 + 2 * kw1));
+        kh += dkh, kw += dkw;
+        if (kw >= wk) kw -= wk, ++kh;
       }
       if (ragged) {
         if (key >= N) e[0] = e[2] = -INFINITY;
@@ -291,9 +375,9 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
     for (int half = 0; half < 2; ++half) off[r][half] *= -k2;
   float ls0 = 0.f, ls1 = 0.f;
 #pragma unroll
-  for (int blk = 0; blk < 16; ++blk) {
+  for (int blk = 0; blk < 2 * RB; ++blk) {
     float* e = &s[4 * blk];
-    const int half = blk >> 3;
+    const int half = blk / RB;
     e[0] = ex2(fmaf(e[0], k2, off[0][half]));
     e[1] = ex2(fmaf(e[1], k2, off[0][half]));
     e[2] = ex2(fmaf(e[2], k2, off[1][half]));
@@ -305,10 +389,11 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
   l[1] = l[1] * corr[1] + ls1;
 }
 
-// P as bf16 A fragments of the 8 k-steps of P V (k-step j: n-blocks 2j, 2j + 1)
-__device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&pf)[8][4]) {
+// P as bf16 A fragments of the RB k-steps of P V (k-step j: n-blocks 2j, 2j + 1)
+template <int RB>
+__device__ __forceinline__ void pack_p(const float (&s)[8 * RB], uint32_t (&pf)[RB][4]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < RB; ++j) {
     pf[j][0] = pack_bf16(s[8 * j], s[8 * j + 1]);
     pf[j][1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
     pf[j][2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
@@ -322,13 +407,14 @@ __device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&pf)[8][4
 // tile is D/16 slabs of 128 rows x 32 B.  A unit is (b * nh + h, pair of
 // 128-query tiles), numbered head-major; cluster i takes units i, i +
 // clusters, ..., and its block of rank r the unit's tile r.
-template <int D, int BIAS>
+template <int D, int BIAS, int RB>
 __global__ void __launch_bounds__(LONG_NT, 1)
     attn_long_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const LongArgs a) {
   constexpr int DK = D / 16;  // k-steps of S, slabs per operand tile
   constexpr int DB = D / 8;   // 8-column blocks of O, 16-byte chunks of an output row
   constexpr uint32_t tile = DK * SLAB;
+  constexpr uint32_t kv_tx = 2 * DK * 16 * RB * SLAB_ROW;  // the bytes of a K and a V tile (2 tile at RB = 8)
   constexpr uint32_t rel_off = tile;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -344,7 +430,8 @@ __global__ void __launch_bounds__(LONG_NT, 1)
   // faster there; 11% slower at d = 64, variant "cluster_constant"), read
   // from LongArgs in the others (variant "cluster_at_run_time")
   const int N = a.N, nh = a.nh, cl = BIAS == NO_BIAS && D == 80 ? LONG_CLUSTER : a.cluster;
-  const int ntq = (N + TQ - 1) / TQ, nkt = (N + TK - 1) / TK;
+  // K/V tiles: two key rows each (ROWS), else 128 keys
+  const int ntq = (N + TQ - 1) / TQ, nkt = BIAS == ROWS ? (a.hk + 1) / 2 : (N + TK - 1) / TK;
   const int per_head = (ntq + cl - 1) / cl;  // units of a head
   const int n_units = a.B * nh * per_head;
   const int rank = (int)cluster_ctarank();
@@ -412,9 +499,9 @@ __global__ void __launch_bounds__(LONG_NT, 1)
         mbar_wait(kv_empty(s), ((uint32_t)(kv_i / a.kv_stages) & 1u) ^ 1u);
         if (lane == 0) {
           const uint32_t ks = kv_base + (uint32_t)(s * a.kv_stage_bytes);
-          mbar_arrive_expect_tx(kv_full(s), 2 * tile);  // K and V, whichever block loads them
-          if (rank == 0) load_tile<D>(ks, &tk, kv_full(s), kt * TK, h, b, mask);
-          if (rank == cl - 1) load_tile<D>(ks + tile, &tv, kv_full(s), kt * TK, h, b, mask);
+          mbar_arrive_expect_tx(kv_full(s), kv_tx);  // K and V, whichever block loads them
+          if (rank == 0) load_kv_tile<D, BIAS>(ks, &tk, kv_full(s), kt, h, b, mask);
+          if (rank == cl - 1) load_kv_tile<D, BIAS>(ks + tile, &tv, kv_full(s), kt, h, b, mask);
         }
       }
       __syncwarp();
@@ -433,12 +520,12 @@ __global__ void __launch_bounds__(LONG_NT, 1)
     const int64_t C = (int64_t)nh * D;
     const float c = a.scale;
 
-    float sacc[64];
+    float sacc[8 * RB];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) sacc[i] = 0.f;
+    for (int i = 0; i < 8 * RB; ++i) sacc[i] = 0.f;
     float oacc[D / 2];
-    uint32_t pf[8][4];
-    uint32_t w[16];  // ROWS64: this thread's rel_w words of the item
+    uint32_t pf[RB][4];
+    uint32_t w[16];  // ROWS: this thread's rel_w words of the item
     // a K/V stage is free once this block's and the peer's consumers are done with it
     auto release = [&](int s) {
       if (lane == 0) {
@@ -468,20 +555,16 @@ __global__ void __launch_bounds__(LONG_NT, 1)
       const uint32_t Qs = qst + wg * 64 * SLAB_ROW;
       unsigned char* qg = gbase + (qs * a.q_stage_bytes);
       // the shared addresses of rows r0 and r1 of the item's rel_h and rel_w
-      // slabs; rows past N read the last row's (GATHER; ROWS64 reads its own
+      // slabs; rows past N read the last row's (GATHER; ROWS reads its own
       // rows, whatever they hold: those rows are not written)
-      const int rr0 = BIAS == ROWS64 ? lr0 : min(lr0, rows - 1), rr1 = BIAS == ROWS64 ? lr1 : min(lr1, rows - 1);
+      const int rr0 = BIAS == ROWS ? lr0 : min(lr0, rows - 1), rr1 = BIAS == ROWS ? lr1 : min(lr1, rows - 1);
       const uint32_t rh_s = qst + rel_off, rw_s = rh_s + a.rh_alloc;
       const uint32_t rh0 = rh_s + 2 * rr0 * a.hk, rh1 = rh_s + 2 * rr1 * a.hk;
       const uint32_t rw0 = rw_s + 2 * rr0 * a.wk, rw1 = rw_s + 2 * rr1 * a.wk;
-      if constexpr (BIAS == ROWS64) {
+      if constexpr (BIAS == ROWS) {
         // the 16 rel_w words this thread's accumulator columns read in every
         // tile, held in registers for the item
-#pragma unroll
-        for (int cb = 0; cb < 8; ++cb) {
-          w[cb] = lds_u32(rw0 + 16 * cb + 4 * t);
-          w[8 + cb] = lds_u32(rw1 + 16 * cb + 4 * t);
-        }
+        load_rel_w<RB>(w, rw0 + 4 * t, rw1 + 4 * t, 2 * t, a.wk);
       }
       float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
 #pragma unroll
@@ -491,13 +574,13 @@ __global__ void __launch_bounds__(LONG_NT, 1)
       auto issue_s = [&](uint32_t Ks) {
 #pragma unroll
         for (int ks = 0; ks < DK; ++ks)
-          wgmma_ss_n128(sacc, desc_b32(Qs + ks * SLAB, 16), desc_b32(Ks + ks * SLAB, 16), ks > 0);
+          wgmma_ss<16 * RB>(sacc, desc_b32(Qs + ks * SLAB, 16), desc_b32(Ks + ks * SLAB, 16), ks > 0);
         wgmma_commit();
       };
       // O += P V: one m64n{D}k16 a 16-key step, V MN-major across the slabs
       auto issue_pv = [&](uint32_t Vs) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) wgmma_rs<D>(oacc, pf[j], desc_b32(Vs + j * 16 * SLAB_ROW, SLAB), 1);
+        for (int j = 0; j < RB; ++j) wgmma_rs<D>(oacc, pf[j], desc_b32(Vs + j * 16 * SLAB_ROW, SLAB), 1);
         wgmma_commit();
       };
 
@@ -509,8 +592,8 @@ __global__ void __launch_bounds__(LONG_NT, 1)
       issue_s(kv_base + (uint32_t)(s * a.kv_stage_bytes));
       wgmma_wait0();
       fence_regs(sacc);
-      softmax_tile<BIAS>(sacc, m, l, corr, rh0, rh1, rw0, rw1, w, 0, N, a.hk, a.wk, t, c);
-      pack_p(sacc, pf);
+      softmax_tile<BIAS, RB>(sacc, m, l, corr, rh0, rh1, rw0, rw1, w, 0, N, a.hk, a.wk, t, c);
+      pack_p<RB>(sacc, pf);
 
       // tile kt: S of kt and P V of kt - 1 issued together; the softmax of
       // kt runs while P V does
@@ -527,7 +610,7 @@ __global__ void __launch_bounds__(LONG_NT, 1)
         issue_pv(kv_base + (uint32_t)(sp * a.kv_stage_bytes) + tile);
         wgmma_wait1();
         fence_regs(sacc);
-        softmax_tile<BIAS>(sacc, m, l, corr, rh0, rh1, rw0, rw1, w, kt * TK, N, a.hk, a.wk, t, c);
+        softmax_tile<BIAS, RB>(sacc, m, l, corr, rh0, rh1, rw0, rw1, w, kt * TK, N, a.hk, a.wk, t, c);
         wgmma_wait0();
         fence_regs(oacc);
         fence_regs(pf);
@@ -539,7 +622,7 @@ __global__ void __launch_bounds__(LONG_NT, 1)
           oacc[i + 2] *= corr[1];
           oacc[i + 3] *= corr[1];
         }
-        pack_p(sacc, pf);
+        pack_p<RB>(sacc, pf);
       }
 
       // P V of the last tile
@@ -629,19 +712,19 @@ cudaLaunchConfig_t long_config(int grid, int smem, cudaStream_t stream, cudaLaun
 // holds at once (cudaOccupancyMaxActiveClusters: a cluster's blocks share a
 // GPC), the persistent grid's size; 0 on an error.  Asked once per device,
 // layout and instantiation.
-template <int D, int BIAS>
+template <int D, int BIAS, int RB>
 int resident_clusters(int smem) {
   static int key_dev = -1, key_smem = -1, clusters = 0;
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   if (dev != key_dev || smem != key_smem) {
-    if (cudaFuncSetAttribute(attn_long_kernel<D, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+    if (cudaFuncSetAttribute(attn_long_kernel<D, BIAS, RB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
         cudaSuccess)
       return 0;
     cudaLaunchAttribute cluster;
     const cudaLaunchConfig_t cfg = long_config(LONG_CLUSTER, smem, nullptr, &cluster);
     int n = 0;
-    if (cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(attn_long_kernel<D, BIAS>), &cfg) !=
+    if (cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(attn_long_kernel<D, BIAS, RB>), &cfg) !=
         cudaSuccess)
       return 0;
     key_dev = dev, key_smem = smem, clusters = n;
@@ -649,7 +732,20 @@ int resident_clusters(int smem) {
   return clusters;
 }
 
-template <int D, int BIAS>
+// A 5-D (d, nh, wk, hk, B) map over a (B, N, nh, d) K or V view on the hk x
+// wk key grid; boxes of 16 columns x 1 head x two key rows of 8 RB slots,
+// slots past wk and rows past hk read as zeros.
+template <int D, int RB>
+bool make_rows_map(CUtensorMap* map, const View& x, const LongArgs& a) {
+  const cuuint64_t dims[5] = {(cuuint64_t)D, (cuuint64_t)a.nh, (cuuint64_t)a.wk, (cuuint64_t)a.hk,
+                              (cuuint64_t)a.B};
+  const cuuint64_t strides[4] = {(cuuint64_t)x.sh * 2, (cuuint64_t)x.sn * 2, (cuuint64_t)(x.sn * a.wk) * 2,
+                                 (cuuint64_t)x.sb * 2};
+  const cuuint32_t box[5] = {16, 1, 8 * RB, 2, 1};
+  return encode_map(map, x.ptr, 5, dims, strides, box);
+}
+
+template <int D, int BIAS, int RB>
 cudaError_t launch_long_d(const View& q, const View& k, const View& v, LongArgs a, cudaStream_t stream) {
   const int N = a.N;
   const int smem = long_layout(D, BIAS != NO_BIAS ? a.hk : 0, BIAS != NO_BIAS ? a.wk : 0, &a);
@@ -659,15 +755,18 @@ cudaError_t launch_long_d(const View& q, const View& k, const View& v, LongArgs 
     a.rel_bulk = p % 16 == 0 && ((int64_t)N * a.hk * 2) % 16 == 0 && ((int64_t)N * a.wk * 2) % 16 == 0;
   }
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q.ptr, q.sb, q.sn, q.sh, a.B, N, a.nh, D, TQ) ||
-      !make_map(&tk, k.ptr, k.sb, k.sn, k.sh, a.B, N, a.nh, D, TK) ||
-      !make_map(&tv, v.ptr, v.sb, v.sn, v.sh, a.B, N, a.nh, D, TK))
+  if (!make_map(&tq, q.ptr, q.sb, q.sn, q.sh, a.B, N, a.nh, D, TQ)) return cudaErrorInvalidValue;
+  if constexpr (BIAS == ROWS) {
+    if (!make_rows_map<D, RB>(&tk, k, a) || !make_rows_map<D, RB>(&tv, v, a)) return cudaErrorInvalidValue;
+  } else if (!make_map(&tk, k.ptr, k.sb, k.sn, k.sh, a.B, N, a.nh, D, TK) ||
+             !make_map(&tv, v.ptr, v.sb, v.sn, v.sh, a.B, N, a.nh, D, TK)) {
     return cudaErrorInvalidValue;
+  }
   // a multiple of the cluster size: the clusters the card holds at once, at
   // most one block per SM
-  const int cl = a.cluster, resident = resident_clusters<D, BIAS>(smem);
+  const int cl = a.cluster, resident = resident_clusters<D, BIAS, RB>(smem);
   if (resident == 0) return cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(attn_long_kernel<D, BIAS>,
+  const cudaError_t err = cudaFuncSetAttribute(attn_long_kernel<D, BIAS, RB>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int64_t units = (int64_t)a.B * a.nh * ((N + TQ * cl - 1) / (TQ * cl));
@@ -675,16 +774,17 @@ cudaError_t launch_long_d(const View& q, const View& k, const View& v, LongArgs 
   cudaLaunchAttribute cluster;
   const cudaLaunchConfig_t cfg = long_config(grid, smem, stream, &cluster);
   void* args[] = {&tq, &tk, &tv, &a};
-  return cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(attn_long_kernel<D, BIAS>), args);
+  return cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(attn_long_kernel<D, BIAS, RB>), args);
 }
 
-template <int BIAS>
+// RB: 8-key blocks a half tile (ROWS: 8 RB slots a key row)
+template <int BIAS, int RB = 8>
 cudaError_t launch_long_bias(const View& q, const View& k, const View& v, const LongArgs& a, int d,
                              cudaStream_t stream) {
   switch (d) {
-    case 32: return launch_long_d<32, BIAS>(q, k, v, a, stream);
-    case 64: return launch_long_d<64, BIAS>(q, k, v, a, stream);
-    case 80: return launch_long_d<80, BIAS>(q, k, v, a, stream);
+    case 32: return launch_long_d<32, BIAS, RB>(q, k, v, a, stream);
+    case 64: return launch_long_d<64, BIAS, RB>(q, k, v, a, stream);
+    case 80: return launch_long_d<80, BIAS, RB>(q, k, v, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -694,8 +794,13 @@ cudaError_t launch_long(const View& q, const View& k, const View& v, const LongA
   const bool grid_ok = has_bias ? a.hk >= 1 && a.wk >= 1 && a.N == a.hk * a.wk : true;
   if (!tma_views_ok(q, k, v) || !grid_ok || a.N < 1 || a.B < 1 || a.nh < 1) return cudaErrorInvalidValue;
   if (!has_bias) return launch_long_bias<NO_BIAS>(q, k, v, a, d, stream);
-  return a.wk == 64 ? launch_long_bias<ROWS64>(q, k, v, a, d, stream)
-                    : launch_long_bias<GATHER>(q, k, v, a, d, stream);
+  if (bias_layout(a.hk, a.wk) == GATHER) return launch_long_bias<GATHER>(q, k, v, a, d, stream);
+  switch (row_blocks(a.wk)) {
+    case 5: return launch_long_bias<ROWS, 5>(q, k, v, a, d, stream);
+    case 6: return launch_long_bias<ROWS, 6>(q, k, v, a, d, stream);
+    case 7: return launch_long_bias<ROWS, 7>(q, k, v, a, d, stream);
+    default: return launch_long_bias<ROWS, 8>(q, k, v, a, d, stream);
+  }
 }
 
 }  // namespace
@@ -718,23 +823,29 @@ extern "C" int pope_attention_long_relpos(const void* q, const void* k, const vo
                      static_cast<cudaStream_t>(stream));
 }
 
-// The shared-memory layout the launcher picks at head dim d on an hk x wk bias
-// grid (0 x 0: the bias-free kernel): Q stages, K/V stages, the dynamic
-// shared memory in bytes, the blocks per cluster and the clusters the card
-// holds at once. Returns 0, or cudaErrorInvalidValue when nothing fits.
-extern "C" int pope_attention_long_layout(int d, int hk, int wk, int* q_stages, int* kv_stages, int* smem,
-                                          int* cluster, int* resident) {
+// The layout the launcher picks at head dim d on an hk x wk bias grid (0 x
+// 0: the bias-free kernel): the bias's (Bias: 0 none, 1 gathered, 2 whole
+// key rows) and, with rows, the slots a key row takes in a K/V tile (else
+// 0), Q stages, K/V stages, the dynamic shared memory in bytes, the blocks
+// per cluster and the clusters the card holds at once. Returns 0, or
+// cudaErrorInvalidValue when nothing fits.
+extern "C" int pope_attention_long_layout(int d, int hk, int wk, int* bias, int* row_slots, int* q_stages,
+                                          int* kv_stages, int* smem, int* cluster, int* resident) {
   LongArgs a{};
+  *bias = bias_layout(hk, wk);
+  const int rb = *bias == ROWS ? row_blocks(wk) : 8;
+  *row_slots = *bias == ROWS ? 8 * rb : 0;
   *smem = long_layout(d, hk, wk, &a);
   *q_stages = a.q_stages, *kv_stages = a.kv_stages, *cluster = LONG_CLUSTER, *resident = 0;
   if (*smem == 0) return (int)cudaErrorInvalidValue;
-  const int bias = hk == 0 ? NO_BIAS : wk == 64 ? ROWS64 : GATHER;
-  switch (d * 4 + bias) {
-#define POPE_LONG_RESIDENT(D, BIAS) \
-  case D * 4 + BIAS: *resident = resident_clusters<D, BIAS>(*smem); break;
-    POPE_LONG_RESIDENT(32, NO_BIAS) POPE_LONG_RESIDENT(32, GATHER) POPE_LONG_RESIDENT(32, ROWS64)
-    POPE_LONG_RESIDENT(64, NO_BIAS) POPE_LONG_RESIDENT(64, GATHER) POPE_LONG_RESIDENT(64, ROWS64)
-    POPE_LONG_RESIDENT(80, NO_BIAS) POPE_LONG_RESIDENT(80, GATHER) POPE_LONG_RESIDENT(80, ROWS64)
+  switch ((d * 4 + *bias) * 16 + rb) {
+#define POPE_LONG_RESIDENT(D, BIAS, RB) \
+  case (D * 4 + BIAS) * 16 + RB: *resident = resident_clusters<D, BIAS, RB>(*smem); break;
+#define POPE_LONG_RESIDENT_D(D)                                                                   \
+  POPE_LONG_RESIDENT(D, NO_BIAS, 8) POPE_LONG_RESIDENT(D, GATHER, 8) POPE_LONG_RESIDENT(D, ROWS, 5) \
+      POPE_LONG_RESIDENT(D, ROWS, 6) POPE_LONG_RESIDENT(D, ROWS, 7) POPE_LONG_RESIDENT(D, ROWS, 8)
+    POPE_LONG_RESIDENT_D(32) POPE_LONG_RESIDENT_D(64) POPE_LONG_RESIDENT_D(80)
+#undef POPE_LONG_RESIDENT_D
 #undef POPE_LONG_RESIDENT
     default: return (int)cudaErrorInvalidValue;
   }

@@ -15,7 +15,9 @@ Four attention designs, picked by shape (`attention_design`):
   which runs one tile's softmax while its own next products run; clusters
   of two blocks take two items of a head and share each K/V tile (TMA
   multicast); the other bf16 shapes of those head dims, bias grids of
-  hk + wk <= 500;
+  hk + wk <= 500 (those of 32 < wk <= 64, SAM's global grids, on tiles of
+  two whole key rows, each padded to a multiple of 8 slots; the others
+  gathered per logit);
 - "tf32x3" (csrc/attention_f32.cu): float32 on the tensor cores, each
   product as three TF32 products (mma.sync) of operands split into a
   rounded big and small part; d <= 128, bias grids of hk + wk <=
@@ -127,7 +129,7 @@ def library() -> ctypes.CDLL:
         lib.pope_attention_f32_relpos.restype = i32
         lib.pope_attention_f32.argtypes = lib.pope_attention_short.argtypes
         lib.pope_attention_f32.restype = i32
-        lib.pope_attention_long_layout.argtypes = [i32] * 3 + [ctypes.POINTER(ctypes.c_int)] * 5
+        lib.pope_attention_long_layout.argtypes = [i32] * 3 + [ctypes.POINTER(ctypes.c_int)] * 7
         lib.pope_attention_long_layout.restype = i32
         lib.pope_cuda_error_string.argtypes = [i32]
         lib.pope_cuda_error_string.restype = ctypes.c_char_p
@@ -136,16 +138,21 @@ def library() -> ctypes.CDLL:
 
 
 def long_layout(d: int, hk: int = 0, wk: int = 0) -> dict:
-    """The shared-memory layout csrc/attention_long.cu's launcher picks at
-    head dim d on an hk x wk bias grid (0 x 0: no bias): its Q stages, K/V
-    stages, dynamic shared memory in bytes, blocks per cluster (the blocks
-    that share each K/V tile by TMA multicast) and the clusters the card
-    holds at once (the persistent grid, in clusters, on this device)."""
+    """The layout csrc/attention_long.cu's launcher picks at head dim d on an
+    hk x wk bias grid (0 x 0: no bias): the bias's ("rows": K/V tiles of two
+    whole key rows, for 32 < wk <= 64; "gather": per logit; None), the slots
+    a key row takes in a tile with "rows" (wk padded to a multiple of 8;
+    else 0), its Q stages, K/V stages, dynamic shared memory
+    in bytes, blocks per cluster (the blocks that share each K/V tile by TMA
+    multicast) and the clusters the card holds at once (the persistent grid,
+    in clusters, on this device)."""
     lib = library()
-    out = [ctypes.c_int() for _ in range(5)]
+    out = [ctypes.c_int() for _ in range(7)]
     err = lib.pope_attention_long_layout(d, hk, wk, *map(ctypes.byref, out))
     _raise_on(err, "pope_attention_long_layout", lib)
-    return dict(zip(("q_stages", "kv_stages", "smem_bytes", "cluster", "resident_clusters"), (o.value for o in out)))
+    bias, *rest = (o.value for o in out)
+    return {"bias": (None, "gather", "rows")[bias]} | dict(
+        zip(("row_slots", "q_stages", "kv_stages", "smem_bytes", "cluster", "resident_clusters"), rest))
 
 
 def _check_qkv(q, k, v, others=()):

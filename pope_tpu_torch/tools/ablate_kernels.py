@@ -33,8 +33,8 @@ With `--against CSRC` (a csrc directory of an earlier version, e.g. from
 builds that attention_long.cu beside the shipped one and times the two in
 turns (against, shipped, shipped, against) at the long design's shapes:
 kernel 2 on the main, square and crop grids and on portrait frames' (64 x
-48, a 64 x 52 crop: the gathered bias), kernel 3 at d 80 N = 3072 and at
-demo-dinov2's N = 1025 (d 64), and d 64 / d 32 at N = 3072.
+48, a 64 x 52 crop: key rows of 48 and 56 slots), kernel 3 at d 80 N = 3072
+and at demo-dinov2's N = 1025 (d 64), and d 64 / d 32 at N = 3072.
 """
 
 from __future__ import annotations
@@ -107,12 +107,12 @@ SHORT_VARIANTS = {
 
 
 # ---- the long kernel (kernel 2, and kernel 3 above 256 tokens)
-NO_S = [("        for (int ks = 0; ks < DK; ++ks)\n          wgmma_ss_n128",
-         "        for (int ks = 0; ks < 0; ++ks)\n          wgmma_ss_n128")]
-NO_PV = [("        for (int j = 0; j < 8; ++j) wgmma_rs<D>(", "        for (int j = 0; j < 0; ++j) wgmma_rs<D>(")]
+NO_S = [("        for (int ks = 0; ks < DK; ++ks)\n          wgmma_ss<16 * RB>",
+         "        for (int ks = 0; ks < 0; ++ks)\n          wgmma_ss<16 * RB>")]
+NO_PV = [("        for (int j = 0; j < RB; ++j) wgmma_rs<D>(", "        for (int j = 0; j < 0; ++j) wgmma_rs<D>(")]
 NO_SOFTMAX = [
-    ("      softmax_tile<BIAS>(sacc, m, l, corr, rh0, rh1, rw0, rw1, w, 0, N, a.hk, a.wk, t, c);", ""),
-    ("        softmax_tile<BIAS>(sacc, m, l, corr, rh0, rh1, rw0, rw1, w, kt * TK, N, a.hk, a.wk, t, c);", ""),
+    ("      softmax_tile<BIAS, RB>(sacc, m, l, corr, rh0, rh1, rw0, rw1, w, 0, N, a.hk, a.wk, t, c);", ""),
+    ("        softmax_tile<BIAS, RB>(sacc, m, l, corr, rh0, rh1, rw0, rw1, w, kt * TK, N, a.hk, a.wk, t, c);", ""),
 ]
 # the producer loads each block's first items and tiles (one per stage) and
 # then only signals, so the consumers recompute data already in shared memory
@@ -121,11 +121,13 @@ LONG_LOADS_ONCE = [
     ("          tx += rh_bytes + rw_bytes;\n", "          if (it < a.q_stages) tx += rh_bytes + rw_bytes;\n"),
     ("            if (rows > 0) {\n", "            if (rows > 0 && it < a.q_stages) {\n"),
     ("      if (lane == 0 && rows > 0) load_tile<D>(", "      if (lane == 0 && rows > 0 && it < a.q_stages) load_tile<D>("),
-    ("          mbar_arrive_expect_tx(kv_full(s), 2 * tile);",
-     "          mbar_arrive_expect_tx(kv_full(s), kv_i < a.kv_stages ? 2 * tile : 0u);"),
-    ("          if (rank == 0) load_tile<D>(", "          if (rank == 0 && kv_i < a.kv_stages) load_tile<D>("),
-    ("          if (rank == cl - 1) load_tile<D>(", "          if (rank == cl - 1 && kv_i < a.kv_stages) load_tile<D>("),
+    ("          mbar_arrive_expect_tx(kv_full(s), kv_tx);",
+     "          mbar_arrive_expect_tx(kv_full(s), kv_i < a.kv_stages ? kv_tx : 0u);"),
+    ("          if (rank == 0) load_kv_tile<D, BIAS>(", "          if (rank == 0 && kv_i < a.kv_stages) load_kv_tile<D, BIAS>("),
+    ("          if (rank == cl - 1) load_kv_tile<D, BIAS>(",
+     "          if (rank == cl - 1 && kv_i < a.kv_stages) load_kv_tile<D, BIAS>("),
 ]
+LONG_ROUTE = "  if (bias_layout(a.hk, a.wk) == GATHER) return"  # the launcher's choice of the gather
 LONG_VARIANTS = {
     "shipped": [],
     "loads_only": [*NO_S, *NO_PV, *NO_SOFTMAX],
@@ -161,11 +163,48 @@ LONG_VARIANTS = {
     # maximum (the exponent's FFMA then scales by log2 e alone)
     "scale_unfolded": [
         ("  const float k2 = BIAS == NO_BIAS ? c * LOG2E : LOG2E;", "  const float k2 = LOG2E;"),
-        ("        e[3] = fmaf(e[3], c, lds_bf16(rh1 + 2 * kh1) + lds_bf16(rw1 + 2 * kw1));\n      }\n",
-         "        e[3] = fmaf(e[3], c, lds_bf16(rh1 + 2 * kh1) + lds_bf16(rw1 + 2 * kw1));\n      } else {\n"
+        ("        if (kw >= wk) kw -= wk, ++kh;\n      }\n",
+         "        if (kw >= wk) kw -= wk, ++kh;\n      } else {\n"
          "#pragma unroll\n        for (int i = 0; i < 4; ++i) e[i] *= c;\n      }\n"),
     ],
-    "gather_bias": [("  return a.wk == 64 ? launch_long_bias<ROWS64>", "  return false ? launch_long_bias<ROWS64>")],
+    # every biased grid gathered per logit (walking (kh, kw)), wk = 64 too
+    "gather_bias": [(LONG_ROUTE, "  if (true) return")],
+    # the grids of wk != 64 back on the per-logit gather as it was before
+    # the padded key rows: (kh, kw) by an integer division a logit
+    "gathered": [
+        (LONG_ROUTE, "  if (a.wk != 64) return"),
+        ("    int kh = 0, kw = 0, dkh = 0, dkw = 0;\n"
+         "    if constexpr (BIAS == GATHER) {\n"
+         "      kh = (k0 + 2 * t) / wk, kw = k0 + 2 * t - kh * wk;\n"
+         "      dkh = 8 / wk, dkw = 8 - dkh * wk;\n"
+         "    }\n", ""),
+        ("        int kh1 = kh, kw1 = kw + 1;\n"
+         "        if (kw1 == wk) kw1 = 0, ++kh1;\n"
+         "        const int ch = min(kh, hk - 1), ch1 = min(kh1, hk - 1);\n",
+         "        int kh = key / wk, kw = key - kh * wk, kh1 = kh, kw1 = kw + 1;\n"
+         "        if (kw1 == wk) kw1 = 0, ++kh1;\n"
+         "        const int ch = min(kh, hk - 1), ch1 = min(kh1, hk - 1);\n"),
+        ("        kh += dkh, kw += dkw;\n        if (kw >= wk) kw -= wk, ++kh;\n", ""),
+    ],
+    # every key row padded to 64 slots whatever wk, one instantiation for
+    # every grid (128-key tiles, S an m64n128 product)
+    "row_slots_64": [("int row_blocks(int wk) { return (wk + 7) / 8; }", "int row_blocks(int wk) { return 8; }")],
+    # the padded rel_w words by C++ clamps and selects: the compiler holds
+    # each slot's compare across the item loop
+    "rel_w_pad_in_cxx": [(
+        "        load_rel_w<RB>(w, rw0 + 4 * t, rw1 + 4 * t, 2 * t, a.wk);\n",
+        "#pragma unroll\n"
+        "        for (int cb = 0; cb < RB; ++cb)\n"
+        "#pragma unroll\n"
+        "          for (int r = 0; r < 2; ++r) {\n"
+        "            const uint32_t row = r ? rw1 : rw0;\n"
+        "            const int kw = 8 * cb + 2 * t;\n"
+        "            uint32_t lo = __float_as_uint(lds_bf16(row + 2 * min(kw, a.wk - 1))) >> 16;\n"
+        "            uint32_t hi = __float_as_uint(lds_bf16(row + 2 * min(kw + 1, a.wk - 1))) >> 16;\n"
+        "            if (kw >= a.wk) lo = 0xff80u;\n"
+        "            if (kw + 1 >= a.wk) hi = 0xff80u;\n"
+        "            w[8 * r + cb] = lo | hi << 16;\n"
+        "          }\n")],
 }
 
 # ---- the f32 kernel (tf32x3: kernels 1, 2 and 3 in float32)
@@ -405,16 +444,16 @@ def main() -> int:
         # kernel 2: global layers, 4 frames of 48 x 64 tokens, with the bias
         # and, on q/k/v of the same shape, without it (kernel 3 at d 80); the
         # sweep's 52 x 64 crops, demo-dinov2's 1025 tokens (6 heads of d 64,
-        # fewer items than SMs), the gathered bias of portrait frames (4 of
-        # 64 x 48 tokens, a 64 x 52 crop) and of a 20 x 55 grid (9 items a
-        # head)
+        # fewer items than SMs), portrait frames (4 of 64 x 48 tokens, a
+        # 64 x 52 crop) and a 20 x 55 grid (9 items a head), all three on
+        # whole key rows
         shapes["long"] = {"kernel2_ms": global_grid(4, 48, 64, 16, 80),
                           "kernel2_no_bias_ms": global_grid(4, 48, 64, 16, 80, bias=False),
                           "kernel2_crop_ms": global_grid(1, 52, 64, 16, 80),
                           "kernel3_n1025_d64_ms": global_grid(1, 25, 41, 6, 64, bias=False),
                           "kernel2_portrait_ms": global_grid(4, 64, 48, 16, 80),
                           "kernel2_portrait_crop_ms": global_grid(1, 64, 52, 16, 80),
-                          "d80_n1100_gather_ms": global_grid(2, 20, 55, 16, 80)}
+                          "d80_20x55_ms": global_grid(2, 20, 55, 16, 80)}
         if args.against:
             # the serving path's square frame and the other head dims
             shapes["long"] |= {"kernel2_square_ms": global_grid(1, 64, 64, 16, 80),

@@ -23,3 +23,16 @@ def test_every_edit_is_in_its_source_once(kernel, variant):
         assert old != new
     text = variant_source(kernel, variant)
     assert (text == src) == (not edits)
+
+
+def test_gathered_variants_route_to_the_per_logit_gather():
+    """"gathered" puts every biased grid but wk = 64 back on the per-logit
+    gather with (kh, kw) divided out a logit, as the body was before key
+    rows were padded to 64 slots; "gather_bias" gathers every biased grid,
+    walking (kh, kw)."""
+    gathered = variant_source("long", "gathered")
+    assert "  if (a.wk != 64) return launch_long_bias<GATHER>" in gathered
+    assert "int kh = key / wk, kw = key - kh * wk" in gathered
+    assert "dkh = 8 / wk" not in gathered and "kh += dkh" not in gathered
+    walked = variant_source("long", "gather_bias")
+    assert "  if (true) return launch_long_bias<GATHER>" in walked and "kh += dkh, kw += dkw;" in walked

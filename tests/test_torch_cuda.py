@@ -328,21 +328,27 @@ def test_short_kernel_raises_on_what_it_does_not_take(card):
 @pytest.mark.parametrize("d", [32, 64, 80])
 @pytest.mark.parametrize(
     "hk,wk",
-    [(1, 100), (1, 257), (8, 40), (3, 64), (8, 64), (20, 50), (25, 41), (20, 55), (45, 64), (48, 64), (64, 48)],
-    ids=["100-1x100", "257", "320-8x40", "192-3x64", "512-8x64", "1000-ragged", "1025-25x41", "1100-20x55",
-         "2880-45x64", "3072-48x64", "3072-64x48"],
+    [(1, 100), (1, 257), (100, 5), (40, 32), (9, 35), (7, 52), (8, 40), (3, 64), (8, 64), (20, 50), (25, 41),
+     (20, 55), (40, 33), (45, 64), (48, 64), (64, 48), (63, 48), (64, 36), (64, 52)],
+    ids=["100-1x100", "257", "500-100x5", "1280-40x32", "315-9x35", "364-7x52", "320-8x40", "192-3x64",
+         "512-8x64", "1000-ragged", "1025-25x41", "1100-20x55", "1320-40x33", "2880-45x64", "3072-48x64",
+         "3072-64x48", "3024-63x48", "2304-64x36", "3328-64x52"],
 )
 @pytest.mark.parametrize("B,nh", [(1, 1), (1, 3), (2, 70)], ids=["1-head", "3-heads", "140-heads"])
 def test_long_kernel_matches_plain(card, B, nh, hk, wk, d, bias):
     """The long kernel (csrc/attention_long.cu) on views of a (B, N, 3, nh, d)
     qkv tensor, on grids the short kernel does not take: with the rel-pos
-    bias on the grid (wk = 64: two whole key rows a 128-key tile, the bias
-    from per-thread words; other grids gathered; 1 x 257 staged by plain
-    copies, its rows not 16-byte multiples) and without it; ragged key and
-    query tails at 100, 192, 257, 320, 1000, 1025, 1100 and 2880 (an odd
-    number of 64-key rows: the last tile's second key row masked); fewer and
-    more heads than the card has SMs, and one; a portrait frame's 64 x 48
-    grid (gathered bias at SAM's N). The kernel's clusters pair two
+    bias on the grid (32 < wk <= 64: two whole key rows a K/V tile, each
+    padded to a multiple of 8 slots (40, 48, 56 or 64), the bias from
+    per-thread words; other grids
+    gathered, 1 x 257 staged by plain copies, its rows not 16-byte
+    multiples, 100 x 5 walking more than a key row a column block) and
+    without it; ragged key and query tails at 100, 192, 257, 315, 320,
+    364, 1000, 1025, 1100, 1320, 2880 and 3024 (an odd number of key rows
+    at 192, 315, 364, 1025, 2880 and 3024: the last tile's second key row
+    masked); fewer and more heads than the card has
+    SMs, and one; portrait frames' 64 x 48 and 64 x 36 grids and a sweep
+    crop's 64 x 52 (SAM's grids of wk < 64). The kernel's clusters pair two
     128-query items of a head and share their K/V tiles: 100 tokens are one
     item (its pair's second block has no queries), 257, 1025 and 1100 an odd
     number of items a head (3, 9, 9), so the last pair of every head has an
@@ -371,12 +377,14 @@ def test_long_kernel_matches_plain(card, B, nh, hk, wk, d, bias):
 
 @pytest.mark.parametrize("bias", [True, False], ids=["bias", "no-bias"])
 @pytest.mark.parametrize("d", [64, 80])
-@pytest.mark.parametrize("hk,wk", [(1, 100), (25, 41), (48, 64)], ids=["100-1x100", "1025-25x41", "3072-48x64"])
+@pytest.mark.parametrize("hk,wk", [(1, 100), (25, 41), (48, 64), (64, 48)],
+                         ids=["100-1x100", "1025-25x41", "3072-48x64", "3072-64x48"])
 def test_long_kernel_on_head_major_views(card, hk, wk, d, bias):
     """The long kernel on q/k/v strided off the qkv layout: (B, N, nh, d)
     views of (3, B, nh, N, d), each head's rows one contiguous run (the TMA
     maps' token stride d, head stride N d), a single item, an odd number of
-    items a head and SAM's grid, with the bias and without it."""
+    items a head and SAM's landscape and portrait grids, with the bias and
+    without it."""
     g = torch.Generator(device=card).manual_seed(hk * 7 + wk + d)
     B, nh, N = 2, 3, hk * wk
     q, k, v = torch.randn(3, B, nh, N, d, device=card, generator=g).to(torch.bfloat16).transpose(2, 3).unbind(0)
@@ -388,6 +396,31 @@ def test_long_kernel_on_head_major_views(card, hk, wk, d, bias):
         assert_matches_plain(out, flash_attention_relpos_plain(q, k, v, rel_h, rel_w, hk, wk))
     else:
         assert_matches_plain(launch_attention(q, k, v, "long"), flash_attention_plain(q, k, v))
+
+
+def test_long_bias_layout_by_grid(card):
+    """Which bias layout attention_long.cu's launcher takes (long_layout asks
+    the launcher's own rule): whole key rows, each padded to a multiple of 8
+    slots, for every grid of 32 < wk <= 64 (SAM's landscape, square and crop
+    grids at wk = 64, portrait frames' 48 and 36, their crops' 52; each of
+    the four row widths 40, 48, 56 and 64, with even and odd hk), the
+    per-logit gather below and
+    above (1 x 100, 1 x 257, wk <= 32), none without the bias; at every
+    head dim, so that routing and launcher cannot drift apart."""
+    from pope_tpu_torch.ops.cuda_kernels import long_layout
+
+    rows = {(48, 64): 64, (64, 64): 64, (52, 64): 64, (3, 64): 64, (64, 48): 48, (64, 52): 56, (64, 36): 40,
+            (63, 48): 48, (40, 33): 40, (20, 55): 56, (25, 41): 48, (8, 40): 40, (9, 57): 64, (9, 35): 40}
+    gather = [(1, 100), (1, 257), (40, 32), (100, 5), (2, 65)]
+    for d in (32, 64, 80):
+        assert long_layout(d)["bias"] is None
+        for (hk, wk), slots in rows.items():
+            layout = long_layout(d, hk, wk)
+            assert (layout["bias"], layout["row_slots"]) == ("rows", slots), (d, hk, wk, layout)
+        for hk, wk in gather:
+            layout = long_layout(d, hk, wk)
+            assert (layout["bias"], layout["row_slots"]) == ("gather", 0), (d, hk, wk, layout)
+    assert [wk for wk in range(1, 101) if long_layout(80, 4, wk)["bias"] == "rows"] == list(range(33, 65))
 
 
 def test_long_max_grid_is_the_launchers_fit(card):

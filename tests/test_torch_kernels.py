@@ -75,10 +75,12 @@ def test_window_plain_matches_pallas(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hk,wk", [(8, 16), (14, 14)])
+@pytest.mark.parametrize("hk,wk", [(8, 16), (14, 14), (16, 12), (13, 10)])
 def test_flash_plain_matches_pallas(dtype, hk, wk):
-    """A rect global grid (8x16) and the window grid, d = 80. The Pallas entry
-    takes (B*nh, N, d); the port's takes (B, N, nh, d), here with nh = 1."""
+    """A rect global grid (8x16), the window grid and two portrait grids
+    (hk > wk, wk no divisor of 128: the grids whose key rows the long kernel
+    pads to 64 slots), d = 80. The Pallas entry takes (B*nh, N, d); the
+    port's takes (B, N, nh, d), here with nh = 1."""
     BH, d = 2, 80
     N = hk * wk
     rng = np.random.default_rng(1)
