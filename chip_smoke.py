@@ -193,8 +193,12 @@ Phases, each of which raises on failure (exit code != 0):
      `--tp 2` (an epoch, then --resume) and `cli train-ssl --dp 2` (killed
      after its first checkpoint, then resumed), each checkpoint held
      against the `--dp 1` run's, and `cli train-ssl --distributed` as two
-     commands. Per part: ms, peak memory, collective ms and bytes staged a
-     step, and the phase's wall seconds.
+     commands. These two-rank commands run as processes of their own,
+     PAR_CLI_JOBS at a time, beside the `--dp 1` runs in this process.
+     Per part: ms, peak memory, collective ms and bytes staged a step, and
+     the phase's wall seconds (each rank's parts', the commands', all).
+Each phase prints its wall seconds as it ends ({"phase_s": ...}), and all
+of them once more before the last three lines.
 The last three lines are the `kernels` JSON line (each kernel's launches on
 the main path, per eval batch, on the serving path, on the records path, on
 the training path, per exported program, on the regressor's paths, per SSL
@@ -884,6 +888,47 @@ def stage_times(amg, imgs) -> dict:
             "cleanup": acc.get("cleanup", 0.0), "total": acc["total"]}
 
 
+def trace_totals(prof) -> tuple:
+    """A finished torch.profiler trace's totals as key_averages() gives them:
+    ({device event name: [count, µs]}, {CPU op name: [count, self device
+    µs]}), an op's self device time being that of the kernels linked to its
+    correlation id. Read from the tracer's events directly: key_averages()
+    first builds an event tree in Python, tens of seconds for an eval
+    batch's trace. One difference: an op's count takes in its calls nested
+    in a call of the same name, which key_averages() merges."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+
+    names, device, ops, linked = {}, {}, [], {}
+    for e in prof.profiler.kineto_results.events():
+        raw = e.name()
+        if _filter_name(raw) or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        name = names.get(raw)
+        if name is None:
+            name = names[raw] = _rewrite_name(raw, with_wildcard=True)
+        synchronous = not e.is_async() and e.start_thread_id() == e.end_thread_id()
+        kind = e.device_type()
+        if kind == DeviceType.CUDA:
+            us = (e.end_ns() - e.start_ns()) / 1e3 if synchronous else 0.0
+            row = device.setdefault(name, [0, 0.0])
+            row[0] += 1
+            row[1] += us
+            link = e.linked_correlation_id()
+            if link > 0:
+                linked[link] = linked.get(link, 0.0) + us
+        elif kind == DeviceType.CPU:
+            frontend = synchronous and e.linked_correlation_id() == 0
+            ops.append((name, e.correlation_id() if frontend else None))
+    cpu = {}
+    for name, corr in ops:
+        row = cpu.setdefault(name, [0, 0.0])
+        row[0] += 1
+        if corr is not None:
+            row[1] += linked.get(corr, 0.0)
+    return device, cpu
+
+
 def profile_call(fn, untraced_ms: float) -> dict:
     """Where the time of one fn() goes, by CUDA kernel, kernel class and
     PyTorch op (self device time: the kernels an op launched itself). The
@@ -894,28 +939,21 @@ def profile_call(fn, untraced_ms: float) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = [
-        {"kernel": e.key[:100], "device_ms": e.self_device_time_total / 1e3, "count": e.count}
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
-    ]
+    device, cpu = trace_totals(prof)
+    busy_ms = sum(us for _, us in device.values()) / 1e3
+    top = [{"kernel": name[:100], "device_ms": us / 1e3, "count": n}
+           for name, (n, us) in sorted(device.items(), key=lambda kv: -kv[1][1])[:15]]
     by_category = {}
-    for e in kernels:
-        cat = kernel_category(e.key)
-        ms, n = by_category.get(cat, (0.0, 0))
-        by_category[cat] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    for name, (n, us) in device.items():
+        cat = kernel_category(name)
+        ms, count = by_category.get(cat, (0.0, 0))
+        by_category[cat] = (ms + us / 1e3, count + n)
     by_category = {c: {"device_ms": ms, "count": n}
                    for c, (ms, n) in sorted(by_category.items(), key=lambda kv: -kv[1][0])}
-    ops = [e for e in events
-           if e.device_type == torch.autograd.DeviceType.CPU and e.self_device_time_total > 0
-           and e.key not in PROFILER_OWN_EVENTS]
-    top_ops = [
-        {"op": e.key, "device_ms": e.self_device_time_total / 1e3, "count": e.count}
-        for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:12]
-    ]
-    return {"device_busy_ms": busy_ms, "kernel_launches": sum(e.count for e in kernels),
+    ops = [(name, n, us) for name, (n, us) in cpu.items() if us > 0 and name not in PROFILER_OWN_EVENTS]
+    top_ops = [{"op": name, "device_ms": us / 1e3, "count": n}
+               for name, n, us in sorted(ops, key=lambda o: -o[2])[:12]]
+    return {"device_busy_ms": busy_ms, "kernel_launches": sum(n for n, _ in device.values()),
             "idle_share": 1.0 - busy_ms / untraced_ms,
             "by_category": by_category, "top_kernels": top, "top_ops": top_ops}
 
@@ -3368,6 +3406,13 @@ TOL_PAR_RUN_LOSS, TOL_PAR_RUN_MOMENTS, TOL_PAR_RUN_STATS = 1e-3, 0.5, 3e-3
 # gradients left unsummed.
 TOL_PAR_RUN_SSL_MU = 0.1
 PAR_CLI_MATCHER = ("--batch-size", "2", "--n-samples-per-subset", "2", "--warmup-steps", "0")
+MATCHER_CLI_PARTS = ("epoch_1", "resume_2")
+# The parallel phase's two-rank commands run PAR_CLI_JOBS at a time, in
+# PAR_CLI_ORDER, each within PAR_CLI_TIMEOUT seconds. Three at a time keep
+# the card's memory in hand: a tp 2 matcher rank holds up to 26 GB, a dp 2
+# one 13 GB, an SSL or eval rank 3-5 GB (the parallel_* lines' peaks).
+PAR_CLI_JOBS, PAR_CLI_TIMEOUT = 3, 600
+PAR_CLI_ORDER = (("matcher", "tp2"), ("ssl", "dp2"), ("matcher", "dp2"), ("ssl", "distributed"), ("eval", "dp2"))
 # GPipe (pp = 2) against the serial composition on one rank: the same f32
 # products, in the same order; ring attention (sp = 2, SAM's global-layer
 # shape in f32) against one softmax over all keys: sums in another order,
@@ -3751,61 +3796,7 @@ def _run_drift(got: dict, want: dict, lr: float, steps: int) -> dict:
             "shapes_equal": all(got["model"][k].shape == v.shape for k, v in want["model"].items())}
 
 
-def matcher_cli_runs(tmp: Path):
-    """`cli train-matcher` at --dp 1 (this process), --dp 2 and --tp 2 (two
-    ranks each) on a ScanNet-layout scene: one step an epoch, one epoch with
-    checkpoints, then --resume to two. Each parallel run's history and last
-    checkpoint are held against the --dp 1 run's. Returns (row, failures)."""
-    from pope_tpu_torch import cli
-    from pope_tpu_torch.utils.checkpoint import load_payload
-
-    paths = write_scannet_scene(tmp / "scans", n_frames=4, shift_px=40)
-    runs = {}
-    for name, extra in (("dp1", []), ("dp2", ["--dp", "2"]), ("tp2", ["--tp", "2"])):
-        ckpt, hist = tmp / f"matcher_ckpt_{name}", tmp / f"matcher_history_{name}.json"
-        base = ["train-matcher", "--data-source", "scannet", "--data-root", paths["data_root"],
-                "--train-npz", paths["train_npz"], "--val-npz", paths["val_npz"],
-                "--intrinsic-path", paths["intrinsic_path"], *PAR_CLI_MATCHER, "--ckpt-dir", str(ckpt),
-                "--history-out", str(hist), *extra]
-        r = {}
-        for part, more in (("epoch_1", ["--epochs", "1"]), ("resume_2", ["--epochs", "2", "--resume"])):
-            t0 = time.perf_counter()
-            cli.main(base + more)
-            r[part] = {"wall_s": time.perf_counter() - t0, "history": json.loads(hist.read_text())}
-        r["index"] = json.loads((ckpt / "index.json").read_text())
-        r["dirs"] = sorted(os.listdir(ckpt))
-        r["last"] = load_payload(str(ckpt / "last"), "cpu")
-        torch.cuda.empty_cache()
-        runs[name] = r
-    lr = 6e-3 * 2 / 64  # TrainMatcherConfig's canonical lr at the global batch of 2
-    row, failures = {}, []
-    want = runs["dp1"]
-    for name, r in runs.items():
-        out = {part: {"wall_s": r[part]["wall_s"], "epochs": [h["epoch"] for h in r[part]["history"]],
-                      "train_loss": [h["train_loss"] for h in r[part]["history"]]}
-               for part in ("epoch_1", "resume_2")}
-        out["index_epoch"], out["dirs"], out["step"] = r["index"]["epoch"], r["dirs"], r["last"]["step"]
-        best = {b["name"] for b in r["index"]["best"]}
-        ok = (out["epoch_1"]["epochs"] == [0] and out["resume_2"]["epochs"] == [1] and out["index_epoch"] == 2
-              and out["step"] == 2 and set(r["dirs"]) == best | {"index.json", "last"})
-        if name != "dp1":
-            out["train_loss_rel_err"] = max(abs(a - b) / abs(b) for part in ("epoch_1", "resume_2") for a, b in
-                                            zip(out[part]["train_loss"], row["dp1"][part]["train_loss"]))
-            out["against_dp1"] = _run_drift(r["last"], want["last"], lr, 2)
-            d = out["against_dp1"]
-            # Adam's bias-corrected ratio reaches 1.0013 at step 2: 1% of slack
-            ok = ok and (out["train_loss_rel_err"] <= TOL_PAR_RUN_LOSS and d["shapes_equal"]
-                         and d["weights_over_adam_bound"] <= 1.01 and d["stats_rel"] <= TOL_PAR_RUN_STATS
-                         and d["moments_rel_to_norm"] <= TOL_PAR_RUN_MOMENTS)
-        out["ok"] = ok
-        row[name] = out
-        if not ok:
-            failures.append(f"cli train-matcher {name}: {out}")
-    print(json.dumps({"parallel_cli_train_matcher": row}), flush=True)
-    return row, failures
-
-
-def _ssl_cli_process(args: list, log: Path) -> subprocess.Popen:
+def _cli_process(args: list, log: Path) -> subprocess.Popen:
     """`python -m pope_tpu_torch.cli <args>` from the checkout, in a session
     of its own (its ranks die with it), output to `log`."""
     with open(log, "w") as f:
@@ -3821,32 +3812,117 @@ def _kill(proc: subprocess.Popen) -> None:
     proc.wait()
 
 
-def ssl_cli_runs(tmp: Path):
-    """`cli train-ssl` at its defaults for SSL_CLI_STEPS steps, a checkpoint
-    every SSL_CLI_CKPT_EVERY: at --dp 1 in this process; at --dp 2 started
-    as a command, killed once its first checkpoint is written, then resumed
-    (two ranks), its last checkpoint held against --dp 1's; and at
-    --distributed, two commands of one rank each (a coordinator on
-    localhost, each rank its own batch stream) for SSL_CLI_CKPT_EVERY
-    steps. Returns (row, failures)."""
+def _cli_run(args: list, log: Path) -> float:
+    """Runs one `cli` command as a process of its own to its end and returns
+    its wall seconds; raises, with the end of its output, if it fails or
+    outlasts PAR_CLI_TIMEOUT."""
+    t0 = time.perf_counter()
+    proc = _cli_process(args, log)
+    try:
+        rc = proc.wait(timeout=PAR_CLI_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        _kill(proc)
+    if rc != 0:
+        raise RuntimeError(f"cli {' '.join(args)}: exit {rc}; {log.read_text()[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def matcher_cli_args(tmp: Path, paths: dict, name: str, part: str, extra) -> list:
+    """`cli train-matcher` on the ScanNet-layout scene `paths`: one step an
+    epoch, `part` one epoch or --resume to two; a run's checkpoints under
+    its `name`, each part's history a file of its own."""
+    more = {"epoch_1": ["--epochs", "1"], "resume_2": ["--epochs", "2", "--resume"]}[part]
+    return ["train-matcher", "--data-source", "scannet", "--data-root", paths["data_root"],
+            "--train-npz", paths["train_npz"], "--val-npz", paths["val_npz"],
+            "--intrinsic-path", paths["intrinsic_path"], *PAR_CLI_MATCHER,
+            "--ckpt-dir", str(tmp / f"matcher_ckpt_{name}"),
+            "--history-out", str(tmp / f"matcher_history_{name}_{part}.json"), *extra, *more]
+
+
+def matcher_cli_jobs(tmp: Path, paths: dict) -> dict:
+    """`cli train-matcher --dp 2` and `--tp 2` (two ranks each), each as
+    commands of their own: an epoch, then --resume to two. Each job
+    returns the two commands' wall seconds."""
+    def job(name, extra):
+        return lambda: {part: _cli_run(matcher_cli_args(tmp, paths, name, part, extra),
+                                       tmp / f"matcher_{name}_{part}.log") for part in MATCHER_CLI_PARTS}
+
+    return {"dp2": job("dp2", ["--dp", "2"]), "tp2": job("tp2", ["--tp", "2"])}
+
+
+def matcher_cli_dp1(tmp: Path, paths: dict) -> dict:
+    """`cli train-matcher` at --dp 1 in this process; its parts' walls."""
     from pope_tpu_torch import cli
-    from pope_tpu_torch.parallel.launch import free_port
+
+    walls = {}
+    for part in MATCHER_CLI_PARTS:
+        t0 = time.perf_counter()
+        cli.main(matcher_cli_args(tmp, paths, "dp1", part, []))
+        walls[part] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return walls
+
+
+def matcher_cli_runs(tmp: Path, dp1_walls: dict, jobs: dict):
+    """Each parallel run's (`jobs`: name -> future of matcher_cli_jobs'
+    walls) history and last checkpoint held against the --dp 1 run's.
+    Returns (row, failures)."""
     from pope_tpu_torch.utils.checkpoint import load_payload
 
-    images = tmp / "ssl_images"
-    write_ssl_images(images, 24)
-    base = ["train-ssl", "--image-root", str(images), "--total-steps", str(SSL_CLI_STEPS),
-            "--ckpt-every", str(SSL_CLI_CKPT_EVERY)]
+    walls = {"dp1": dp1_walls} | {name: future.result() for name, future in jobs.items()}
+    runs = {}
+    for name in walls:
+        ckpt = tmp / f"matcher_ckpt_{name}"
+        r = {part: {"wall_s": walls[name][part],
+                    "history": json.loads((tmp / f"matcher_history_{name}_{part}.json").read_text())}
+             for part in MATCHER_CLI_PARTS}
+        r["index"] = json.loads((ckpt / "index.json").read_text())
+        r["dirs"] = sorted(os.listdir(ckpt))
+        r["last"] = load_payload(str(ckpt / "last"), "cpu")
+        runs[name] = r
+    lr = 6e-3 * 2 / 64  # TrainMatcherConfig's canonical lr at the global batch of 2
     row, failures = {}, []
-    a, b, c = tmp / "ssl_dp1", tmp / "ssl_dp2", tmp / "ssl_distributed"
-    t0 = time.perf_counter()
-    cli.main(base + ["--ckpt-dir", str(a)])
-    row["dp1_wall_s"] = time.perf_counter() - t0
-    torch.cuda.empty_cache()
+    want = runs["dp1"]
+    for name, r in runs.items():
+        out = {part: {"wall_s": r[part]["wall_s"], "epochs": [h["epoch"] for h in r[part]["history"]],
+                      "train_loss": [h["train_loss"] for h in r[part]["history"]]}
+               for part in MATCHER_CLI_PARTS}
+        out["index_epoch"], out["dirs"], out["step"] = r["index"]["epoch"], r["dirs"], r["last"]["step"]
+        best = {b["name"] for b in r["index"]["best"]}
+        ok = (out["epoch_1"]["epochs"] == [0] and out["resume_2"]["epochs"] == [1] and out["index_epoch"] == 2
+              and out["step"] == 2 and set(r["dirs"]) == best | {"index.json", "last"})
+        if name != "dp1":
+            out["train_loss_rel_err"] = max(abs(a - b) / abs(b) for part in MATCHER_CLI_PARTS for a, b in
+                                            zip(out[part]["train_loss"], row["dp1"][part]["train_loss"]))
+            out["against_dp1"] = _run_drift(r["last"], want["last"], lr, 2)
+            d = out["against_dp1"]
+            # Adam's bias-corrected ratio reaches 1.0013 at step 2: 1% of slack
+            ok = ok and (out["train_loss_rel_err"] <= TOL_PAR_RUN_LOSS and d["shapes_equal"]
+                         and d["weights_over_adam_bound"] <= 1.01 and d["stats_rel"] <= TOL_PAR_RUN_STATS
+                         and d["moments_rel_to_norm"] <= TOL_PAR_RUN_MOMENTS)
+        out["ok"] = ok
+        row[name] = out
+        if not ok:
+            failures.append(f"cli train-matcher {name}: {out}")
+    print(json.dumps({"parallel_cli_train_matcher": row}), flush=True)
+    return row, failures
 
+
+def ssl_cli_base(images: Path, steps: int = SSL_CLI_STEPS) -> list:
+    """`cli train-ssl` at its defaults on `images` for `steps` steps."""
+    return ["train-ssl", "--image-root", str(images), "--total-steps", str(steps),
+            "--ckpt-every", str(SSL_CLI_CKPT_EVERY)]
+
+
+def ssl_cli_killed_and_resumed(tmp: Path, images: Path) -> dict:
+    """`cli train-ssl --dp 2` as a command, killed once its first checkpoint
+    is written, then the same command again, which resumes from it."""
+    b = tmp / "ssl_dp2"
     t0 = time.perf_counter()
-    proc = _ssl_cli_process(base + ["--dp", "2", "--ckpt-dir", str(b)], tmp / "ssl_dp2_killed.log")
-    sidecar, deadline, seen = b / "sampler.json", time.monotonic() + 300, None
+    proc = _cli_process(ssl_cli_base(images) + ["--dp", "2", "--ckpt-dir", str(b)], tmp / "ssl_dp2_killed.log")
+    sidecar, deadline, seen = b / "sampler.json", time.monotonic() + PAR_CLI_TIMEOUT, None
     while proc.poll() is None and time.monotonic() < deadline:
         with contextlib.suppress(OSError, ValueError):
             seen = json.loads(sidecar.read_text()).get("consumed_batches")
@@ -3854,11 +3930,64 @@ def ssl_cli_runs(tmp: Path):
             break
         time.sleep(0.05)
     _kill(proc)
-    row["dp2_killed"] = {"wall_s": time.perf_counter() - t0, "returncode": proc.returncode,
-                         "dirs": sorted(os.listdir(b)) if b.exists() else []}
+    row = {"dp2_killed": {"wall_s": time.perf_counter() - t0, "returncode": proc.returncode,
+                          "dirs": sorted(os.listdir(b)) if b.exists() else []}}
+    row["dp2_resumed_wall_s"] = _cli_run(ssl_cli_base(images) + ["--dp", "2", "--ckpt-dir", str(b)],
+                                         tmp / "ssl_dp2_resumed.log")
+    return row
+
+
+def ssl_cli_distributed(tmp: Path, images: Path) -> dict:
+    """`cli train-ssl --distributed` as two commands of one rank each (a
+    coordinator on localhost, each rank its own batch stream) for
+    SSL_CLI_CKPT_EVERY steps."""
+    from pope_tpu_torch.parallel.launch import free_port
+
+    c = tmp / "ssl_distributed"
     t0 = time.perf_counter()
-    cli.main(base + ["--dp", "2", "--ckpt-dir", str(b)])
-    row["dp2_resumed_wall_s"] = time.perf_counter() - t0
+    port = free_port()
+    dist_args = ssl_cli_base(images, SSL_CLI_CKPT_EVERY) + [
+        "--ckpt-dir", str(c), "--distributed", "--coordinator", f"localhost:{port}", "--num-processes", "2"]
+    procs = [_cli_process(dist_args + ["--process-id", str(r)], tmp / f"ssl_distributed_{r}.log")
+             for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=PAR_CLI_TIMEOUT) for p in procs]
+    except subprocess.TimeoutExpired:
+        rcs = None
+    finally:
+        for p in procs:
+            _kill(p)
+    return {"wall_s": time.perf_counter() - t0, "returncodes": rcs}
+
+
+def ssl_cli_jobs(tmp: Path, images: Path) -> dict:
+    """`cli train-ssl --dp 2` (killed and resumed) and `--distributed`, as
+    commands of their own."""
+    return {"dp2": lambda: ssl_cli_killed_and_resumed(tmp, images),
+            "distributed": lambda: ssl_cli_distributed(tmp, images)}
+
+
+def ssl_cli_dp1(tmp: Path, images: Path) -> float:
+    """`cli train-ssl` at its defaults for SSL_CLI_STEPS steps, a checkpoint
+    every SSL_CLI_CKPT_EVERY, at --dp 1 in this process; its wall."""
+    from pope_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    cli.main(ssl_cli_base(images) + ["--ckpt-dir", str(tmp / "ssl_dp1")])
+    wall = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return wall
+
+
+def ssl_cli_runs(tmp: Path, dp1_wall: float, jobs: dict):
+    """The --dp 2 run's last checkpoint (`jobs`: futures of ssl_cli_jobs)
+    held against --dp 1's, and the --distributed run's checkpoint read.
+    Returns (row, failures)."""
+    from pope_tpu_torch.utils.checkpoint import load_payload
+
+    row, failures = {"dp1_wall_s": dp1_wall}, []
+    a, b, c = tmp / "ssl_dp1", tmp / "ssl_dp2", tmp / "ssl_distributed"
+    row |= jobs["dp2"].result()
     last = f"step_{SSL_CLI_STEPS:08d}"
     one, two = load_payload(str(a / last), "cpu"), load_payload(str(b / last), "cpu")
     mu = _named_np(one["mu"])
@@ -3878,24 +4007,11 @@ def ssl_cli_runs(tmp: Path):
             and all(d[k]["all"] <= 2 * lr * SSL_CLI_STEPS for k in ("student", "teacher"))):
         failures.append(f"cli train-ssl --dp 2, killed and resumed, against --dp 1: {row}")
 
-    t0 = time.perf_counter()
-    port = free_port()
-    dist_args = ["train-ssl", "--image-root", str(images), "--total-steps", str(SSL_CLI_CKPT_EVERY),
-                 "--ckpt-every", str(SSL_CLI_CKPT_EVERY), "--ckpt-dir", str(c), "--distributed",
-                 "--coordinator", f"localhost:{port}", "--num-processes", "2"]
-    procs = [_ssl_cli_process(dist_args + ["--process-id", str(r)], tmp / f"ssl_distributed_{r}.log")
-             for r in range(2)]
-    try:
-        rcs = [p.wait(timeout=300) for p in procs]
-    except subprocess.TimeoutExpired:
-        rcs = None
-    finally:
-        for p in procs:
-            _kill(p)
+    dist_row = jobs["distributed"].result()
     logs = [(tmp / f"ssl_distributed_{r}.log").read_text() for r in range(2)]
-    dist_row = {"wall_s": time.perf_counter() - t0, "returncodes": rcs,
-                "launch": [line for line in logs[0].splitlines() if "[pope_tpu_torch.parallel]" in line],
-                "dirs": sorted(os.listdir(c)) if c.exists() else []}
+    dist_row |= {"launch": [line for line in logs[0].splitlines() if "[pope_tpu_torch.parallel]" in line],
+                 "dirs": sorted(os.listdir(c)) if c.exists() else []}
+    rcs = dist_row["returncodes"]
     if rcs == [0, 0]:
         payload = load_payload(str(c / f"step_{SSL_CLI_CKPT_EVERY:08d}"), "cpu")
         dist_row["step"] = payload["step"]
@@ -3950,21 +4066,6 @@ def run_parallel_phase(counters, per_batch_counts, held: list) -> dict:
         del models
         torch.cuda.empty_cache()
 
-        # the command itself (PipelineConfig()'s models): `cli eval` in this
-        # process, then `cli eval --dp 2`, which starts its own two ranks
-        from pope_tpu_torch import cli
-
-        cli_row, cli_tables = {}, {}
-        for dp in (1, PAR_RANKS):
-            t0 = time.perf_counter()
-            out_json = tmp / f"cli_dp{dp}.json"
-            with contextlib.redirect_stdout(io.StringIO()):
-                cli.main(["eval", "--dataset", "linemod", "--data-root", data_root, "--pairs-dir", pairs_dir,
-                          "--batch-size", str(EVAL_PAIRS_PER_BATCH), "--dp", str(dp), "--json-out", str(out_json)])
-            cli_row[f"dp{dp}_wall_s"] = time.perf_counter() - t0
-            cli_tables[dp] = json.loads(out_json.read_text())
-        torch.cuda.empty_cache()
-
         # the single-process steps the ranks' steps are held against
         matcher_refs = {}
         for seed in PAR_SEEDS:
@@ -3997,8 +4098,40 @@ def run_parallel_phase(counters, per_batch_counts, held: list) -> dict:
                        for k in [f"dp_{s}" for s in PAR_SEEDS] + [f"tp_{PAR_SEEDS[0]}"]
                        + [f"fault_{f}" for f in PAR_FAULTS]}
         ssl_got = torch.load(tmp / "ssl_dp.pt", weights_only=False)
-        cli_matcher, cli_matcher_failures = matcher_cli_runs(tmp)
-        cli_ssl, cli_ssl_failures = ssl_cli_runs(tmp)
+
+        # the commands (PipelineConfig()'s models for eval): the two-rank
+        # runs as commands of their own, PAR_CLI_JOBS at a time (a run's wall
+        # time is mostly its processes' start-up), while the --dp 1 runs go
+        # in this process
+        from concurrent.futures import ThreadPoolExecutor
+
+        from pope_tpu_torch import cli
+
+        t0 = time.perf_counter()
+        scene = write_scannet_scene(tmp / "scans", n_frames=4, shift_px=40)
+        images = tmp / "ssl_images"
+        write_ssl_images(images, 24)
+        eval_args = lambda dp: ["eval", "--dataset", "linemod", "--data-root", data_root, "--pairs-dir", pairs_dir,
+                                "--batch-size", str(EVAL_PAIRS_PER_BATCH), "--dp", str(dp),
+                                "--json-out", str(tmp / f"cli_dp{dp}.json")]
+        jobs = {"matcher": matcher_cli_jobs(tmp, scene), "ssl": ssl_cli_jobs(tmp, images),
+                "eval": {"dp2": lambda: {"dp2_wall_s": _cli_run(eval_args(PAR_RANKS), tmp / "cli_eval_dp2.log")}}}
+        with ThreadPoolExecutor(PAR_CLI_JOBS) as pool:
+            # the longest first: tp 2 stages tens of GB a step through host memory
+            futures = {(group, name): pool.submit(jobs[group][name]) for group, name in PAR_CLI_ORDER}
+            started = lambda group: {name: f for (g, name), f in futures.items() if g == group}
+            cli_row = {}
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(eval_args(1))
+            cli_row["dp1_wall_s"] = time.perf_counter() - t1
+            torch.cuda.empty_cache()
+            matcher_dp1, ssl_dp1 = matcher_cli_dp1(tmp, scene), ssl_cli_dp1(tmp, images)
+            cli_matcher, cli_matcher_failures = matcher_cli_runs(tmp, matcher_dp1, started("matcher"))
+            cli_ssl, cli_ssl_failures = ssl_cli_runs(tmp, ssl_dp1, started("ssl"))
+            cli_row |= futures[("eval", "dp2")].result()
+        cli_tables = {dp: json.loads((tmp / f"cli_dp{dp}.json").read_text()) for dp in (1, PAR_RANKS)}
+        row["cli_wall_s"] = time.perf_counter() - t0
     row["backend"] = ranks[0]["backend"]
 
     failures = []
@@ -4104,7 +4237,9 @@ def run_parallel_phase(counters, per_batch_counts, held: list) -> dict:
     row.update(eval=eval_row, matcher=matcher_rows, ssl=srow, gpipe=pp_row, ring=ring_row,
                wall_s=time.perf_counter() - t_phase)
     print(json.dumps({"parallel_phase": {k: row[k] for k in ("ranks", "card_count", "backend", "ranks_wall_s",
-                                                              "wall_s")}}), flush=True)
+                                                              "cli_wall_s", "wall_s")}
+                      | {"rank_parts_wall_s": [{k: v["wall_s"] for k, v in r.items() if isinstance(v, dict)}
+                                               for r in ranks]}}), flush=True)
     if failures:
         raise AssertionError("parallel phase: " + "; ".join(failures))
     return row
@@ -4139,26 +4274,36 @@ def main() -> int:
         check_ptxas(ptxas)
     print(json.dumps({"build_s": build_s, "cached": log is None}), flush=True)
 
-    kernels = run_kernel_phases()
-    reference = run_reference_phase()
-    reference2 = run_stage2_reference_phase()
-    solver = run_solver_phase()
+    phase_s = {"build": build_s}
+
+    def phase(name, fn, *args):
+        """fn(*args), its wall seconds kept in phase_s and printed."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        print(json.dumps({"phase_s": {name: phase_s[name]}}), flush=True)
+        return out
+
+    kernels = phase("kernels", run_kernel_phases)
+    reference = phase("reference", run_reference_phase)
+    reference2 = phase("stage2_reference", run_stage2_reference_phase)
+    solver = phase("solver", run_solver_phase)
     counters = {"windowed_attention_relpos": windowed_attention_relpos,
                 "flash_attention_relpos": flash_attention_relpos,
                 "flash_attention": flash_attention}
-    main_path, launches, models = run_main_path(counters)
-    serve, serve_launches = run_serve_phase(counters, models)
-    records, records_launches = run_records_phase(counters, models)
+    main_path, launches, models = phase("main_path", run_main_path, counters)
+    serve, serve_launches = phase("serve", run_serve_phase, counters, models)
+    records, records_launches = phase("records", run_records_phase, counters, models)
     del models
     torch.cuda.empty_cache()
-    eval_phase, *held = run_eval_phase(counters, launches)
-    quant = run_quant_phase(counters, held[0])
-    parallel = run_parallel_phase(counters, launches, held)
-    train = run_train_phase(counters)
-    export_phase = run_export_phase(counters)
-    regressor = run_regressor_phase(counters)
-    ssl = run_ssl_phase(counters, ex2_per_s())
-    nvs = run_nvs_phase(counters)
+    eval_phase, *held = phase("eval", run_eval_phase, counters, launches)
+    quant = phase("quant", run_quant_phase, counters, held[0])
+    parallel = phase("parallel", run_parallel_phase, counters, launches, held)
+    train = phase("train", run_train_phase, counters)
+    export_phase = phase("export", run_export_phase, counters)
+    regressor = phase("regressor", run_regressor_phase, counters)
+    ssl = phase("ssl", run_ssl_phase, counters, ex2_per_s())
+    nvs = phase("nvs", run_nvs_phase, counters)
 
     timing = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     listed = []
@@ -4220,7 +4365,7 @@ def main() -> int:
     out = Path(__file__).resolve().parent / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps({
-        "card": smi, "build_s": build_s, "ptxas": ptxas, "kernels": kernels, "reference": reference,
+        "card": smi, "build_s": build_s, "phase_s": phase_s, "ptxas": ptxas, "kernels": kernels, "reference": reference,
         "stage2_reference": reference2, "solver": solver, "main_path": main_path, "serve": serve,
         "records": records,
         "eval": eval_phase,
@@ -4234,6 +4379,7 @@ def main() -> int:
         "summary": summary,
     }, indent=1))
 
+    print(json.dumps({"phase_s": phase_s}), flush=True)
     print(json.dumps(summary), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

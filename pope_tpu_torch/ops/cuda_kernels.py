@@ -19,9 +19,8 @@ Four attention designs, picked by shape (`attention_design`):
   two whole key rows, each padded to a multiple of 8 slots; the others
   gathered per logit);
 - "tf32x3" (csrc/attention_f32.cu): float32 on the tensor cores, each
-  product as three TF32 products (mma.sync) of operands split into a
-  rounded big and small part; d <= 128, bias grids of hk + wk <=
-  F32_MAX_GRID;
+  product as three TF32 wgmma products of operands split into a rounded
+  big and small part; d <= 128, bias grids of hk + wk <= F32_MAX_GRID;
 - "stream" (csrc/attention_relpos.cu): the rest (f32 past those limits,
   bf16 head dims without a tensor-core instantiation).
 """
@@ -53,7 +52,7 @@ SHORT_MAX_GRID = 32  # and a bias grid of hk + wk <= 32: two k-steps of its bias
 LONG_MAX_GRID = 500
 # attention_f32.cu: the query tile's rel rows (64 x (hk + wk) f32) beside the
 # split query, K and V tiles fit in shared memory at every padded head dim
-# (at d_pad = 128, with 16-key tiles, room is left for 474; its launcher
+# (its MAX_GRID, checked against its tile plan at compile time; its launcher
 # refuses 475, which tests/test_torch_cuda.py holds it to)
 F32_MAX_GRID = 474
 DESIGNS = ("short", "long", "tf32x3", "stream")  # attention_design's order of preference

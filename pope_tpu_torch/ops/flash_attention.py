@@ -19,10 +19,10 @@ in `launches_by_design` and per token count N in `launches_by_tokens`):
   logits never reach device memory: the other bf16 shapes, SAM's global
   layers (N = 3072) among them;
 - "tf32x3" (csrc/attention_f32.cu, shared with the windowed layers) takes
-  float32: 64-key tiles past 64-query tiles, split into TF32 big and small
-  parts, each product as three TF32 tensor-core products (mma.sync), about
-  f32's accuracy: the SSL step's f32 DINOv2 (N = 257 and 50), the f32 SAM
-  configs;
+  float32: K / V tiles of up to 64 keys past 64- or 128-query tiles, split
+  into TF32 big and small parts, each product as three TF32 wgmma products,
+  about f32's accuracy: the SSL step's f32 DINOv2 (N = 257 and 50), the f32
+  SAM configs;
 - "stream" (csrc/attention_relpos.cu, shared with the windowed layers) does
   the same with mma.sync or f32 FMAs: the shapes the others do not take.
 Logits, softmax statistics and sums are f32; the scale is d^-1/2. In bf16

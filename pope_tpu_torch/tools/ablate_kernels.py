@@ -15,11 +15,13 @@ layers (4 frames x 16 heads, 48 x 64 tokens, d = 80) with the bias and, on
 the same q/k/v, without it; the f32 (tf32x3) kernel at the SSL step's two
 shapes (16 x 6 heads at N = 257 and 64 x 6 at N = 50, d = 64) and at
 kernels 1 and 2's shapes in float32. With the f32 kernel it also times
-mma.sync's TF32 product alone (a kernel of independent m16n8k8 products):
-the rate 3xTF32 divides by three, the SSL shapes again on q/k/v laid out
-head by head (each block's rows one contiguous run, as a block that packed
-an image's heads would read them) and on rows off 16 bytes (its 4-byte
-loads), and 8 x 6 heads at N = 1025. Variants
+the TF32 products alone, the rates 3xTF32 divides by three: mma.sync's (a
+kernel of independent m16n8k8 products, the previous body's) and the
+shipped body's wgmma shapes (m64nNk8, from shared memory and from
+registers, with one and with six warpgroups an SM); and the SSL shapes
+again on q/k/v laid out head by head (each block's rows one contiguous
+run, as a block that packed an image's heads would read them) and on rows
+off 16 bytes (its 4-byte loads), and 8 x 6 heads at N = 1025. Variants
 that skip work give wrong outputs: they are timings, not kernels. Each
 round times every variant once, in order; CUDA-event means over `--reps`
 launches. Prints the card, ptxas's spills per variant (and the SASS's highest
@@ -30,11 +32,13 @@ to that on the CPU).
 
 With `--against CSRC` (a csrc directory of an earlier version, e.g. from
 `git archive <commit> pope_tpu_torch/csrc` unpacked under build/), it
-builds that attention_long.cu beside the shipped one and times the two in
-turns (against, shipped, shipped, against) at the long design's shapes:
-kernel 2 on the main, square and crop grids and on portrait frames' (64 x
-48, a 64 x 52 crop: key rows of 48 and 56 slots), kernel 3 at d 80 N = 3072
-and at demo-dinov2's N = 1025 (d 64), and d 64 / d 32 at N = 3072.
+builds that version's source of the kernel named by `--kernel` (long, the
+default, or f32) beside the shipped one and times the two in turns
+(against, shipped, shipped, against) at that kernel's shapes: for the long
+kernel, kernel 2 on the main, square and crop grids and on portrait frames'
+(64 x 48, a 64 x 52 crop: key rows of 48 and 56 slots), kernel 3 at d 80 N
+= 3072 and at demo-dinov2's N = 1025 (d 64), and d 64 / d 32 at N = 3072;
+for the f32 kernel, the shapes above (the four f32 rows among them).
 """
 
 from __future__ import annotations
@@ -208,27 +212,49 @@ LONG_VARIANTS = {
 }
 
 # ---- the f32 kernel (tf32x3: kernels 1, 2 and 3 in float32)
-F32_S = "        mma3(s[nt], qb, qs, lds128(Ks + (nt * 8 + g) * R + ks * 16 + t * 4));"
-F32_PV = "      for (int nt = 0; nt < KS; ++nt) mma3(ot[nt], pb, ps, lds128(Vs + ((j * DP + nt * 8 + g) * 4 + t) * 4));"
+F32_NO_TILE_LOADS = [("      if (k0 + TK < N) {  // the next", "      if (false) {  // the next"),
+                     ("      if constexpr (!prefetch<DP, VEC>()) {\n        // d laundered",
+                      "      if constexpr (false) {\n        // d laundered")]
+F32_STORES = "    store_rows<DP, TK, NT>(Kb, Ks, kc, 1.f);\n    store_v<DP, TK, NT>(Vb, Vs, vc);\n"
+# the first tile's stores alone
+F32_STORES_ONCE = (F32_STORES, "    if (k0 == 0) {\n  " + F32_STORES.replace("\n    ", "\n      ") + "    }\n")
+F32_NO_EXP = [(f"      s[4 * c{o}] = ex2(s[4 * c{o}] - mn{m});", f"      s[4 * c{o}] = s[4 * c{o}] - mn{m};")
+              for o, m in (("", 0), (" + 1", 0), (" + 2", 1), (" + 3", 1))]
+F32_S3 = ("  wgmma_tf32_ss<TK>(s, q_small, k_big, ks > 0);\n"
+          "  wgmma_tf32_ss<TK>(s, q_big, k_small, 1);\n"
+          "  wgmma_tf32_ss<TK>(s, q_big, k_big, 1);\n")
+F32_PV3 = ("  wgmma_tf32_rs<DP>(o, p_small, v_big, j > 0);\n"
+           "  wgmma_tf32_rs<DP>(o, p_big, v_small, 1);\n"
+           "  wgmma_tf32_rs<DP>(o, p_big, v_big, 1);\n")
 F32_VARIANTS = {
     "shipped": [],
-    # the products only over 8-key groups holding a live key (a branch each)
-    "skip_empty_key_groups": [
-        (F32_S, F32_S.replace("        mma3(", "        if (nt < (N - k0 + 7) / 8) mma3(")),
-        (F32_PV, F32_PV.replace("mma3(", "if (j < (N - k0 + 7) / 8) mma3(")),
+    # staging alone: no products, no softmax
+    "loads_only": [("    if (!live) continue;", "    continue;")],
+    # only the first K / V tiles are loaded; the others split and store them again
+    "no_tile_loads": F32_NO_TILE_LOADS,
+    # only the first K / V tiles are loaded and stored: products and softmax
+    # on them alone
+    "no_staging": [*F32_NO_TILE_LOADS, F32_STORES_ONCE],
+    # the products and the softmax's other steps, without staging or exp
+    "products_only": [*F32_NO_TILE_LOADS, F32_STORES_ONCE, *F32_NO_EXP],
+    "no_exp": F32_NO_EXP,
+    # big . big alone, in S and in P V
+    "one_tf32_product": [
+        (F32_S3, "  wgmma_tf32_ss<TK>(s, q_big, k_big, ks > 0);\n"),
+        (F32_PV3, "  wgmma_tf32_rs<DP>(o, p_big, v_big, j > 0);\n"),
     ],
+    # the per-logit bias gather left out (the biased rows' logits bias-free)
+    "no_bias_gather": [("    if constexpr (HAS_BIAS) {\n      int kh", "    if constexpr (false) {\n      int kh")],
     "no_prefetch": [("  return VEC && DP <= 80;", "  return false;")],
-    # only the first K / V tile is loaded; the others split and store it again
-    "no_tile_loads": [("      if (k0 + TK < N) {  // the next", "      if (false) {  // the next"),
-                      ("      if constexpr (!prefetch<DP, VEC>()) {", "      if constexpr (false) {")],
-    # no products (and so no fragment loads): staging, softmax, stores
-    "no_products": [("  mma_tf32(c, a_small, b.x, b.y);\n  mma_tf32(c, a_big, b.z, b.w);\n"
-                     "  mma_tf32(c, a_big, b.x, b.y);\n", "")],
-    "one_tf32_product": [("  mma_tf32(c, a_small, b.x, b.y);\n  mma_tf32(c, a_big, b.z, b.w);\n", "")],
-    "rounding_by_integer_ops": [('  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(x));',
-                                 "  r = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;")],
+    # the rounding by cvt.rna.tf32.f32 (shipped: two integer operations)
+    "rounding_by_cvt": [("  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;",
+                         '  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(x));\n  return r;')],
+    # 32-key tiles in every 64-query block (shipped: 64 at d_pad 32 and 64;
+    # fewer registers, twice the barriers)
+    "tile_keys_32": [("  return DP == 128 ? (HAS_BIAS ? 16 : 32) : DP == 80 && TQ == 64 ? 32 : 64;",
+                      "  return DP == 128 ? (HAS_BIAS ? 16 : 32) : DP == 80 && TQ == 128 ? 64 : 32;")],
     # 64 query rows a block at every N (shipped: 128 from 1024 keys on at
-    # d_pad <= 80, each K / V tile loaded and split once for twice the
+    # d_pad 80, each K / V tile loaded and split once for twice the
     # queries), and 128 at every N
     "query_tile_64": [("constexpr int LONG_N = 1024;", "constexpr int LONG_N = 1 << 30;")],
     "query_tile_128": [("constexpr int LONG_N = 1024;", "constexpr int LONG_N = 0;")],
@@ -237,7 +263,7 @@ VARIANTS = {"short": SHORT_VARIANTS, "long": LONG_VARIANTS, "f32": F32_VARIANTS}
 ENTRIES = {"short": "pope_attention_short", "long": "pope_attention_long", "f32": "pope_attention_f32"}
 
 # m16n8k8 TF32 products on the tensor cores, ILP independent accumulators a
-# warp, no loads: mma.sync's own rate
+# warp, no loads: the warp-level product's own rate (the previous body's)
 MMA_PROBE = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -263,6 +289,51 @@ extern "C" int mma_tf32_probe(float* out, int blocks, int threads, int iters) {
 }
 """
 
+# the shipped body's own tf32 wgmma products (attention_f32.cu's helpers),
+# 16 a batch on one accumulator, operands zero in shared memory (the
+# 32-byte swizzle), two warpgroups a block: S's m64n64k8 and m64n32k8
+# (A and B from shared memory) and P V's m64n64k8 and m64n80k8 (A from
+# registers)
+WGMMA_PROBE = r"""
+#include "attention_f32.cu"
+template <int N, bool RS>
+__global__ void __launch_bounds__(256) wgmma_tf32_rate(float* out, int iters) {
+  __shared__ __align__(1024) float sm[2 * 128 * 8];
+  for (int i = threadIdx.x; i < 2 * 128 * 8; i += blockDim.x) sm[i] = 0.f;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  const uint32_t a_addr = smem_u32(sm), b_addr = a_addr + 128 * 32;
+  float d[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+  uint32_t a[4] = {0u, 0u, 0u, 0u};
+  for (int it = 0; it < iters; ++it) {
+    fence_regs(d);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      if constexpr (RS) wgmma_tf32_rs<N>(d, a, desc_b32(b_addr, 16), 1);
+      else wgmma_tf32_ss<N>(d, desc_b32(a_addr, 16), desc_b32(b_addr, 16), 1);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(d);
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) s += d[i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int wgmma_tf32_probe(int kind, float* out, int blocks, int threads, int iters) {
+  if (kind == 0) wgmma_tf32_rate<64, false><<<blocks, threads>>>(out, iters);
+  if (kind == 1) wgmma_tf32_rate<32, false><<<blocks, threads>>>(out, iters);
+  if (kind == 2) wgmma_tf32_rate<64, true><<<blocks, threads>>>(out, iters);
+  if (kind == 3) wgmma_tf32_rate<80, true><<<blocks, threads>>>(out, iters);
+  return cudaGetLastError();
+}
+"""
+WGMMA_KINDS = (("ss_m64n64k8", 64), ("ss_m64n32k8", 32), ("rs_m64n64k8", 64), ("rs_m64n80k8", 80))
+
 
 def mma_tf32_tflops(reps: int) -> dict:
     """mma.sync m16n8k8 TF32 products a second on this card (8 warps of 8
@@ -280,6 +351,30 @@ def mma_tf32_tflops(reps: int) -> dict:
     ms = cuda_ms(lambda: lib.mma_tf32_probe(out.data_ptr(), blocks, threads, iters), reps)
     flops = blocks * threads // 32 * 8 * iters * 2 * 16 * 8 * 8
     return {"mma_sync_tf32_tflops": flops / ms / 1e9, "ms": ms}
+
+
+def wgmma_tf32_tflops(reps: int) -> dict:
+    """The shipped body's tf32 wgmma products a second on this card (16
+    products a batch on one accumulator, no loads), in TFLOP/s, by shape:
+    with 6 warpgroups on every SM (3 blocks of two), and with one (a
+    dependent chain alone, as one warpgroup of a block waits for its own S
+    or P V)."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    cu, so = OUT / "wgmma_tf32_probe.cu", OUT / "wgmma_tf32_probe.so"
+    cu.write_text(WGMMA_PROBE)
+    subprocess.run(["/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                    "-I", str(CSRC), "-shared", "-Xcompiler", "-fPIC", "-o", str(so), str(cu)], check=True)
+    lib = ctypes.CDLL(str(so))
+    lib.wgmma_tf32_probe.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    iters = 2048
+    out = torch.empty(3 * sms * 256, device="cuda")
+    rates = {}
+    for label, blocks, threads in (("6_warpgroups_an_sm", 3 * sms, 256), ("1_warpgroup_an_sm", sms, 128)):
+        for kind, (name, n) in enumerate(WGMMA_KINDS):
+            ms = cuda_ms(lambda: lib.wgmma_tf32_probe(kind, out.data_ptr(), blocks, threads, iters), reps)
+            rates[f"{name}_{label}"] = blocks * threads // 128 * iters * 16 * 2 * 64 * n * 8 / ms / 1e9
+    return {"wgmma_tf32_tflops": rates}
 
 
 def sass_profile(lib: Path) -> dict:
@@ -319,8 +414,8 @@ def variant_source(kernel: str, name: str) -> str:
 
 def build_all(kernels, variants=None, against=None) -> dict:
     """Build every variant of `kernels` (or those named in `variants`) and,
-    with `against` (a csrc directory of another version of the long kernel),
-    that version's attention_long.cu as the long kernel's variant "against"."""
+    with `against` (a csrc directory of another version), that version's
+    source of each kernel as its variant "against"."""
     OUT.mkdir(parents=True, exist_ok=True)
     sources = {}
     for kernel in kernels:
@@ -328,7 +423,8 @@ def build_all(kernels, variants=None, against=None) -> dict:
             if variants is None or name in variants:
                 sources[kernel, name] = (variant_source(kernel, name), CSRC)
     if against is not None:
-        sources["long", "against"] = ((Path(against) / "attention_long.cu").read_text(), Path(against))
+        for kernel in kernels:
+            sources[kernel, "against"] = ((Path(against) / SOURCES[kernel].name).read_text(), Path(against))
     procs = {}
     for (kernel, name), (text, include) in sources.items():
         cu = OUT / f"{kernel}_{name}.cu"
@@ -358,10 +454,15 @@ def build_all(kernels, variants=None, against=None) -> dict:
 
 
 def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over `reps` back-to-back calls. The card
+    sleeps about 10 ms before the start event, so that the host has queued
+    the calls before the first one runs: a call's ctypes and launch take
+    several microseconds of host time, as long as the fastest rows."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -377,9 +478,9 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--variants", help="comma-separated variants to build (default: all)")
     ap.add_argument("--against", metavar="CSRC",
-                    help="a csrc directory of another version of the long kernel (a git archive of an earlier "
-                         "commit): times it and the shipped one in turns (against, shipped, shipped, against) "
-                         "at the long design's shapes instead of ablating")
+                    help="a csrc directory of another version of the long or f32 kernel (--kernel; a git archive "
+                         "of an earlier commit): times it and the shipped one in turns (against, shipped, shipped, "
+                         "against) at that design's shapes instead of ablating")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ablate_kernels.py runs on a CUDA card")
@@ -388,11 +489,12 @@ def main() -> int:
     print(smi, flush=True)
     kernels = ("short", "long", "f32") if args.kernel == "all" else (args.kernel,)
     if args.against:
-        kernels = ("long",)
+        kernels = (args.kernel,) if args.kernel in ("long", "f32") else ("long",)
     variants = {"shipped"} if args.against else (set(args.variants.split(",")) if args.variants else None)
     libs = build_all(kernels, variants, args.against)
     if "f32" in kernels:
         print(json.dumps({"mma_probe": mma_tf32_tflops(args.reps), "card": smi}), flush=True)
+        print(json.dumps({"wgmma_probe": wgmma_tf32_tflops(args.reps), "card": smi}), flush=True)
 
     g = torch.Generator(device="cuda").manual_seed(0)
     bf16, stream = torch.bfloat16, torch.cuda.current_stream().cuda_stream
@@ -489,9 +591,10 @@ def main() -> int:
                          "kernel2_f32_ms": relpos("pope_attention_f32_relpos", qkv2f, *rel2, out2f, 48, 64)}
 
     if args.against:
-        old, new = libs["long", "against"], libs["long", "shipped"]
+        kernel = kernels[0]
+        old, new = libs[kernel, "against"], libs[kernel, "shipped"]
         for rnd in range(args.rounds):
-            for key, fn in shapes["long"].items():
+            for key, fn in shapes[kernel].items():
                 turns = [cuda_ms(lambda lib=lib: fn(lib), args.reps) for lib in (old, new, new, old)]
                 print(json.dumps({"round": rnd, "shape": key, "against_ms": (turns[0] + turns[3]) / 2,
                                   "shipped_ms": (turns[1] + turns[2]) / 2, "turns_ms": turns, "card": smi}),

@@ -78,6 +78,7 @@ _RELPOS_CASES = [  # (BW, nh, d, hk, wk), both dtypes; then float32 alone
     (torch.float32, 2, 2, 78, 14, 14),
     (torch.float32, 2, 1, 126, 5, 7),
     (torch.float32, 1, 1, 80, 33, 37),  # 128-query blocks, a ragged last one
+    (torch.float32, 1, 1, 128, 1, 473),  # the widest grid the f32 kernel stages at its widest head dim
 ]
 
 
@@ -247,6 +248,50 @@ def test_f32_max_grid_is_the_launchers_fit(card):
                                                   *strides, 1, wk, 1, 128, 1, wk, 128 ** -0.5, stream)
         torch.cuda.synchronize()
         assert err == want
+
+
+# (N, hk, wk): one key below, at and one above a K / V tile of 64 keys
+# (d_pad 32 and 64; 32 at d_pad 80) and of two, the last query tile of 64
+# holding one row at 65 and 129
+_TILE_EDGES = [(63, 7, 9), (64, 8, 8), (65, 5, 13), (127, 1, 127), (128, 8, 16), (129, 3, 43)]
+
+
+@pytest.mark.parametrize("d", [64, 80, 32, 30, 78, 126])
+@pytest.mark.parametrize("N,hk,wk", _TILE_EDGES, ids=[str(n) for n, _, _ in _TILE_EDGES])
+def test_tf32x3_at_key_tile_edges(card, N, hk, wk, d):
+    """The tf32x3 kernel at the edges of its key tiles (64 keys; 32 at d 80
+    in 64-query blocks), without the bias and on an hk x wk grid, on the
+    16-byte path and (d 30, 78, 126: rows not in whole 16-byte chunks) the
+    4-byte one: one launch each, a match."""
+    g = torch.Generator(device=card).manual_seed(N + d)
+    q, k, v = torch.randn(2, N, 3, 2, d, device=card, generator=g).unbind(2)
+    before = dict(flash_attention.launches_by_design)
+    assert_matches_plain(flash_attention(q, k, v), flash_attention_plain(q, k, v))
+    assert_one_launch_of(flash_attention, before, "tf32x3")
+    rel_h, rel_w = (0.5 * torch.randn(2, 2, N, n, device=card, generator=g) for n in (hk, wk))
+    before = dict(flash_attention_relpos.launches_by_design)
+    out = flash_attention_relpos(q, k, v, rel_h, rel_w, hk, wk)
+    assert_matches_plain(out, flash_attention_relpos_plain(q, k, v, rel_h, rel_w, hk, wk))
+    assert_one_launch_of(flash_attention_relpos, before, "tf32x3")
+
+
+@pytest.mark.parametrize("N,d", [(64, 64), (96, 80), (200, 32), (100, 128)])
+def test_tf32x3_far_from_symmetric_weights(card, N, d):
+    """Query n attends to key (5 n + 3) mod N almost alone (q_n a multiple of
+    that key), a map with no symmetry, and v's rows are far apart: a
+    fragment that put a logit in another key's or row's slot of P, or a
+    key of V^T in another slot, moves the output by O(1)."""
+    g = torch.Generator(device=card).manual_seed(7)
+    k = torch.randn(1, N, 1, d, device=card, generator=g)
+    target = (5 * torch.arange(N, device=card) + 3) % N
+    q = 12.0 * k[:, target] * d ** -0.5 + 0.1 * torch.randn(1, N, 1, d, device=card, generator=g)
+    v = torch.randn(1, N, 1, d, device=card, generator=g)
+    before = dict(flash_attention.launches_by_design)
+    out = flash_attention(q, k, v)
+    assert_one_launch_of(flash_attention, before, "tf32x3")
+    ref = flash_attention_plain(q, k, v)
+    assert (ref - v[:, target].reshape(1, N, d)).abs().amax(-1).median() < 0.1  # the weights are concentrated
+    assert_matches_plain(out, ref)
 
 
 def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(card):

@@ -22,7 +22,7 @@ import torch
 from pope_tpu.ops.flash_attention import flash_attention as pallas_attention
 from pope_tpu.ops.flash_attention import flash_attention_relpos as pallas_flash
 from pope_tpu.ops.window_attention import windowed_attention_relpos as pallas_window
-from pope_tpu_torch.ops.cuda_kernels import _resolve_design
+from pope_tpu_torch.ops.cuda_kernels import F32_MAX_GRID, _resolve_design
 from pope_tpu_torch.ops.flash_attention import flash_attention_plain, flash_attention_relpos_plain
 from pope_tpu_torch.ops.window_attention import windowed_attention_relpos_plain
 
@@ -45,28 +45,68 @@ def split(x: torch.Tensor):
     return big, rna_tf32(x - big)
 
 
-def mm3(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
-    """a @ b as the kernel takes it: the small cross terms, then big . big
-    (passes=1: big . big alone, one TF32 product)."""
+def mm3(a: torch.Tensor, b: torch.Tensor, passes: int = 3, perm=None) -> torch.Tensor:
+    """a @ b as the kernel takes it: one k8 step of the depth at a time (in
+    the order `perm` within each step, the identity by default), each step
+    as the small cross terms, then big . big (passes=1: big . big alone,
+    one TF32 product), summed into one accumulator."""
     a_big, a_small = split(a)
     b_big, b_small = split(b)
-    if passes == 1:
-        return a_big @ b_big
-    return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
+    out = torch.zeros(*a.shape[:-1], b.shape[-1])
+    for k0 in range(0, a.shape[-1], 8):
+        idx = torch.arange(k0, k0 + 8) if perm is None else k0 + perm
+        ab, as_, bb, bs = a_big[..., idx], a_small[..., idx], b_big[..., idx, :], b_small[..., idx, :]
+        if passes == 3:
+            out = out + as_ @ bb
+            out = out + ab @ bs
+        out = out + ab @ bb
+    return out
 
 
-def tile_keys(d: int) -> int:
-    """The kernel's keys a tile at head dim d (padded to 32, 64, 80 or 128)."""
-    return 32 if 64 < d <= 80 else 16
+# P V's order within an 8-key group: the A fragment holds key 2t at k = t
+# and key 2t + 1 at k = t + 4, so V^T's slab holds keys 0, 2, 4, 6, 1, 3, 5, 7
+PV_KEY_ORDER = torch.tensor([0, 2, 4, 6, 1, 3, 5, 7])
+SMEM_LIMIT = 232448  # the bytes of shared memory a block may take
+LONG_N = 1024  # from this many keys on, 128-query blocks at d_pad 80
+
+
+def padded_head_dim(d: int) -> int:
+    return next(p for p in (32, 64, 80, 128) if d <= p)
+
+
+def query_tile(d: int, N: int, grid: int = 0) -> int:
+    """The kernel's query rows a block (16-byte rows, as these tests' views
+    are at d % 4 == 0): 128 at d_pad 80 from LONG_N keys on where the bias
+    rows fit, 64 else."""
+    dp = padded_head_dim(d)
+    if dp == 80 and d % 4 == 0 and N >= LONG_N:
+        if 256 + 8 * dp * (128 + 2 * 64) + 4 * 132 * grid <= SMEM_LIMIT:
+            return 128
+    return 64
+
+
+def tile_keys(d: int, N: int = 0, grid: int = 0) -> int:
+    """The kernel's keys a K / V tile at head dim d (padded to 32, 64, 80 or
+    128) on a bias grid of hk + wk = grid (0: no bias): 64, 32 at d_pad 80
+    in 64-query blocks, 32 (16 with the bias) at d_pad 128."""
+    dp = padded_head_dim(d)
+    if dp == 128:
+        return 16 if grid else 32
+    return 32 if dp == 80 and query_tile(d, N, grid) == 64 else 64
 
 
 def tf32x3_attention(q, k, v, rel_h=None, rel_w=None, hk: int = 0, wk: int = 0, passes: int = 3):
     """The kernel's order of work on (B, N, nh, d) f32 views (rel_h
-    (B, nh, N, hk), rel_w (B, nh, N, wk) or None). Returns (B, N, nh * d)."""
+    (B, nh, N, hk), rel_w (B, nh, N, wk) or None): the head dim padded with
+    zeros to d_pad, S = Q K^T one k8 step of it at a time, the online
+    softmax over the kernel's key tiles with the ragged last tile masked
+    to -inf, and each tile's P V summed from 0 over 8-key groups in the
+    fragment's key order, then added to O. Returns (B, N, nh * d)."""
     B, N, nh, d = q.shape
-    TK = tile_keys(d)
+    dp = padded_head_dim(d)
+    TK = tile_keys(d, N, hk + wk)
     scale = torch.tensor(d**-0.5, dtype=torch.float32) * torch.tensor(LOG2E, dtype=torch.float32)
-    qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))  # (B, nh, N, d)
+    qh, kh, vh = (torch.nn.functional.pad(t.permute(0, 2, 1, 3), (0, dp - d)) for t in (q, k, v))
     qh = qh * scale
     n_pad = -N % TK  # the ragged last tile: zero keys, masked logits
     kh = torch.nn.functional.pad(kh, (0, 0, 0, n_pad))
@@ -79,7 +119,7 @@ def tf32x3_attention(q, k, v, rel_h=None, rel_w=None, hk: int = 0, wk: int = 0, 
         bias = torch.nn.functional.pad(bias, (0, n_pad))
     m = torch.full((B, nh, N), -torch.inf)
     l = torch.zeros(B, nh, N)
-    o = torch.zeros(B, nh, N, d)
+    o = torch.zeros(B, nh, N, dp)
     for k0 in range(0, N, TK):
         s = mm3(qh, kh[:, :, k0:k0 + TK].transpose(-1, -2), passes)
         if bias is not None:
@@ -89,9 +129,9 @@ def tf32x3_attention(q, k, v, rel_h=None, rel_w=None, hk: int = 0, wk: int = 0, 
         c = torch.exp2(m - mn)
         p = torch.exp2(s - mn[..., None])
         l = l * c + p.sum(-1)
-        o = o * c[..., None] + mm3(p, vh[:, :, k0:k0 + TK], passes)
+        o = o * c[..., None] + mm3(p, vh[:, :, k0:k0 + TK], passes, PV_KEY_ORDER)
         m = mn
-    return (o / l[..., None]).permute(0, 2, 1, 3).reshape(B, N, nh * d)
+    return (o[..., :d] / l[..., None]).permute(0, 2, 1, 3).reshape(B, N, nh * d)
 
 
 def _max_err(out, ref) -> float:
@@ -127,8 +167,12 @@ def test_rna_tf32_rounds_to_nearest_ties_away():
 
 # SSL's two shapes at reduced batch (global crops N = 257: a ragged last key
 # tile of 1 and a last query row alone; local crops N = 50), at DINOv2's
-# d = 64 and at d = 20 (a head dim the kernel pads to 32)
-SHAPES = [(1, 257, 2, 64), (2, 50, 2, 64), (1, 257, 2, 20), (2, 50, 2, 20)]
+# d = 64 and at d = 20 (a head dim the kernel pads to 32); N one below, at
+# and one above a key tile (64 keys at d_pad 64, 32 at d_pad 80 and 128),
+# 65 leaving a last query tile of one row
+SHAPES = [(1, 257, 2, 64), (2, 50, 2, 64), (1, 257, 2, 20), (2, 50, 2, 20),
+          (1, 63, 2, 64), (1, 64, 2, 64), (1, 65, 2, 64), (1, 31, 2, 80), (1, 32, 2, 80), (1, 33, 2, 80),
+          (1, 33, 1, 128)]
 
 
 @pytest.mark.parametrize("B,N,nh,d", SHAPES)
@@ -179,6 +223,23 @@ def test_tf32x3_relpos_window_matches_plain_and_pallas():
     ref = np.asarray(ref).reshape(BW, nh, N, d).transpose(0, 2, 1, 3).reshape(BW, N, nh * d)
     assert _max_err(out, ref) < TOL_F32
     assert _max_err(tf32x3_attention(q, k, v, trh, trw, hk, wk, passes=1), ref) > 5 * TOL_F32
+
+
+def test_tile_plan_fits_the_widest_grid():
+    """The kernel's tiles per padded head dim (tile_keys, query_tile above,
+    as csrc/attention_f32.cu's constexpr plan) stage the split Q, K and V^T
+    tiles and a 64-query block's bias rows at hk + wk = F32_MAX_GRID in one
+    block's shared memory at every padded head dim; kernel 2's grid (48 x
+    64) takes 128-query blocks with 64-key tiles, kernel 1's 14 x 14
+    windows 64-query blocks with 32-key tiles."""
+    for dp in (32, 64, 80, 128):
+        tk = tile_keys(dp, 196, F32_MAX_GRID)
+        assert 256 + 8 * dp * (64 + 2 * tk) + 4 * 68 * F32_MAX_GRID <= SMEM_LIMIT
+        assert tk % 16 == 0 and tile_keys(dp) % 16 == 0
+    assert (query_tile(80, 3072, 112), tile_keys(80, 3072, 112)) == (128, 64)
+    assert (query_tile(80, 196, 28), tile_keys(80, 196, 28)) == (64, 32)
+    assert (query_tile(64, 257), tile_keys(64, 257)) == (64, 64)
+    assert (tile_keys(128), tile_keys(128, 473, 474)) == (32, 16)
 
 
 def test_tf32x3_refuses_what_it_does_not_take():
