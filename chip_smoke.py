@@ -24,13 +24,19 @@ Phases, each of which raises on failure (exit code != 0):
      previous). Each time is the card's: the calls are queued behind a
      sleep on the card, so the host's time per call does not enter it.
      Kernels 1 and 2 are also held and timed at the serving path's square
-     64x64 token grid (one frame: 25 windows, N = 4096), kernel 2 at the
+     64x64 token grid (one frame: 25 windows, N = 4096), kernel 1 on one
+     640x480 frame's 20 windows, kernel 2 at the
      multi-crop sweep's 52x64 grid (one crop, N = 3328), at portrait
      frames' 64x48 grid (4 frames) and their crops' 64x52 (one crop), and
      kernel 3 through the long bias-free design at demo-dinov2's N = 1025
      (one image, a masked key tail); the long kernel's launcher reports the
      bias layout, row width, Q and K/V stages it picks at the five grids of
-     kernel 2, and each must take whole key rows (not the gather). Kernels 1
+     kernel 2, and each must take whole key rows (not the gather). Each
+     bf16 row reports the plan of its kernel's last wave (units, the SMs
+     or clusters the card holds at once, the pieces s each of the last
+     wave's items runs as) and fails unless s is TAIL_ROWS' (split at
+     N = 1025, the crop and portrait crop, the square and one-frame kernel
+     1 rows; 1 at every other row, the eval path's among them). Kernels 1
      and 2 in float32 (the
      f32 SAM configs: 80 windows of 14x14, 4 frames of 48x64) through the
      tf32x3 design (csrc/attention_f32.cu: 3xTF32 on the tensor cores),
@@ -203,7 +209,8 @@ The last three lines are the `kernels` JSON line (each kernel's launches on
 the main path, per eval batch, on the serving path, on the records path, on
 the training path, per exported program, on the regressor's paths, per SSL
 step and feature batch and on the novel-view path, its times and bound, and
-the same at the square grid for kernels 1 and 2, in float32 for kernels 1
+the same at the square grid for kernels 1 and 2 and at one frame's 20
+windows for kernel 1, each row's last-wave plan, in float32 for kernels 1
 and 2, at the crop grid for kernel 2 and at N = 1025 and the SSL step's two
 shapes for kernel 3, and each dp
 rank's launches per eval batch; the int8 encoder's and the int8 eval's
@@ -269,6 +276,25 @@ MAX_R_ERR_DEG, MAX_T_ERR_DEG = 5.0, 15.0
 LINEMOD_K = ((572.4114, 0.0, 325.2611), (0.0, 573.57043, 242.04899), (0.0, 0.0, 1.0))
 
 SAM_H_HEADS, SAM_H_HEAD_DIM, SAM_WINDOW = 16, 80, 14  # SAM ViT-H's attention
+# The last wave's plan (ops/cuda_kernels.py::tail_plan) at each bf16 kernel
+# row: (design, B, N, nh, d, hk, wk) and the pieces s its last wave's items
+# run as on an H100 (132 SMs, 66 resident clusters of the long kernel; 1:
+# nothing split). The kernel phase fails where the card's plan differs;
+# tests/test_torch_tail_split.py holds the rule to the same table.
+TAIL_ROWS = {
+    "windowed_attention_relpos": ("short", 80, 196, 16, 80, 14, 14, 1),
+    "windowed_attention_relpos_square": ("short", 25, 196, 16, 80, 14, 14, 4),
+    "windowed_attention_relpos_one_frame": ("short", 20, 196, 16, 80, 14, 14, 2),
+    "flash_attention_relpos": ("long", 4, 3072, 16, 80, 48, 64, 1),
+    "flash_attention_relpos_square": ("long", 1, 4096, 16, 80, 64, 64, 1),
+    "flash_attention_relpos_crop": ("long", 1, 3328, 16, 80, 52, 64, 6),
+    "flash_attention_relpos_portrait": ("long", 4, 3072, 16, 80, 64, 48, 1),
+    "flash_attention_relpos_portrait_crop": ("long", 1, 3328, 16, 80, 64, 52, 6),
+    "flash_attention": ("short", 260, 197, 6, 64, 0, 0, 1),
+    "flash_attention_n1025": ("long", 1, 1025, 6, 64, 0, 0, 2),
+    "flash_attention_d80_n196": ("short", 80, 196, 16, 80, 0, 0, 1),
+    "flash_attention_d80_n3072": ("long", 4, 3072, 16, 80, 0, 0, 1),
+}
 SHORT_SOURCE = "pope_tpu_torch/csrc/attention_short.cu"
 LONG_SOURCE = "pope_tpu_torch/csrc/attention_long.cu"
 F32_SOURCE = "pope_tpu_torch/csrc/attention_f32.cu"
@@ -367,6 +393,22 @@ def kernel_phase(name, replaces, source, kernel, plain, library, args, reps, nby
     return row
 
 
+def tail_plan_row(key: str, design: str) -> dict:
+    """The plan the wrappers give row `key`'s last wave on this card
+    (cuda_kernels.short_plan / long_plan: its units, the SMs or clusters
+    the card holds at once, split0 and the pieces s), held to TAIL_ROWS."""
+    from pope_tpu_torch.ops.cuda_kernels import long_plan, short_plan
+
+    want_design, B, N, nh, d, hk, wk, want_s = TAIL_ROWS[key]
+    plan = short_plan(B, N, nh) if want_design == "short" else long_plan(B, N, nh, d, hk, wk)
+    row = {"design": design, "units": plan["units"], "resident": plan["resident"], "split0": plan["split0"],
+           "s": plan["s"]}
+    if design != want_design or plan["s"] != want_s:
+        raise AssertionError(f"{key}: the {design} design's last wave runs as {plan['s']} pieces on this card, "
+                             f"want the {want_design} design's {want_s}: {row}")
+    return row
+
+
 def run_kernel_phases():
     from pope_tpu_torch.ops.cuda_kernels import attention_design, launch_attention, launch_attention_relpos, long_layout
     from pope_tpu_torch.ops.flash_attention import (
@@ -412,6 +454,8 @@ def run_kernel_phases():
         rows[key]["design"] = attention_design(dtype, N, d, ws, ws)
         if f32:
             rows[key]["simt_bound_ms"] = bound(nbytes, flops, F32_FLOP_PER_S)[0]
+        else:
+            rows[key]["tail_plan"] = tail_plan_row(key, rows[key]["design"])
 
     def global_row(key, B, H, W, reps, previous, dtype=bf16):
         """Kernel 2 on B frames of an H x W token grid, 16 heads, d = 80."""
@@ -438,8 +482,9 @@ def run_kernel_phases():
             rows[key]["simt_bound_ms"] = bound(nbytes, flops, F32_FLOP_PER_S)[0]
         else:
             # the launcher's Q and K/V stages, shared memory, blocks per cluster
-            # and the clusters the card holds at once
+            # and the clusters the card holds at once; the last wave's plan
             rows[key]["long_layout"] = long_layout(d, H, W)
+            rows[key]["tail_plan"] = tail_plan_row(key, rows[key]["design"])
 
     # kernel 1: 28 windowed layers; 4 frames x 20 windows of 14x14 (the rect
     # 48x64 grid pads to 56x70)
@@ -449,6 +494,8 @@ def run_kernel_phases():
     # the serving path's square frame (SamPredictor.set_image): one frame of
     # 64x64 tokens; kernel 1 on its 25 windows (the grid pads to 70x70)
     windowed_row("windowed_attention_relpos_square", 25, None)
+    # one 640x480 frame (generate, the amg tool, the demos): 20 windows
+    windowed_row("windowed_attention_relpos_one_frame", 20, None)
     global_row("flash_attention_relpos_square", 1, 64, 64, 20, None)
     # the multi-crop sweep's crops of a 640x480 frame (generate_records with
     # crop_n_layers=1): each 321-322 x 401-402 px, resized to about 820x1024,
@@ -460,7 +507,8 @@ def run_kernel_phases():
     global_row("flash_attention_relpos_portrait_crop", 1, 64, 52, 20, None)
     global_keys = ("flash_attention_relpos", "flash_attention_relpos_square", "flash_attention_relpos_crop",
                    "flash_attention_relpos_portrait", "flash_attention_relpos_portrait_crop")
-    print(json.dumps({"long_layout": {key: rows[key]["long_layout"] for key in global_keys}}), flush=True)
+    print(json.dumps({"long_layout": {key: rows[key]["long_layout"] | {"tail_plan": rows[key]["tail_plan"]}
+                                      for key in global_keys}}), flush=True)
     for key in global_keys:  # SAM's global grids (wk 48-64) all on whole key rows, none gathered
         if rows[key]["long_layout"]["bias"] != "rows":
             raise AssertionError(f"{key} takes the {rows[key]['long_layout']['bias']} bias layout, not rows")
@@ -489,6 +537,7 @@ def run_kernel_phases():
         flops=4.0 * B * nh * N * N * d, exps=B * nh * N * N, ex2_rate=ex2_rate,
         previous=lambda q, k, v: launch_attention(q, k, v, "stream"),
     )
+    rows["flash_attention"]["tail_plan"] = tail_plan_row("flash_attention", attention_design(bf16, N, d))
     # kernel 3 through the long bias-free design: demo-dinov2's 448x448 input,
     # a 32x32 patch grid + cls (N = 1025, a masked key tail), one image; the
     # streaming design timed beside it
@@ -505,6 +554,9 @@ def run_kernel_phases():
         flops=4.0 * B * nh * N * N * d, exps=B * nh * N * N, ex2_rate=ex2_rate,
         previous=lambda q, k, v: launch_attention(q, k, v, "stream"),
     )
+    rows["flash_attention_n1025"]["tail_plan"] = tail_plan_row("flash_attention_n1025", attention_design(bf16, N, d))
+    print(json.dumps({"tail_plans": {key: row["tail_plan"] for key, row in rows.items() if "tail_plan" in row}}),
+          flush=True)
     del qkv, q, k, v
     torch.cuda.empty_cache()
     return rows
@@ -2333,9 +2385,11 @@ def d80_kernel_rows(ex2_rate) -> dict:
         rows[key]["design"] = attention_design(torch.bfloat16, N, d)
         if rows[key]["design"] != ("short" if N <= 256 else "long"):
             raise AssertionError(f"kernel 3 at N = {N}, d 80 takes the {rows[key]['design']} design")
+        rows[key]["tail_plan"] = tail_plan_row(f"flash_attention_d80_{key}", rows[key]["design"])
         if rows[key]["design"] == "long":  # the launcher's stages, cluster and resident clusters
             rows[key]["long_layout"] = long_layout(d)
-            print(json.dumps({"long_layout": {f"flash_attention_d80_{key}": rows[key]["long_layout"]}}), flush=True)
+            print(json.dumps({"long_layout": {f"flash_attention_d80_{key}": rows[key]["long_layout"]
+                                              | {"tail_plan": rows[key]["tail_plan"]}}}), flush=True)
         del qkv, q, k, v
     return rows
 
@@ -4321,17 +4375,22 @@ def main() -> int:
             "extract_per_pair": regressor["cli_extract"]["launches_per_pair"][name],
             "dinov2_poser_forward": regressor["dinov2_poser"]["launches"][name],
             **{f"train_step_{m['mode']}": m["launches"][name] // (REG_WARMUP + REG_STEPS) for m in regressor["modes"]}}
+        if "tail_plan" in row:  # the last wave's plan at the main path's shape
+            entry["tail_plan"] = row["tail_plan"]
         square = kernels.get(f"{name}_square")
         if square is not None:  # the serving path's square 64x64 grid, B=1
-            entry["square_64x64"] = {k: square[k] for k in timing}
+            entry["square_64x64"] = {k: square[k] for k in timing + ("tail_plan",)}
+        one_frame = kernels.get(f"{name}_one_frame")
+        if one_frame is not None:  # one 640x480 frame's 20 windows (generate, amg, the demos)
+            entry["one_frame_20_windows"] = {k: one_frame[k] for k in timing + ("tail_plan",)}
         crop = kernels.get(f"{name}_crop")
         if crop is not None:  # the multi-crop sweep's 52x64 grid, B=1
-            entry["crop_52x64"] = {k: crop[k] for k in timing} | {
+            entry["crop_52x64"] = {k: crop[k] for k in timing + ("tail_plan",)} | {
                 "source": crop["source"], "launches": records_launches["records_crop1"][name]}
         for key, grid in (("portrait", "portrait_4x64x48"), ("portrait_crop", "portrait_crop_64x52")):
             r = kernels.get(f"{name}_{key}")
             if r is not None:  # portrait frames' grids, on whole key rows
-                entry[grid] = {k: r[k] for k in timing} | {
+                entry[grid] = {k: r[k] for k in timing + ("tail_plan",)} | {
                     "source": r["source"], "bias_layout": r["long_layout"]["bias"],
                     "row_slots": r["long_layout"]["row_slots"]}
         entry["ssl_launches"] = {"train_step": ssl["launches_per_step"][name],
@@ -4354,10 +4413,11 @@ def main() -> int:
         if name == "flash_attention":  # SAM's widths, d 80: the bias-free encoder's two shapes
             for key in ("n196", "n3072"):
                 r = quant["d80"][key]
-                entry[f"d80_{key}"] = {k: r[k] for k in timing} | {"source": r["source"], "design": r["design"]}
+                entry[f"d80_{key}"] = {k: r[k] for k in timing + ("tail_plan",)} | {"source": r["source"],
+                                                                                   "design": r["design"]}
         long_n = kernels.get(f"{name}_n1025")
         if long_n is not None:  # demo-dinov2's 1025 tokens through the long design, B=1
-            entry["n1025"] = {k: long_n[k] for k in timing} | {
+            entry["n1025"] = {k: long_n[k] for k in timing + ("tail_plan",)} | {
                 "source": long_n["source"], "launches": records_launches["demo_dinov2"][name]}
         listed.append(entry | {"status": "ported"})
     summary = {"kernels": listed, "not_ported": []}

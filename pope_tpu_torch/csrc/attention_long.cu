@@ -90,6 +90,17 @@
 // grid is the clusters the card holds at once
 // (cudaOccupancyMaxActiveClusters), at most one block per SM.
 //
+// The last wave.  Where it would leave clusters idle (demo-dinov2's N = 1025
+// at 6 heads: 30 units for 66 clusters; a sweep crop's 208 units: 3 full
+// waves and 10), its units run split into key chunks: whole units for the
+// full waves, and the last wave's r units as s = min(8, clusters div r)
+// chunks each where that is 2 or more (ops/cuda_kernels.py::long_plan
+// decides and passes split0 and s).  A chunk runs the same body over its
+// run of K/V tiles and leaves its unnormalised O, row maxima and sums in a
+// workspace; the last of a unit's chunks to arrive merges them in the same
+// launch (merge_chunks; a second launch would cost 2-4 us, a fifth of the
+// N = 1025 row).
+//
 // Ragged key tails are masked, ragged query tails are not written.  The
 // output leaves through shared memory (the warpgroup's own Q rows, dead
 // after its last S, in the same swizzled layout) as 16-byte stores of whole
@@ -160,6 +171,14 @@ struct LongArgs {
   // bias instantiations and slowed the bias-free d = 32 and 64 ones
   int cluster;
   float scale;                        // d^-1/2
+  // the last wave's plan: units from tail.split0 on run as tail.pieces key
+  // chunks each (pieces = 1: none split); each chunk's partials go to
+  // `work`, and the last to arrive of a unit's chunks, per consumer warp,
+  // merges them (`counters`: arrivals per tail unit, block of the cluster
+  // and consumer warp, 0 between launches)
+  TailPlan tail;
+  float* work;
+  int* counters;
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -401,12 +420,75 @@ __device__ __forceinline__ void pack_p(const float (&s)[8 * RB], uint32_t (&pf)[
   }
 }
 
+// A key chunk's partials of a split unit, per (tail unit, chunk, block of the
+// cluster, consumer warp): D/2 + 4 words a lane, lane-minor (128-byte
+// stores and loads a word): O's D/2 accumulators unnormalised, then the
+// two rows' maxima in the exponent's base-2 units (m k2) and their sums.
+// The warp stores its chunk's partial and arrives on its counter; the last
+// chunk's warp to arrive merges every chunk's in chunk order (so the output
+// is the same from launch to launch whichever arrives last):
+//   M = max_i m_i,  O = sum_i 2^(m_i - M) O_i,  l = sum_i 2^(m_i - M) l_i,
+// a chunk with m_i = -inf weighing 0, and resets the counter for the next
+// launch.  Per warp and not per warpgroup: a barrier shared by the two
+// consumer warpgroups makes ptxas ignore setmaxnreg (see above).  Returns
+// whether this warp merged (o, l0, l1 then hold the unit's whole rows).
+template <int D>
+__device__ __forceinline__ bool merge_chunks(float (&o)[D / 2], const float (&m)[2], float& l0, float& l1, float k2,
+                                             float* work, int* counters, int pieces, int tu, int chunk, int rank,
+                                             int cl, int cw, int lane) {
+  constexpr int W = D / 2 + 4;
+  const int64_t chunk_stride = (int64_t)cl * 8 * W * 32;
+  float* const first = work + (((int64_t)tu * pieces * cl + rank) * 8 + cw) * W * 32 + lane;
+  float* const mine = first + chunk * chunk_stride;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) __stcg(mine + 32 * i, o[i]);
+  __stcg(mine + 32 * (D / 2), m[0] * k2);
+  __stcg(mine + 32 * (D / 2 + 1), m[1] * k2);
+  __stcg(mine + 32 * (D / 2 + 2), l0);
+  __stcg(mine + 32 * (D / 2 + 3), l1);
+  __threadfence();
+  __syncwarp();
+  int* const count = counters + ((int64_t)tu * cl + rank) * 8 + cw;
+  int last = 0;
+  if (lane == 0) last = atomicAdd(count, 1) == pieces - 1;
+  if (!__shfl_sync(0xffffffffu, last, 0)) return false;
+  __threadfence();
+  float M0 = -INFINITY, M1 = -INFINITY;
+  for (int ch = 0; ch < pieces; ++ch) {
+    M0 = fmaxf(M0, __ldcg(first + ch * chunk_stride + 32 * (D / 2)));
+    M1 = fmaxf(M1, __ldcg(first + ch * chunk_stride + 32 * (D / 2 + 1)));
+  }
+  // a row with no live key in any chunk (a query row past N, not written)
+  if (M0 == -INFINITY) M0 = 0.f;
+  if (M1 == -INFINITY) M1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  l0 = l1 = 0.f;
+  for (int ch = 0; ch < pieces; ++ch) {
+    const float* p = first + ch * chunk_stride;
+    const float w0 = ex2(__ldcg(p + 32 * (D / 2)) - M0), w1 = ex2(__ldcg(p + 32 * (D / 2 + 1)) - M1);
+    l0 = fmaf(w0, __ldcg(p + 32 * (D / 2 + 2)), l0);
+    l1 = fmaf(w1, __ldcg(p + 32 * (D / 2 + 3)), l1);
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 4) {
+      o[i] = fmaf(w0, __ldcg(p + 32 * i), o[i]);
+      o[i + 1] = fmaf(w0, __ldcg(p + 32 * (i + 1)), o[i + 1]);
+      o[i + 2] = fmaf(w1, __ldcg(p + 32 * (i + 2)), o[i + 2]);
+      o[i + 3] = fmaf(w1, __ldcg(p + 32 * (i + 3)), o[i + 3]);
+    }
+  }
+  if (lane == 0) *count = 0;
+  return true;
+}
+
 // Shared memory: q_stages Q stages (an item's Q tile, then its rel_h and
 // rel_w rows, [row][hk] and [row][wk] bf16), then kv_stages K/V stages (K's
 // tile then V's), then the mbarriers: Q full / empty, K/V full / empty.  A
 // tile is D/16 slabs of 128 rows x 32 B.  A unit is (b * nh + h, pair of
-// 128-query tiles), numbered head-major; cluster i takes units i, i +
-// clusters, ..., and its block of rank r the unit's tile r.
+// 128-query tiles), numbered head-major; cluster i takes work items i, i +
+// clusters, ..., and its block of rank r the unit's tile r.  A work item is
+// a unit below a.tail.split0 and one of a unit's a.tail.pieces key chunks
+// from it on (piece_of); both blocks of a cluster take the same chunk.
 template <int D, int BIAS, int RB>
 __global__ void __launch_bounds__(LONG_NT, 1)
     attn_long_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -433,14 +515,16 @@ __global__ void __launch_bounds__(LONG_NT, 1)
   // K/V tiles: two key rows each (ROWS), else 128 keys
   const int ntq = (N + TQ - 1) / TQ, nkt = BIAS == ROWS ? (a.hk + 1) / 2 : (N + TK - 1) / TK;
   const int per_head = (ntq + cl - 1) / cl;  // units of a head
-  const int n_units = a.B * nh * per_head;
   const int rank = (int)cluster_ctarank();
   const int unit0 = blockIdx.x / cl, units_step = gridDim.x / cl;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the rel slabs that do not start and end on 16 bytes: plain copies by a
+  // warp of their own, which arrives on q_full beside the TMA warp's
+  const bool plain_rel = BIAS != NO_BIAS && !a.rel_bulk;
   if (threadIdx.x == 0) {
     for (int s = 0; s < a.q_stages; ++s) {
-      mbar_init(q_full(s), 1);
+      mbar_init(q_full(s), plain_rel ? 2 : 1);
       mbar_init(q_empty(s), 2);  // one arrival per consumer warpgroup
     }
     for (int s = 0; s < a.kv_stages; ++s) {
@@ -454,13 +538,38 @@ __global__ void __launch_bounds__(LONG_NT, 1)
 
   if (warp >= 8) {
     // producer warpgroup: hands its registers to the consumers; one warp
-    // works, and its lane 0 issues the copies
+    // works, and its lane 0 issues the copies (a second copies the rel
+    // slabs where TMA cannot: done by the first, with the piece decode, the
+    // copy loops took more than its 40 registers and every bias
+    // instantiation spilled 16-32 bytes; without their unrolling a 20 x 55
+    // grid, whose rel_w slabs sit off 16 bytes, read 3.5x slower)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(LONG_PRODUCER_REGS));
-    if (warp > 8) return;
+    if (warp > 9 || (warp == 9 && !plain_rel)) return;
+    if (warp == 9) {
+      int it = 0;
+      for (int wi = unit0; wi < a.tail.n_work; wi += units_step, ++it) {
+        const int unit = piece_of(wi, a.tail, nkt).item;
+        const int bh = unit / per_head, q0 = ((unit - bh * per_head) * cl + rank) * TQ;
+        const int rows = max(0, min(TQ, N - q0));
+        const int qs = it % a.q_stages;
+        mbar_wait(q_empty(qs), ((uint32_t)(it / a.q_stages) & 1u) ^ 1u);
+        const __nv_bfloat16* rh = a.rel_h + ((int64_t)bh * N + q0) * a.hk;
+        const __nv_bfloat16* rw = a.rel_w + ((int64_t)bh * N + q0) * a.wk;
+        __nv_bfloat16* dh = reinterpret_cast<__nv_bfloat16*>(gbase + qs * a.q_stage_bytes + rel_off);
+        __nv_bfloat16* dw = reinterpret_cast<__nv_bfloat16*>(gbase + qs * a.q_stage_bytes + rel_off + a.rh_alloc);
+        for (int e = lane; e < rows * a.hk; e += 32) dh[e] = rh[e];
+        for (int e = lane; e < rows * a.wk; e += 32) dw[e] = rw[e];
+        __threadfence_block();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(q_full(qs));
+      }
+      return;
+    }
     // in a cluster, block 0 loads K and block 1 V, each into both blocks
     const uint16_t mask = cl > 1 ? (uint16_t)((1u << cl) - 1u) : (uint16_t)0;
     int kv_i = 0, it = 0;
-    for (int unit = unit0; unit < n_units; unit += units_step, ++it) {
+    for (int wi = unit0; wi < a.tail.n_work; wi += units_step, ++it) {
+      const int unit = piece_of(wi, a.tail, nkt).item;
       const int bh = unit / per_head, q0 = ((unit - bh * per_head) * cl + rank) * TQ;
       const int b = bh / nh, h = bh - b * nh;
       const int rows = max(0, min(TQ, N - q0));  // 0: no queries (the second half of a head's last pair)
@@ -468,33 +577,30 @@ __global__ void __launch_bounds__(LONG_NT, 1)
       mbar_wait(q_empty(qs), ((uint32_t)(it / a.q_stages) & 1u) ^ 1u);
       const uint32_t st = base + (uint32_t)(qs * a.q_stage_bytes);
       uint32_t tx = rows > 0 ? tile : 0u;
-      if constexpr (BIAS != NO_BIAS) {
+      if (BIAS != NO_BIAS && !plain_rel) {
         const __nv_bfloat16* rh = a.rel_h + ((int64_t)bh * N + q0) * a.hk;
         const __nv_bfloat16* rw = a.rel_w + ((int64_t)bh * N + q0) * a.wk;
-        if (a.rel_bulk) {
-          const uint32_t rh_bytes = (uint32_t)(rows * a.hk * 2), rw_bytes = (uint32_t)(rows * a.wk * 2);
-          tx += rh_bytes + rw_bytes;
-          if (lane == 0) {
-            mbar_arrive_expect_tx(q_full(qs), tx);
-            if (rows > 0) {
-              bulk_load(st + rel_off, rh, rh_bytes, q_full(qs));
-              bulk_load(st + rel_off + a.rh_alloc, rw, rw_bytes, q_full(qs));
-            }
+        const uint32_t rh_bytes = (uint32_t)(rows * a.hk * 2), rw_bytes = (uint32_t)(rows * a.wk * 2);
+        tx += rh_bytes + rw_bytes;
+        if (lane == 0) {
+          mbar_arrive_expect_tx(q_full(qs), tx);
+          if (rows > 0) {
+            bulk_load(st + rel_off, rh, rh_bytes, q_full(qs));
+            bulk_load(st + rel_off + a.rh_alloc, rw, rw_bytes, q_full(qs));
           }
-        } else {  // slabs that do not start and end on 16 bytes: plain copies
-          __nv_bfloat16* dh = reinterpret_cast<__nv_bfloat16*>(gbase + (st - base) + rel_off);
-          __nv_bfloat16* dw = reinterpret_cast<__nv_bfloat16*>(gbase + (st - base) + rel_off + a.rh_alloc);
-          for (int e = lane; e < rows * a.hk; e += 32) dh[e] = rh[e];
-          for (int e = lane; e < rows * a.wk; e += 32) dw[e] = rw[e];
-          __threadfence_block();
-          __syncwarp();
-          if (lane == 0) mbar_arrive_expect_tx(q_full(qs), tx);
         }
-      } else {
-        if (lane == 0) mbar_arrive_expect_tx(q_full(qs), tx);
+      } else if (lane == 0) {  // no bias, or the rel slabs copied by warp 9
+        mbar_arrive_expect_tx(q_full(qs), tx);
       }
       if (lane == 0 && rows > 0) load_tile<D>(st, &tq, q_full(qs), q0, h, b, 0);
-      for (int kt = 0; kt < nkt; ++kt, ++kv_i) {
+      // the piece's K/V tiles, decoded again here from a copy of wi the
+      // compiler cannot see through: decoded with the unit and held from
+      // there, the square grid's launch read 4.5% slower in turns (variant
+      // "decode_once")
+      int w = wi;
+      asm volatile("" : "+r"(w));
+      const Piece p = piece_of(w, a.tail, nkt);
+      for (int kt = p.lo; kt < p.hi; ++kt, ++kv_i) {
         const int s = kv_i % a.kv_stages;
         mbar_wait(kv_empty(s), ((uint32_t)(kv_i / a.kv_stages) & 1u) ^ 1u);
         if (lane == 0) {
@@ -534,8 +640,9 @@ __global__ void __launch_bounds__(LONG_NT, 1)
       }
     };
     int kv_i = 0, it = 0;
-    for (int unit = unit0; unit < n_units; unit += units_step, ++it) {
-      const int bh = unit / per_head, q0 = ((unit - bh * per_head) * cl + rank) * TQ;
+    for (int wi = unit0; wi < a.tail.n_work; wi += units_step, ++it) {
+      const Piece p = piece_of(wi, a.tail, nkt);
+      const int bh = p.item / per_head, q0 = ((p.item - bh * per_head) * cl + rank) * TQ;
       const int b = bh / nh, h = bh - b * nh;
       const int qs = it % a.q_stages;
       mbar_wait(q_full(qs), (uint32_t)(it / a.q_stages) & 1u);
@@ -543,7 +650,7 @@ __global__ void __launch_bounds__(LONG_NT, 1)
       if (rows <= 0) {
         // no queries (the second half of a head's last pair): each K/V tile
         // is released as it lands, for the peer's producer
-        for (int kt = 0; kt < nkt; ++kt, ++kv_i) {
+        for (int kt = p.lo; kt < p.hi; ++kt, ++kv_i) {
           const int s = kv_i % a.kv_stages;
           mbar_wait(kv_full(s), (uint32_t)(kv_i / a.kv_stages) & 1u);
           release(s);
@@ -584,7 +691,7 @@ __global__ void __launch_bounds__(LONG_NT, 1)
         wgmma_commit();
       };
 
-      // tile 0: S alone
+      // the first tile: S alone
       int s = kv_i % a.kv_stages;
       mbar_wait(kv_full(s), (uint32_t)(kv_i / a.kv_stages) & 1u);
       fence_regs(sacc);
@@ -592,12 +699,12 @@ __global__ void __launch_bounds__(LONG_NT, 1)
       issue_s(kv_base + (uint32_t)(s * a.kv_stage_bytes));
       wgmma_wait0();
       fence_regs(sacc);
-      softmax_tile<BIAS, RB>(sacc, m, l, corr, rh0, rh1, rw0, rw1, w, 0, N, a.hk, a.wk, t, c);
+      softmax_tile<BIAS, RB>(sacc, m, l, corr, rh0, rh1, rw0, rw1, w, p.lo * TK, N, a.hk, a.wk, t, c);
       pack_p<RB>(sacc, pf);
 
       // tile kt: S of kt and P V of kt - 1 issued together; the softmax of
       // kt runs while P V does
-      for (int kt = 1; kt < nkt; ++kt) {
+      for (int kt = p.lo + 1; kt < p.hi; ++kt) {
         const int sp = s;
         ++kv_i;
         s = kv_i % a.kv_stages;
@@ -638,27 +745,44 @@ __global__ void __launch_bounds__(LONG_NT, 1)
 
       // epilogue: normalise, stage the rows in this warpgroup's own Q rows
       // (dead since its last S) in the tile's swizzled layout, then 16-byte
-      // stores of whole row segments
+      // stores of whole row segments: the warpgroup's 64 rows, or, for a
+      // key chunk of a split unit, the 16 rows of each warp that merged
       float l0 = l[0], l1 = l[1];
 #pragma unroll
       for (int o = 1; o < 4; o <<= 1) {
         l0 += __shfl_xor_sync(0xffffffffu, l0, o);
         l1 += __shfl_xor_sync(0xffffffffu, l1, o);
       }
-      const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+      const bool split = p.item >= a.tail.split0;
+      const bool merged =
+          split && merge_chunks<D>(oacc, m, l0, l1, BIAS == NO_BIAS ? c * LOG2E : LOG2E, a.work, a.counters,
+                                   a.tail.pieces, p.item - a.tail.split0, p.part, rank, cl, warp, lane);
+      if (!split || merged) {
+        const float inv0 = 1.f / l0, inv1 = 1.f / l1;
 #pragma unroll
-      for (int nb = 0; nb < DB; ++nb) {
-        *reinterpret_cast<uint32_t*>(qg + chunk_offset(lr0, nb) + 4 * t) =
-            pack_bf16(oacc[4 * nb] * inv0, oacc[4 * nb + 1] * inv0);
-        *reinterpret_cast<uint32_t*>(qg + chunk_offset(lr1, nb) + 4 * t) =
-            pack_bf16(oacc[4 * nb + 2] * inv1, oacc[4 * nb + 3] * inv1);
+        for (int nb = 0; nb < DB; ++nb) {
+          *reinterpret_cast<uint32_t*>(qg + chunk_offset(lr0, nb) + 4 * t) =
+              pack_bf16(oacc[4 * nb] * inv0, oacc[4 * nb + 1] * inv0);
+          *reinterpret_cast<uint32_t*>(qg + chunk_offset(lr1, nb) + 4 * t) =
+              pack_bf16(oacc[4 * nb + 2] * inv1, oacc[4 * nb + 3] * inv1);
+        }
       }
-      bar_sync_wg(1 + wg);
-      for (int e = tw; e < 64 * DB; e += 128) {
-        const int r = wg * 64 + e / DB, ch = e % DB, n = q0 + r;
-        if (n >= N) break;
-        const uint4 v = *reinterpret_cast<const uint4*>(qg + chunk_offset(r, ch));
-        *reinterpret_cast<uint4*>(a.out + ((int64_t)b * N + n) * C + (int64_t)h * D + ch * 8) = v;
+      if (!split) {
+        bar_sync_wg(1 + wg);
+        for (int e = tw; e < 64 * DB; e += 128) {
+          const int r = wg * 64 + e / DB, ch = e % DB, n = q0 + r;
+          if (n >= N) break;
+          const uint4 v = *reinterpret_cast<const uint4*>(qg + chunk_offset(r, ch));
+          *reinterpret_cast<uint4*>(a.out + ((int64_t)b * N + n) * C + (int64_t)h * D + ch * 8) = v;
+        }
+      } else if (merged) {
+        __syncwarp();
+        for (int e = lane; e < 16 * DB; e += 32) {
+          const int r = wg * 64 + wq * 16 + e / DB, ch = e % DB, n = q0 + r;
+          if (n >= N) break;
+          const uint4 v = *reinterpret_cast<const uint4*>(qg + chunk_offset(r, ch));
+          *reinterpret_cast<uint4*>(a.out + ((int64_t)b * N + n) * C + (int64_t)h * D + ch * 8) = v;
+        }
       }
       // the stage's generic reads and writes before the producer's next TMA
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -770,7 +894,12 @@ cudaError_t launch_long_d(const View& q, const View& k, const View& v, LongArgs 
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int64_t units = (int64_t)a.B * a.nh * ((N + TQ * cl - 1) / (TQ * cl));
-  const int grid = cl * (int)std::min<int64_t>(units, resident);
+  // the plan: the units from split0 on as `pieces` runs of their K/V tiles
+  const int nkt = BIAS == ROWS ? (a.hk + 1) / 2 : (N + TK - 1) / TK;
+  if (!make_tail(&a.tail, units, nkt, a.tail.split0, a.tail.pieces) ||
+      (a.tail.pieces > 1 && (!a.work || !a.counters)))
+    return cudaErrorInvalidValue;
+  const int grid = cl * std::min(a.tail.n_work, resident);
   cudaLaunchAttribute cluster;
   const cudaLaunchConfig_t cfg = long_config(grid, smem, stream, &cluster);
   void* args[] = {&tq, &tk, &tv, &a};
@@ -807,18 +936,26 @@ cudaError_t launch_long(const View& q, const View& k, const View& v, const LongA
 
 // The long kernel with the rel-pos bias (SAM's global layers), bf16 only,
 // N = hk * wk, d in {32, 64, 80}, hk + wk <= 500.  Strides in elements.
-// Returns the launch's error, or cudaErrorInvalidValue for shapes it does
-// not take.
+// The plan of the last wave (ops/cuda_kernels.py::long_plan): with pieces
+// >= 2, the units from split0 on run as `pieces` key chunks each (at most
+// one a K/V tile), their partials in `work` ((units - split0) * pieces * 2
+// blocks * 256 consumer threads * (d/2 + 4) floats) and arrivals in
+// `counters` ((units - split0) * 2 * 8 ints, 0 before the launch and after
+// it); pieces <= 1 splits nothing.  Returns the launch's error, or
+// cudaErrorInvalidValue for shapes or plans it does not take.
 extern "C" int pope_attention_long_relpos(const void* q, const void* k, const void* v, const void* rel_h,
                                           const void* rel_w, void* out, int64_t sq_b, int64_t sq_n,
                                           int64_t sq_h, int64_t sk_b, int64_t sk_n, int64_t sk_h,
                                           int64_t sv_b, int64_t sv_n, int64_t sv_h, int B, int N, int nh,
-                                          int d, int hk, int wk, float scale, void* stream) {
+                                          int d, int hk, int wk, float scale, int split0, int pieces,
+                                          void* work, void* counters, void* stream) {
   LongArgs a{};
   a.rel_h = static_cast<const __nv_bfloat16*>(rel_h);
   a.rel_w = static_cast<const __nv_bfloat16*>(rel_w);
   a.out = static_cast<__nv_bfloat16*>(out);
   a.B = B, a.N = N, a.nh = nh, a.hk = hk, a.wk = wk, a.scale = scale;
+  a.tail.split0 = split0, a.tail.pieces = pieces;  // the plan as asked; the launcher completes it
+  a.work = static_cast<float*>(work), a.counters = static_cast<int*>(counters);
   return launch_long({q, sq_b, sq_n, sq_h}, {k, sk_b, sk_n, sk_h}, {v, sv_b, sv_n, sv_h}, a, d, true,
                      static_cast<cudaStream_t>(stream));
 }
@@ -852,14 +989,18 @@ extern "C" int pope_attention_long_layout(int d, int hk, int wk, int* bias, int*
   return *resident == 0 ? (int)cudaErrorInvalidValue : 0;
 }
 
-// The bias-free long kernel (flash_attention above N = 256), bf16 only.
+// The bias-free long kernel (flash_attention above N = 256), bf16 only; the
+// plan as above.
 extern "C" int pope_attention_long(const void* q, const void* k, const void* v, void* out, int64_t sq_b,
                                    int64_t sq_n, int64_t sq_h, int64_t sk_b, int64_t sk_n, int64_t sk_h,
                                    int64_t sv_b, int64_t sv_n, int64_t sv_h, int B, int N, int nh, int d,
-                                   float scale, void* stream) {
+                                   float scale, int split0, int pieces, void* work, void* counters,
+                                   void* stream) {
   LongArgs a{};
   a.out = static_cast<__nv_bfloat16*>(out);
   a.B = B, a.N = N, a.nh = nh, a.scale = scale;
+  a.tail.split0 = split0, a.tail.pieces = pieces;  // the plan as asked; the launcher completes it
+  a.work = static_cast<float*>(work), a.counters = static_cast<int*>(counters);
   return launch_long({q, sq_b, sq_n, sq_h}, {k, sk_b, sk_n, sk_h}, {v, sv_b, sv_n, sv_h}, a, d, false,
                      static_cast<cudaStream_t>(stream));
 }

@@ -47,7 +47,19 @@
 //     kernel's note);
 //   - the output leaves through shared memory (the tile's own Q rows, which
 //     are dead once S is done) as 16-byte stores of whole 128/160-byte row
-//     segments.
+//     segments;
+//   - a grid of one persistent block an SM runs B * nh heads in waves of
+//     132, and a last wave of few heads left most SMs idle (the serving
+//     path's square frame: 400 heads, 3 full waves and 4; one 640x480
+//     frame: 320, 2 and 56).  Here the heads of the last wave run split into
+//     runs of their query tiles where that fills the card: whole heads for
+//     the full waves, and the last wave's r heads as s = min(ntq, SMs div
+//     r) pieces each where that is 2 or more (one tile a piece at the square
+//     frame: pieces of two, one a consumer warpgroup, read 2.4% slower)
+//     (ops/cuda_kernels.py::short_plan decides and passes split0 and s).  A
+//     piece's block loads its head whole, as a whole head's does, and its
+//     consumers take only the piece's tiles: the key row stays whole in
+//     registers, so no merge is needed.
 // d = 80 rows (160 B) fit neither the 64- nor the 128-byte swizzle atom, so
 // every operand is laid out as d/16 column slabs of 32-byte rows with the
 // 32-byte swizzle, one TMA box per slab; a k16 step of wgmma is exactly one
@@ -90,6 +102,9 @@ struct ShortArgs {
   int stages;       // 1 or 2
   int stage_bytes;  // a multiple of 1024
   float scale;
+  // the last wave's plan: heads from tail.split0 on run as tail.pieces runs
+  // of their query tiles each (pieces = 1: none split)
+  TailPlan tail;
 };
 
 // D[64 x 200] (+)= A[64 x 16] . B[200 x 16]^T, A and B K-major in shared memory
@@ -214,6 +229,7 @@ __global__ void __launch_bounds__(SHORT_NT, 1)
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* gbase = smem_raw + (base - raw);  // generic pointer to `base`
   const int N = a.N, nh = a.nh, BH = a.B * a.nh;
+  const int ntq = (N + 63) / 64;  // 64-query tiles of a head
   const uint32_t rh_bytes = HAS_BIAS ? (uint32_t)(N * a.hk * 2) : 0u;
   const uint32_t rh_alloc = (rh_bytes + 15u) & ~15u;
   const uint32_t E = base + (uint32_t)(a.stages * a.stage_bytes);
@@ -237,7 +253,9 @@ __global__ void __launch_bounds__(SHORT_NT, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (warp == 8) {
       int i = 0;
-      for (int bh = blockIdx.x; bh < BH; bh += gridDim.x, ++i) {
+      for (int wi = blockIdx.x; wi < a.tail.n_work; wi += gridDim.x, ++i) {
+        // a piece's producer loads its head whole
+        const int bh = piece_of(wi, a.tail, ntq).item;
         const int s = i % a.stages;
         mbar_wait(empty(s), ((uint32_t)(i / a.stages) & 1u) ^ 1u);
         const uint32_t st = base + (uint32_t)(s * a.stage_bytes);
@@ -282,7 +300,6 @@ __global__ void __launch_bounds__(SHORT_NT, 1)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
     const int wg = warp >> 2, tw = threadIdx.x & 127, wq = tw >> 5;
     const int g = lane >> 2, t = lane & 3;
-    const int ntq = (N + 63) / 64;
     const int64_t C = (int64_t)nh * D;
     if constexpr (HAS_BIAS) {
       unsigned char* eg = gbase + (E - base);
@@ -297,7 +314,9 @@ __global__ void __launch_bounds__(SHORT_NT, 1)
       asm volatile("bar.sync 3, 256;\n" ::: "memory");
     }
     int i = 0;
-    for (int bh = blockIdx.x; bh < BH; bh += gridDim.x, ++i) {
+    for (int wi = blockIdx.x; wi < a.tail.n_work; wi += gridDim.x, ++i) {
+      const Piece p = piece_of(wi, a.tail, ntq);
+      const int bh = p.item;
       const int s = i % a.stages;
       mbar_wait(full(s), (uint32_t)(i / a.stages) & 1u);
       const uint32_t st = base + (uint32_t)(s * a.stage_bytes);
@@ -305,7 +324,7 @@ __global__ void __launch_bounds__(SHORT_NT, 1)
       unsigned char* qg = gbase + (st - base);
       const int b = bh / nh, h = bh - b * nh;
 
-      for (int tq0 = wg; tq0 < ntq; tq0 += 2) {
+      for (int tq0 = p.lo + wg; tq0 < p.hi; tq0 += 2) {
         // rows r0 and r1 of this thread; in pass ps its keys are
         // ps * SW + 8 * blk + 2t (+1), blk over the SW / 8 n-blocks of 8 keys
         const int r0 = tq0 * 64 + wq * 16 + g, r1 = r0 + 8;
@@ -504,7 +523,10 @@ cudaError_t launch_short_d(const View& q, const View& k, const View& v, ShortArg
   const cudaError_t err = cudaFuncSetAttribute(attn_short_kernel<D, HAS_BIAS, WIDE>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int grid = std::min(a.B * a.nh, sms);
+  // the plan: the heads from split0 on as `pieces` runs of their query tiles
+  if (!make_tail(&a.tail, (int64_t)a.B * a.nh, (N + 63) / 64, a.tail.split0, a.tail.pieces))
+    return cudaErrorInvalidValue;
+  const int grid = std::min(a.tail.n_work, sms);
   attn_short_kernel<D, HAS_BIAS, WIDE><<<grid, SHORT_NT, smem, stream>>>(tq, tk, tv, a);
   return cudaGetLastError();
 }
@@ -530,31 +552,38 @@ cudaError_t launch_short(const View& q, const View& k, const View& v, const Shor
 }  // namespace
 
 // The short kernel with the rel-pos bias (SAM's windowed layers), bf16 only,
-// N = hk * wk <= 256, d in {32, 64, 80}.  Strides in elements.  Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for shapes it
-// does not take.
+// N = hk * wk <= 256, d in {32, 64, 80}.  Strides in elements.  The plan of
+// the last wave (ops/cuda_kernels.py::short_plan): with pieces >= 2 the
+// heads from split0 on run as `pieces` runs of their 64-query tiles each (at
+// most one a tile); pieces <= 1 splits nothing.  Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for shapes or plans it does
+// not take.
 extern "C" int pope_attention_short_relpos(const void* q, const void* k, const void* v, const void* rel_h,
                                            const void* rel_w, void* out, int64_t sq_b, int64_t sq_n,
                                            int64_t sq_h, int64_t sk_b, int64_t sk_n, int64_t sk_h,
                                            int64_t sv_b, int64_t sv_n, int64_t sv_h, int B, int N, int nh,
-                                           int d, int hk, int wk, float scale, void* stream) {
+                                           int d, int hk, int wk, float scale, int split0, int pieces,
+                                           void* stream) {
   ShortArgs a{};
   a.rel_h = static_cast<const __nv_bfloat16*>(rel_h);
   a.rel_w = static_cast<const __nv_bfloat16*>(rel_w);
   a.out = static_cast<__nv_bfloat16*>(out);
   a.B = B, a.N = N, a.nh = nh, a.hk = hk, a.wk = wk, a.scale = scale;
+  a.tail.split0 = split0, a.tail.pieces = pieces;  // the plan as asked; the launcher completes it
   return launch_short<true>({q, sq_b, sq_n, sq_h}, {k, sk_b, sk_n, sk_h}, {v, sv_b, sv_n, sv_h}, a, d,
                             static_cast<cudaStream_t>(stream));
 }
 
-// The bias-free short kernel (DINOv2's blocks), bf16 only, N <= 256.
+// The bias-free short kernel (DINOv2's blocks), bf16 only, N <= 256; the
+// plan as above.
 extern "C" int pope_attention_short(const void* q, const void* k, const void* v, void* out, int64_t sq_b,
                                     int64_t sq_n, int64_t sq_h, int64_t sk_b, int64_t sk_n, int64_t sk_h,
                                     int64_t sv_b, int64_t sv_n, int64_t sv_h, int B, int N, int nh, int d,
-                                    float scale, void* stream) {
+                                    float scale, int split0, int pieces, void* stream) {
   ShortArgs a{};
   a.out = static_cast<__nv_bfloat16*>(out);
   a.B = B, a.N = N, a.nh = nh, a.scale = scale;
+  a.tail.split0 = split0, a.tail.pieces = pieces;  // the plan as asked; the launcher completes it
   return launch_short<false>({q, sq_b, sq_n, sq_h}, {k, sk_b, sk_n, sk_h}, {v, sv_b, sv_n, sv_h}, a, d,
                              static_cast<cudaStream_t>(stream));
 }

@@ -351,4 +351,39 @@ int sm_count() {
   return sms;
 }
 
+// The last, partial wave of a persistent kernel, split: work index w runs
+// item w whole below split0; from split0 on, each item runs as `pieces`
+// pieces, piece p taking the contiguous run [lo, hi) of the item's n steps
+// (key tiles or query tiles), q = n div pieces or one more, the longer runs
+// first.  Every field is set on the host (make_tail); the kernels read
+// them as constants.
+struct TailPlan {
+  int split0, pieces, q, rem;
+  int n_work;  // work items: split0 + (items - split0) pieces
+};
+
+// The plan of `items` items of n steps each: pieces <= 1 splits nothing;
+// else the items from split0 on run as `pieces` runs each, at least one
+// step a run.  False for a plan the kernel cannot run.
+bool make_tail(TailPlan* t, int64_t items, int n, int split0, int pieces) {
+  if (pieces <= 1) {
+    split0 = (int)items, pieces = 1;
+  } else if (split0 < 0 || split0 >= items || pieces > n) {
+    return false;
+  }
+  t->split0 = split0, t->pieces = pieces, t->q = n / pieces, t->rem = n % pieces;
+  t->n_work = (int)(split0 + (items - split0) * pieces);
+  return true;
+}
+
+struct Piece {
+  int item, part, lo, hi;
+};
+__device__ __forceinline__ Piece piece_of(int w, const TailPlan& t, int n) {
+  if (w < t.split0) return {w, 0, 0, n};
+  const int tw = w - t.split0, part = tw % t.pieces;
+  const int lo = part * t.q + min(part, t.rem);
+  return {t.split0 + tw / t.pieces, part, lo, lo + t.q + (part < t.rem ? 1 : 0)};
+}
+
 }  // namespace

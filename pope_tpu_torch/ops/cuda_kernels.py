@@ -23,6 +23,16 @@ Four attention designs, picked by shape (`attention_design`):
   big and small part; d <= 128, bias grids of hk + wk <= F32_MAX_GRID;
 - "stream" (csrc/attention_relpos.cu): the rest (f32 past those limits,
   bf16 head dims without a tensor-core instantiation).
+
+The two bf16 Hopper kernels are persistent: one block an SM ("short") or
+the clusters the card holds at once ("long") walk their items (heads; units
+of a head's two 128-query tiles) in waves. One rule fills the last wave
+(`tail_plan`): whole items for the full waves, and where the last, partial
+wave's r items leave the card idle, each runs as s pieces, s = min(the
+most pieces an item takes, resident div r), if s >= 2: the long kernel's
+over runs of key tiles, merged in the same launch; the short kernel's over
+runs of query tiles. `long_plan` and `short_plan` compute it from the shape
+and the card's resident count; the wrappers pass it to the C entries.
 """
 
 from __future__ import annotations
@@ -55,11 +65,22 @@ LONG_MAX_GRID = 500
 # (its MAX_GRID, checked against its tile plan at compile time; its launcher
 # refuses 475, which tests/test_torch_cuda.py holds it to)
 F32_MAX_GRID = 474
+LONG_TQ, LONG_TK = 128, 128  # attention_long.cu: query rows an item, keys a K/V tile
+LONG_CLUSTER = 2  # its blocks a cluster (the items of a unit)
+LONG_ROW_SLOTS = 64  # its K/V tiles of two whole key rows for 32 < wk <= LONG_ROW_SLOTS (bias_layout)
+LONG_MAX_PIECES = 8  # the most key chunks a unit of its last wave is split into
+SHORT_TQ = 64  # attention_short.cu: query rows a tile
+# query tiles a piece of its last wave takes at most: one (pieces of two, one
+# per consumer warpgroup, read 2.4% slower at the square frame's 4 heads in
+# turns: a warpgroup alone on its SM runs its tile faster)
+SHORT_PIECE_TILES = 1
 DESIGNS = ("short", "long", "tf32x3", "stream")  # attention_design's order of preference
 _ENTRIES = {"short": "pope_attention_short", "long": "pope_attention_long", "tf32x3": "pope_attention_f32",
             "stream": "pope_attention"}
 
 _lib = None  # the loaded library, once built
+_resident = {}  # (device, d, hk, wk) -> the long kernel's resident clusters
+_counters = {}  # (device, stream) -> the long kernel's arrival counters, 0 between launches
 
 
 def _nvcc() -> str:
@@ -116,18 +137,16 @@ def library() -> ctypes.CDLL:
         lib.pope_attention_relpos.restype = i32
         lib.pope_attention.argtypes = [ptr] * 4 + [i64] * 9 + [i32] * 4 + [ctypes.c_float, i32, ptr]
         lib.pope_attention.restype = i32
-        lib.pope_attention_short_relpos.argtypes = [ptr] * 6 + [i64] * 9 + [i32] * 6 + [ctypes.c_float, ptr]
-        lib.pope_attention_short_relpos.restype = i32
-        lib.pope_attention_short.argtypes = [ptr] * 4 + [i64] * 9 + [i32] * 4 + [ctypes.c_float, ptr]
-        lib.pope_attention_short.restype = i32
-        lib.pope_attention_long_relpos.argtypes = lib.pope_attention_short_relpos.argtypes
-        lib.pope_attention_long_relpos.restype = i32
-        lib.pope_attention_long.argtypes = lib.pope_attention_short.argtypes
-        lib.pope_attention_long.restype = i32
-        lib.pope_attention_f32_relpos.argtypes = lib.pope_attention_short_relpos.argtypes
-        lib.pope_attention_f32_relpos.restype = i32
-        lib.pope_attention_f32.argtypes = lib.pope_attention_short.argtypes
-        lib.pope_attention_f32.restype = i32
+        relpos = [ptr] * 6 + [i64] * 9 + [i32] * 6 + [ctypes.c_float]
+        plain = [ptr] * 4 + [i64] * 9 + [i32] * 4 + [ctypes.c_float]
+        # the short and long entries take the last wave's plan (split0,
+        # pieces), the long ones its workspace and counters too
+        for name, args in (("short_relpos", relpos + [i32] * 2), ("short", plain + [i32] * 2),
+                           ("long_relpos", relpos + [i32] * 2 + [ptr] * 2), ("long", plain + [i32] * 2 + [ptr] * 2),
+                           ("f32_relpos", relpos), ("f32", plain)):
+            fn = getattr(lib, f"pope_attention_{name}")
+            fn.argtypes = args + [ptr]
+            fn.restype = i32
         lib.pope_attention_long_layout.argtypes = [i32] * 3 + [ctypes.POINTER(ctypes.c_int)] * 7
         lib.pope_attention_long_layout.restype = i32
         lib.pope_cuda_error_string.argtypes = [i32]
@@ -233,28 +252,7 @@ def launch_attention_relpos(q, k, v, rel_h, rel_w, hk: int, wk: int, design: str
     tensor-core bodies also need d in _BF16_HEAD_DIMS and q/k/v rows that
     start on 16 bytes (the float32 tf32x3 body reads other views 4 bytes at
     a time). Returns a new contiguous (B, N, nh * d) tensor."""
-    B, N, nh, d = _check_qkv(q, k, v, (rel_h, rel_w))
-    if N != hk * wk or rel_h.shape != (B, nh, N, hk) or rel_w.shape != (B, nh, N, wk):
-        raise ValueError(f"rel tables {tuple(rel_h.shape)} {tuple(rel_w.shape)} do not fit "
-                         f"q {tuple(q.shape)} on a {hk}x{wk} key grid")
-    if not (rel_h.is_contiguous() and rel_w.is_contiguous()):
-        raise ValueError("rel tables must be contiguous")
-    design = _resolve_design(design, q.dtype, N, d, hk, wk)
-    out = torch.empty((B, N, nh * d), dtype=q.dtype, device=q.device)
-    lib = library()
-    ptrs, strides = _views(q, k, v)
-    entry = f"{_ENTRIES[design]}_relpos"
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        tail = (B, N, nh, d, hk, wk, float(d ** -0.5))
-        rel = (rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr())
-        if design == "stream":
-            err = lib.pope_attention_relpos(*ptrs, *rel, *strides, *tail,
-                                            int(q.dtype == torch.bfloat16), stream)
-        else:
-            err = getattr(lib, entry)(*ptrs, *rel, *strides, *tail, stream)
-    _raise_on(err, entry, lib)
-    return out
+    return launch_with_plan(None, q, k, v, rel_h, rel_w, hk, wk, design)
 
 
 def launch_attention(q, k, v, design: str | None = None):
@@ -262,19 +260,121 @@ def launch_attention(q, k, v, design: str | None = None):
     (B, N, nh, d) views and types as launch_attention_relpos, through
     `design` (by default attention_design's choice). Returns a new
     contiguous (B, N, nh * d) tensor."""
-    B, N, nh, d = _check_qkv(q, k, v)
-    design = _resolve_design(design, q.dtype, N, d)
+    return launch_with_plan(None, q, k, v, design=design)
+
+
+def launch_with_plan(plan, q, k, v, rel_h=None, rel_w=None, hk: int = 0, wk: int = 0, design: str | None = None):
+    """launch_attention_relpos (rel_h and rel_w given) or launch_attention,
+    the short or long kernel's last wave run by `plan`: (split0, s) as
+    tail_plan gives it (s = 1: nothing split), or None for the rule's plan
+    at this shape (long_plan, short_plan). The other designs take None
+    only. Tests and tools force plans through it."""
+    bias = rel_h is not None
+    B, N, nh, d = _check_qkv(q, k, v, (rel_h, rel_w) if bias else ())
+    if bias:
+        if N != hk * wk or rel_h.shape != (B, nh, N, hk) or rel_w.shape != (B, nh, N, wk):
+            raise ValueError(f"rel tables {tuple(rel_h.shape)} {tuple(rel_w.shape)} do not fit "
+                             f"q {tuple(q.shape)} on a {hk}x{wk} key grid")
+        if not (rel_h.is_contiguous() and rel_w.is_contiguous()):
+            raise ValueError("rel tables must be contiguous")
+    else:
+        hk = wk = 0
+    design = _resolve_design(design, q.dtype, N, d, hk, wk)
+    if plan is not None and design not in ("short", "long"):
+        raise ValueError(f"the {design} kernel takes no plan")
     out = torch.empty((B, N, nh * d), dtype=q.dtype, device=q.device)
     lib = library()
     ptrs, strides = _views(q, k, v)
-    entry = _ENTRIES[design]
+    entry = _ENTRIES[design] + ("_relpos" if bias else "")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        tail = (B, N, nh, d, float(d ** -0.5))
+        args = (*ptrs, *((rel_h.data_ptr(), rel_w.data_ptr()) if bias else ()), out.data_ptr(), *strides,
+                B, N, nh, d, *((hk, wk) if bias else ()), float(d ** -0.5))
         if design == "stream":
-            err = lib.pope_attention(*ptrs, out.data_ptr(), *strides, *tail,
-                                     int(q.dtype == torch.bfloat16), stream)
-        else:
-            err = getattr(lib, entry)(*ptrs, out.data_ptr(), *strides, *tail, stream)
+            args += (int(q.dtype == torch.bfloat16),)
+        elif design == "short":
+            args += plan or _plan_of(short_plan(B, N, nh, device=q.device))
+        elif design == "long":
+            split0, s = plan or _plan_of(long_plan(B, N, nh, d, hk, wk, device=q.device))
+            scratch = _long_scratch(q.device, stream, long_units(B, N, nh) - split0 if s > 1 else 0, s, d)
+            args += (split0, s, *(t.data_ptr() if t is not None else None for t in scratch))
+        err = getattr(lib, entry)(*args, stream)
     _raise_on(err, entry, lib)
     return out
+
+
+def tail_plan(units: int, resident: int, pieces_max: int) -> tuple[int, int]:
+    """The last wave of a persistent kernel that holds `resident` items at
+    once, over `units` items: (split0, s). The first W * resident items run
+    whole (W = units div resident); if the r = units mod resident left over
+    give s = min(pieces_max, resident div r) >= 2, the items from split0 =
+    W * resident on run as s pieces each; else none is split (units, 1)."""
+    full, r = divmod(units, resident)
+    s = min(pieces_max, resident // r) if r else 1
+    return (full * resident, s) if s >= 2 else (units, 1)
+
+
+def long_units(B: int, N: int, nh: int) -> int:
+    """The long kernel's units: (head, pair of 128-query items)."""
+    return B * nh * -(-(-(-N // LONG_TQ)) // LONG_CLUSTER)
+
+
+def long_key_tiles(N: int, hk: int = 0, wk: int = 0) -> int:
+    """The long kernel's K/V tiles a unit walks: two whole key rows each on
+    a bias grid of LONG_ROW_SLOTS / 2 < wk <= LONG_ROW_SLOTS (its "rows"
+    layout), else 128 keys each."""
+    if hk and LONG_ROW_SLOTS // 2 < wk <= LONG_ROW_SLOTS:
+        return (hk + 1) // 2
+    return -(-N // LONG_TK)
+
+
+def long_plan(B: int, N: int, nh: int, d: int, hk: int = 0, wk: int = 0, resident: int | None = None,
+              device=None) -> dict:
+    """The long kernel's last wave at a shape (hk = wk = 0: no bias): its
+    units, the clusters the card holds at once (`resident`, by default
+    long_layout's on `device`), its K/V tiles, and tail_plan's split0 and s
+    with at most min(key tiles, LONG_MAX_PIECES) key chunks a unit."""
+    tiles = long_key_tiles(N, hk, wk)
+    if resident is None:
+        dev = torch.device(device if device is not None else "cuda")
+        dev = dev.index if dev.index is not None else torch.cuda.current_device()
+        key = (dev, d, hk, wk)
+        if key not in _resident:
+            with torch.cuda.device(dev):
+                _resident[key] = long_layout(d, hk, wk)["resident_clusters"]
+        resident = _resident[key]
+    units = long_units(B, N, nh)
+    split0, s = tail_plan(units, resident, min(tiles, LONG_MAX_PIECES))
+    return {"units": units, "resident": resident, "key_tiles": tiles, "split0": split0, "s": s}
+
+
+def short_plan(B: int, N: int, nh: int, resident: int | None = None, device=None) -> dict:
+    """The short kernel's last wave at a shape: its heads (units), the SMs
+    (`resident`, by default those of `device`), its 64-query tiles, and
+    tail_plan's split0 and s with pieces of SHORT_PIECE_TILES tiles."""
+    tiles = -(-N // SHORT_TQ)
+    if resident is None:
+        resident = torch.cuda.get_device_properties(device if device is not None else "cuda").multi_processor_count
+    split0, s = tail_plan(B * nh, resident, -(-tiles // SHORT_PIECE_TILES))
+    return {"units": B * nh, "resident": resident, "query_tiles": tiles, "split0": split0, "s": s}
+
+
+def _plan_of(plan: dict) -> tuple[int, int]:
+    return plan["split0"], plan["s"]
+
+
+def _long_scratch(device, stream: int, tail_units: int, s: int, d: int) -> tuple:
+    """The long kernel's workspace and arrival counters for `tail_units`
+    split units of s key chunks (None, None when nothing is split): each
+    chunk's partials, (d/2 + 4) floats a consumer thread of each block of
+    the cluster, in a new tensor on the current stream (the caller holds it
+    until the launch is queued); the counters (one per tail unit, block and
+    consumer warp), zeros kept per device and stream, which every launch
+    leaves at 0."""
+    if tail_units == 0:
+        return None, None
+    work = torch.empty(tail_units * s * LONG_CLUSTER * 256 * (d // 2 + 4), dtype=torch.float32, device=device)
+    key, need = (work.device.index, stream), tail_units * LONG_CLUSTER * 8
+    if key not in _counters or _counters[key].numel() < need:
+        _counters[key] = torch.zeros(max(need, 4096), dtype=torch.int32, device=device)
+    return work, _counters[key]

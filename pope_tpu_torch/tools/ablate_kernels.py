@@ -2,7 +2,7 @@
 """Where the attention kernels' time goes, on one NVIDIA GPU.
 
     python3 pope_tpu_torch/tools/ablate_kernels.py [--kernel short|long|f32|all] [--rounds 2]
-                                                   [--variants a,b] [--against CSRC]
+                                                   [--variants a,b] [--against CSRC] [--plans]
 
 Builds csrc/attention_short.cu, csrc/attention_long.cu and
 csrc/attention_f32.cu as they ship and a few variants of each, every one a
@@ -33,12 +33,25 @@ to that on the CPU).
 With `--against CSRC` (a csrc directory of an earlier version, e.g. from
 `git archive <commit> pope_tpu_torch/csrc` unpacked under build/), it
 builds that version's source of the kernel named by `--kernel` (long, the
-default, or f32) beside the shipped one and times the two in turns
+default, short or f32) beside the shipped one and times the two in turns
 (against, shipped, shipped, against) at that kernel's shapes: for the long
 kernel, kernel 2 on the main, square and crop grids and on portrait frames'
 (64 x 48, a 64 x 52 crop: key rows of 48 and 56 slots), kernel 3 at d 80 N
 = 3072 and at demo-dinov2's N = 1025 (d 64), and d 64 / d 32 at N = 3072;
-for the f32 kernel, the shapes above (the four f32 rows among them).
+for the short kernel, kernel 1 at the eval batch's 80 windows, the serving
+path's square frame (25) and one 640x480 frame (20), and kernel 3 at
+DINOv2's eval shape; for the f32 kernel, the shapes above (the four f32
+rows among them). With `--variants` as well, it times the listed variants
+and that version once a round each instead. The shipped short and long
+kernels run the plan of their last wave that the wrappers pick
+(cuda_kernels.short_plan, long_plan); a source without plans (before the
+tail split) takes none.
+
+With `--plans` it times the shipped kernels alone at every row whose last
+wave the rule splits (kernel 3 at N = 1025, kernel 2's crop and portrait
+crop; kernel 1's square and one-frame rows), each under the unsplit plan,
+the rule's and the other candidates (s = 2 .. 4 pieces for the short
+kernel, 2 .. 8 for the long one), in turns (forward, then backward).
 """
 
 from __future__ import annotations
@@ -60,7 +73,7 @@ SOURCES = {"short": CSRC / "attention_short.cu", "long": CSRC / "attention_long.
 OUT = ROOT / "build" / "ablate"
 
 # ---- the short kernel (kernels 1 and 3)
-NO_TILES = ("      for (int tq0 = wg; tq0 < ntq; tq0 += 2) {", "      for (int tq0 = wg; tq0 < 0; tq0 += 2) {")
+NO_TILES = ("      for (int tq0 = p.lo + wg; tq0 < p.hi; tq0 += 2) {", "      for (int tq0 = p.lo + wg; tq0 < 0; tq0 += 2) {")
 NO_STORES = ("        for (int e = tw; e < 64 * DB; e += 128) {", "        for (int e = tw; e < 0; e += 128) {")
 # the producer loads each block's first heads (one per stage) and then only
 # signals, so the consumers recompute data already in shared memory
@@ -115,15 +128,15 @@ NO_S = [("        for (int ks = 0; ks < DK; ++ks)\n          wgmma_ss<16 * RB>",
          "        for (int ks = 0; ks < 0; ++ks)\n          wgmma_ss<16 * RB>")]
 NO_PV = [("        for (int j = 0; j < RB; ++j) wgmma_rs<D>(", "        for (int j = 0; j < 0; ++j) wgmma_rs<D>(")]
 NO_SOFTMAX = [
-    ("      softmax_tile<BIAS, RB>(sacc, m, l, corr, rh0, rh1, rw0, rw1, w, 0, N, a.hk, a.wk, t, c);", ""),
+    ("      softmax_tile<BIAS, RB>(sacc, m, l, corr, rh0, rh1, rw0, rw1, w, p.lo * TK, N, a.hk, a.wk, t, c);", ""),
     ("        softmax_tile<BIAS, RB>(sacc, m, l, corr, rh0, rh1, rw0, rw1, w, kt * TK, N, a.hk, a.wk, t, c);", ""),
 ]
 # the producer loads each block's first items and tiles (one per stage) and
 # then only signals, so the consumers recompute data already in shared memory
 LONG_LOADS_ONCE = [
     ("      uint32_t tx = rows > 0 ? tile : 0u;\n", "      uint32_t tx = rows > 0 && it < a.q_stages ? tile : 0u;\n"),
-    ("          tx += rh_bytes + rw_bytes;\n", "          if (it < a.q_stages) tx += rh_bytes + rw_bytes;\n"),
-    ("            if (rows > 0) {\n", "            if (rows > 0 && it < a.q_stages) {\n"),
+    ("        tx += rh_bytes + rw_bytes;\n", "        if (it < a.q_stages) tx += rh_bytes + rw_bytes;\n"),
+    ("          if (rows > 0) {\n", "          if (rows > 0 && it < a.q_stages) {\n"),
     ("      if (lane == 0 && rows > 0) load_tile<D>(", "      if (lane == 0 && rows > 0 && it < a.q_stages) load_tile<D>("),
     ("          mbar_arrive_expect_tx(kv_full(s), kv_tx);",
      "          mbar_arrive_expect_tx(kv_full(s), kv_i < a.kv_stages ? kv_tx : 0u);"),
@@ -193,6 +206,19 @@ LONG_VARIANTS = {
     # every key row padded to 64 slots whatever wk, one instantiation for
     # every grid (128-key tiles, S an m64n128 product)
     "row_slots_64": [("int row_blocks(int wk) { return (wk + 7) / 8; }", "int row_blocks(int wk) { return 8; }")],
+    # the producer's piece decoded once, at the top of the item, its K/V
+    # tiles held through the Q and rel loads (shipped: decoded again before
+    # the K/V loop)
+    "decode_once": [
+        ("      const int unit = piece_of(wi, a.tail, nkt).item;\n"
+         "      const int bh = unit / per_head, q0 = ((unit - bh * per_head) * cl + rank) * TQ;\n"
+         "      const int b = bh / nh, h = bh - b * nh;\n"
+         "      const int rows = max(0, min(TQ, N - q0));  // 0: no queries",
+         "      const Piece p = piece_of(wi, a.tail, nkt);\n"
+         "      const int bh = p.item / per_head, q0 = ((p.item - bh * per_head) * cl + rank) * TQ;\n"
+         "      const int b = bh / nh, h = bh - b * nh;\n"
+         "      const int rows = max(0, min(TQ, N - q0));  // 0: no queries"),
+        ("      int w = wi;\n      asm volatile(\"\" : \"+r\"(w));\n      const Piece p = piece_of(w, a.tail, nkt);\n", "")],
     # the padded rel_w words by C++ clamps and selects: the compiler holds
     # each slot's compare across the item loop
     "rel_w_pad_in_cxx": [(
@@ -412,6 +438,13 @@ def variant_source(kernel: str, name: str) -> str:
     return text
 
 
+def takes_plan(kernel: str, text: str) -> bool:
+    """Whether a source of `kernel` takes its last wave's plan in its C
+    entries (split0, pieces; the short and long kernels from the tail split
+    on, not an earlier version built with --against)."""
+    return kernel != "f32" and "float scale, int split0, int pieces," in text
+
+
 def build_all(kernels, variants=None, against=None) -> dict:
     """Build every variant of `kernels` (or those named in `variants`) and,
     with `against` (a csrc directory of another version), that version's
@@ -447,8 +480,12 @@ def build_all(kernels, variants=None, against=None) -> dict:
         lib = ctypes.CDLL(str(OUT / f"{kernel}_{name}.so"))
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         entry = ENTRIES[kernel]
-        getattr(lib, f"{entry}_relpos").argtypes = [ptr] * 6 + [i64] * 9 + [i32] * 6 + [ctypes.c_float, ptr]
-        getattr(lib, entry).argtypes = [ptr] * 4 + [i64] * 9 + [i32] * 4 + [ctypes.c_float, ptr]
+        # the short and long entries take their last wave's plan (and the
+        # long ones its workspace), unless the source predates it
+        lib.takes_plan = takes_plan(kernel, sources[kernel, name][0])
+        plan = ([i32] * 2 + ([ptr] * 2 if kernel == "long" else [])) if lib.takes_plan else []
+        getattr(lib, f"{entry}_relpos").argtypes = [ptr] * 6 + [i64] * 9 + [i32] * 6 + [ctypes.c_float] + plan + [ptr]
+        getattr(lib, entry).argtypes = [ptr] * 4 + [i64] * 9 + [i32] * 4 + [ctypes.c_float] + plan + [ptr]
         libs[kernel, name] = lib
     return libs
 
@@ -478,19 +515,27 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--variants", help="comma-separated variants to build (default: all)")
     ap.add_argument("--against", metavar="CSRC",
-                    help="a csrc directory of another version of the long or f32 kernel (--kernel; a git archive "
-                         "of an earlier commit): times it and the shipped one in turns (against, shipped, shipped, "
-                         "against) at that design's shapes instead of ablating")
+                    help="a csrc directory of another version of the long, short or f32 kernel (--kernel; a git "
+                         "archive of an earlier commit): times it and the shipped one in turns (against, shipped, "
+                         "shipped, against) at that design's shapes instead of ablating")
+    ap.add_argument("--plans", action="store_true",
+                    help="time the shipped short and long kernels under the unsplit plan, the rule's and the other "
+                         "candidates, in turns, at every row whose last wave the rule splits")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ablate_kernels.py runs on a CUDA card")
+    sys.path.insert(0, str(ROOT))  # the plans of this checkout's wrappers, run as a script or a module
+    from pope_tpu_torch.ops import cuda_kernels
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(smi, flush=True)
     kernels = ("short", "long", "f32") if args.kernel == "all" else (args.kernel,)
     if args.against:
-        kernels = (args.kernel,) if args.kernel in ("long", "f32") else ("long",)
-    variants = {"shipped"} if args.against else (set(args.variants.split(",")) if args.variants else None)
+        kernels = (args.kernel,) if args.kernel != "all" else ("long",)
+    turns = args.against and not args.variants  # else the variants and the earlier version, each once a round
+    if args.plans:
+        kernels = ("short", "long")
+    variants = {"shipped"} if turns or args.plans else (set(args.variants.split(",")) if args.variants else None)
     libs = build_all(kernels, variants, args.against)
     if "f32" in kernels:
         print(json.dumps({"mma_probe": mma_tf32_tflops(args.reps), "card": smi}), flush=True)
@@ -503,33 +548,62 @@ def main() -> int:
         q, k, v = qkv.unbind(2)
         return [t.data_ptr() for t in (q, k, v)], [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3]]
 
+    def planned(entry, B, N, nh, d, hk=0, wk=0):
+        """The plan arguments of `entry` at a shape for a library: none for
+        one without plans; else (split0, s), the long kernel's workspace and
+        counters after them, for `plan` (None: the wrappers' rule), each
+        plan's scratch made once and held."""
+        kept = {}
+        def plan_args(lib, plan=None):
+            if not getattr(lib, "takes_plan", False):
+                return ()
+            if "long" not in entry:
+                return plan or cuda_kernels._plan_of(cuda_kernels.short_plan(B, N, nh))
+            plan = plan or cuda_kernels._plan_of(cuda_kernels.long_plan(B, N, nh, d, hk, wk))
+            if plan not in kept:
+                tail = cuda_kernels.long_units(B, N, nh) - plan[0] if plan[1] > 1 else 0
+                kept[plan] = cuda_kernels._long_scratch("cuda", stream, tail, plan[1], d)
+            return (*plan, *(t.data_ptr() if t is not None else None for t in kept[plan]))
+        return plan_args
+
     def relpos(entry, qkv, rel_h, rel_w, out, hk, wk):
         (p, st), (B, N, _, nh, d) = views(qkv), qkv.shape
-        def run(lib):
+        plan_args = planned(entry, B, N, nh, d, hk, wk)
+        def run(lib, plan=None):
             err = getattr(lib, entry)(*p, rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(), *st,
-                                      B, N, nh, d, hk, wk, d ** -0.5, stream)
+                                      B, N, nh, d, hk, wk, d ** -0.5, *plan_args(lib, plan), stream)
             assert err == 0, err
         return run
 
     def plain(entry, qkv, out):
         (p, st), (B, N, _, nh, d) = views(qkv), qkv.shape
-        def run(lib):
-            err = getattr(lib, entry)(*p, out.data_ptr(), *st, B, N, nh, d, d ** -0.5, stream)
+        plan_args = planned(entry, B, N, nh, d)
+        def run(lib, plan=None):
+            err = getattr(lib, entry)(*p, out.data_ptr(), *st, B, N, nh, d, d ** -0.5, *plan_args(lib, plan),
+                                      stream)
             assert err == 0, err
         return run
 
+    def windows(BW, nh=16, d=80, ws=14):
+        """Kernel 1 on BW windows of ws x ws, the qkv Dense output viewed as
+        q, k, v, with the rel-pos bias"""
+        qkv = torch.randn(BW, ws * ws, 3, nh, d, device="cuda", generator=g).to(bf16)
+        rel_h = (0.5 * torch.randn(BW, nh, ws * ws, ws, device="cuda", generator=g)).to(bf16)
+        rel_w = (0.5 * torch.randn(BW, nh, ws * ws, ws, device="cuda", generator=g)).to(bf16)
+        out = torch.empty(BW, ws * ws, nh * d, device="cuda", dtype=bf16)
+        return relpos("pope_attention_short_relpos", qkv, rel_h, rel_w, out, ws, ws)
+
     shapes = {}
     if "short" in kernels:
-        # kernel 1: windowed layers, the qkv Dense output viewed as q, k, v
-        qkv1 = torch.randn(80, 196, 3, 16, 80, device="cuda", generator=g).to(bf16)
-        rel_h = (0.5 * torch.randn(80, 16, 196, 14, device="cuda", generator=g)).to(bf16)
-        rel_w = (0.5 * torch.randn(80, 16, 196, 14, device="cuda", generator=g)).to(bf16)
-        out1 = torch.empty(80, 196, 16 * 80, device="cuda", dtype=bf16)
+        # kernel 1: windowed layers (the eval batch's 4 frames x 20 windows);
         # kernel 3: DINOv2's blocks
         qkv3 = torch.randn(260, 197, 3, 6, 64, device="cuda", generator=g).to(bf16)
         out3 = torch.empty(260, 197, 6 * 64, device="cuda", dtype=bf16)
-        shapes["short"] = {"kernel1_ms": relpos("pope_attention_short_relpos", qkv1, rel_h, rel_w, out1, 14, 14),
-                           "kernel3_ms": plain("pope_attention_short", qkv3, out3)}
+        shapes["short"] = {"kernel1_ms": windows(80), "kernel3_ms": plain("pope_attention_short", qkv3, out3)}
+        if args.against or args.plans:
+            # the serving path's square frame (25 windows) and one 640x480
+            # frame (20): last waves of 4 and 56 heads on 132 SMs
+            shapes["short"] |= {"kernel1_square_ms": windows(25), "kernel1_one_frame_ms": windows(20)}
     def global_grid(B, hk, wk, nh, d, bias=True):
         """q/k/v views of a (B, N, 3, nh, d) tensor on an hk x wk grid, with
         the rel-pos bias or without it"""
@@ -590,7 +664,33 @@ def main() -> int:
                          "kernel1_f32_ms": relpos("pope_attention_f32_relpos", qkv1f, *rel1, out1f, 14, 14),
                          "kernel2_f32_ms": relpos("pope_attention_f32_relpos", qkv2f, *rel2, out2f, 48, 64)}
 
-    if args.against:
+    if args.plans:
+        # every row the rule splits, under the unsplit plan, the rule's and
+        # the other candidates
+        rows = [("short", key, cuda_kernels.short_plan(BW, 196, 16), 4)
+                for key, BW in (("kernel1_square_ms", 25), ("kernel1_one_frame_ms", 20))]
+        for key, (B, N, nh, d, hk, wk) in (("kernel3_n1025_d64_ms", (1, 1025, 6, 64, 0, 0)),
+                                           ("kernel2_crop_ms", (1, 3328, 16, 80, 52, 64)),
+                                           ("kernel2_portrait_crop_ms", (1, 3328, 16, 80, 64, 52))):
+            plan = cuda_kernels.long_plan(B, N, nh, d, hk, wk)
+            rows.append(("long", key, plan, min(plan["key_tiles"], cuda_kernels.LONG_MAX_PIECES)))
+        for rnd in range(args.rounds):
+            for kernel, key, plan, most in rows:
+                fn, lib = shapes[kernel][key], libs[kernel, "shipped"]
+                units, resident, rule = plan["units"], plan["resident"], cuda_kernels._plan_of(plan)
+                full = units - units % resident  # the whole waves' items, run whole in every candidate
+                plans = {"unsplit": (units, 1), "rule": rule}
+                plans |= {f"s{s}": (full, s) for s in range(2, most + 1)}
+                order = list(plans) + list(plans)[::-1]
+                turns = {name: [] for name in plans}
+                for name in order:
+                    turns[name].append(cuda_ms(lambda: fn(lib, plans[name]), args.reps))
+                print(json.dumps({"round": rnd, "kernel": kernel, "shape": key, "units": units, "resident": resident,
+                                  "rule": rule, "plans": plans,
+                                  "ms": {name: sum(t) / len(t) for name, t in turns.items()}, "turns_ms": turns,
+                                  "card": smi}), flush=True)
+        return 0
+    if turns:
         kernel = kernels[0]
         old, new = libs[kernel, "against"], libs[kernel, "shipped"]
         for rnd in range(args.rounds):

@@ -117,18 +117,20 @@ def main() -> int:
     out3 = torch.empty(B3, N3, nh3 * d3, device="cuda", dtype=bf16)
     q3, k3, v3 = qkv3.unbind(2)
 
+    # the direct calls pass the plan the wrappers pick at these shapes (full
+    # last waves: nothing split, cuda_kernels.short_plan)
     def strides(q, k, v):
         return (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
 
     def direct1():
         err = lib.pope_attention_short_relpos(
             q1.data_ptr(), k1.data_ptr(), v1.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), out1.data_ptr(),
-            *strides(q1, k1, v1), BW, N1, nh1, d1, ws, ws, d1 ** -0.5, stream)
+            *strides(q1, k1, v1), BW, N1, nh1, d1, ws, ws, d1 ** -0.5, BW * nh1, 1, stream)
         assert err == 0, err
 
     def direct3():
         err = lib.pope_attention_short(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out3.data_ptr(),
-                                       *strides(q3, k3, v3), B3, N3, nh3, d3, d3 ** -0.5, stream)
+                                       *strides(q3, k3, v3), B3, N3, nh3, d3, d3 ** -0.5, B3 * nh3, 1, stream)
         assert err == 0, err
 
     calls = {

@@ -9,7 +9,7 @@ text fails where the change is made. It needs neither a card nor triton."""
 
 import pytest
 
-from pope_tpu_torch.tools.ablate_kernels import SOURCES, VARIANTS, variant_source
+from pope_tpu_torch.tools.ablate_kernels import SOURCES, VARIANTS, takes_plan, variant_source
 
 CASES = [(kernel, name) for kernel, variants in VARIANTS.items() for name in variants]
 
@@ -36,3 +36,15 @@ def test_gathered_variants_route_to_the_per_logit_gather():
     assert "dkh = 8 / wk" not in gathered and "kh += dkh" not in gathered
     walked = variant_source("long", "gather_bias")
     assert "  if (true) return launch_long_bias<GATHER>" in walked and "kh += dkh, kw += dkw;" in walked
+
+
+@pytest.mark.parametrize("kernel", sorted(SOURCES))
+def test_takes_plan_tells_the_shipped_entries_from_earlier_ones(kernel):
+    """The shipped short and long kernels' C entries take the last wave's
+    plan (split0, pieces) after the scale, and the tool passes it to them;
+    an earlier source (--against) without it gets the old arguments, and the
+    f32 kernel never takes one."""
+    src = SOURCES[kernel].read_text()
+    assert takes_plan(kernel, src) == (kernel != "f32")
+    earlier = src.replace("float scale, int split0, int pieces,", "float scale,")
+    assert not takes_plan(kernel, earlier)

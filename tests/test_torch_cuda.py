@@ -499,7 +499,8 @@ def test_long_max_grid_is_the_launchers_fit(card):
         rel_w = torch.zeros(1, 1, wk, wk, device=card, dtype=bf16)
         ptrs, strides = _views(q, k, v)
         err = library().pope_attention_long_relpos(*ptrs, rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(),
-                                                   *strides, 1, wk, 1, 80, 1, wk, 80 ** -0.5, stream)
+                                                   *strides, 1, wk, 1, 80, 1, wk, 80 ** -0.5, 1, 1, None, None,
+                                                   stream)
         torch.cuda.synchronize()
         assert err == want
 
@@ -1104,3 +1105,122 @@ def test_kernel_3_at_sam_widths_matches_plain(card, B, N, design):
     before = flash_attention.launches_by_design[design]
     assert_matches_plain(flash_attention(q, k, v), flash_attention_plain(q, k, v))
     assert flash_attention.launches_by_design[design] == before + 1
+
+
+# ---- the last wave's plans (cuda_kernels.tail_plan): every plan a kernel
+# takes, forced through its C entry, against the plain version
+
+_LONG_PLAN_CASES = [  # (B, nh, N, d, hk, wk): no bias where hk = 0
+    (1, 6, 1025, 64, 0, 0),  # demo-dinov2: 9 key tiles, a masked key tail, 5 units a head
+    (2, 3, 1000, 64, 0, 0),  # 8 key tiles, a ragged last one
+    (2, 2, 257, 64, 0, 0),  # 3 key tiles, the last with one key
+    (1, 2, 3328, 80, 52, 64),  # a sweep crop's grid: 26 tiles of two key rows
+    (1, 2, 3328, 80, 64, 52),  # a portrait crop's: 32 tiles of two 56-slot rows
+    (2, 2, 1025, 80, 25, 41),  # odd hk: the last tile's second key row masked
+]
+
+
+def _long_inputs(card, B, nh, N, d, hk, wk, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    q, k, v = torch.randn(B, N, 3, nh, d, device=card, generator=g).to(torch.bfloat16).unbind(2)
+    if not hk:
+        return (q, k, v), {}, flash_attention_plain(q, k, v)
+    rel_h = (0.5 * torch.randn(B, nh, N, hk, device=card, generator=g)).to(torch.bfloat16)
+    rel_w = (0.5 * torch.randn(B, nh, N, wk, device=card, generator=g)).to(torch.bfloat16)
+    rel = {"rel_h": rel_h, "rel_w": rel_w, "hk": hk, "wk": wk}
+    return (q, k, v), rel, flash_attention_relpos_plain(q, k, v, rel_h, rel_w, hk, wk)
+
+
+@pytest.mark.parametrize("B,nh,N,d,hk,wk", _LONG_PLAN_CASES,
+                         ids=[f"{N}-d{d}" + (f"-{hk}x{wk}" if hk else "") for _, _, N, d, hk, wk in _LONG_PLAN_CASES])
+def test_long_kernel_under_every_plan(card, B, nh, N, d, hk, wk):
+    """The long kernel (csrc/attention_long.cu) with its units split into s
+    = 1 .. min(key tiles, 8) key chunks, from the first unit (split0 = 0)
+    and from the middle one on (the others whole), each chunk's partial
+    merged in the same launch: every plan matches the plain version, and
+    three launches in a row give the same bits (the arrival counters reset,
+    the merge runs in chunk order)."""
+    from pope_tpu_torch.ops.cuda_kernels import LONG_MAX_PIECES, launch_with_plan, long_key_tiles, long_units
+
+    (q, k, v), rel, ref = _long_inputs(card, B, nh, N, d, hk, wk, N + hk)
+    units, tiles = long_units(B, N, nh), long_key_tiles(N, hk, wk)
+    for s in range(1, min(tiles, LONG_MAX_PIECES) + 1):
+        for split0 in (0, units // 2):
+            outs = [launch_with_plan((split0, s), q, k, v, design="long", **rel) for _ in range(3)]
+            torch.cuda.synchronize()
+            assert_matches_plain(outs[0], ref)
+            assert all(torch.equal(o, outs[0]) for o in outs[1:]), (s, split0)
+
+
+def test_long_kernel_refuses_a_plan_it_cannot_run(card):
+    """More key chunks than K/V tiles, or a split0 past the units: the
+    launcher refuses (cudaErrorInvalidValue), and the wrapper raises."""
+    from pope_tpu_torch.ops.cuda_kernels import launch_with_plan
+
+    (q, k, v), _, _ = _long_inputs(card, 1, 2, 257, 64, 0, 0, 1)  # 3 key tiles, 2 units a head
+    for plan in ((0, 4), (4, 2), (-1, 2)):
+        with pytest.raises(RuntimeError, match="pope_attention_long failed"):
+            launch_with_plan(plan, q, k, v, design="long")
+    with pytest.raises(ValueError, match="takes no plan"):
+        launch_with_plan((0, 2), q.float(), k.float(), v.float())
+
+
+_SHORT_PLAN_CASES = [  # (B, nh, N, d, ws): windows of ws x ws with the bias; ws = 0 none
+    (25, 16, 196, 80, 14),  # the square frame's 25 windows: 400 heads
+    (20, 16, 196, 80, 14),  # one 640x480 frame's 20: 320
+    (3, 6, 197, 64, 0),  # DINOv2's N = 197
+    (2, 3, 256, 64, 0),  # two passes of 128 keys
+]
+
+
+@pytest.mark.parametrize("B,nh,N,d,ws", _SHORT_PLAN_CASES,
+                         ids=[f"{B}x{nh}-{N}-d{d}" + ("-bias" if ws else "") for B, nh, N, d, ws in _SHORT_PLAN_CASES])
+def test_short_kernel_under_every_plan(card, B, nh, N, d, ws):
+    """The short kernel (csrc/attention_short.cu) with its heads split into
+    s = 1 .. 4 runs of their 64-query tiles, from the first head and from
+    the rule's split0 on: every plan matches the plain version and gives the
+    same bits three times in a row."""
+    from pope_tpu_torch.ops.cuda_kernels import launch_with_plan, short_plan
+
+    g = torch.Generator(device=card).manual_seed(B * N + d)
+    q, k, v = torch.randn(B, N, 3, nh, d, device=card, generator=g).to(torch.bfloat16).unbind(2)
+    rel = {}
+    if ws:
+        rel_h, rel_w = ((0.5 * torch.randn(B, nh, N, ws, device=card, generator=g)).to(torch.bfloat16) for _ in "hw")
+        rel = {"rel_h": rel_h, "rel_w": rel_w, "hk": ws, "wk": ws}
+        ref = flash_attention_relpos_plain(q, k, v, rel_h, rel_w, ws, ws)
+    else:
+        ref = flash_attention_plain(q, k, v)
+    rule = short_plan(B, N, nh)
+    for s in range(1, 5):
+        for split0 in (0, rule["split0"] if rule["split0"] < rule["units"] else rule["units"] // 2):
+            outs = [launch_with_plan((split0, s), q, k, v, design="short", **rel) for _ in range(3)]
+            torch.cuda.synchronize()
+            assert_matches_plain(outs[0], ref)
+            assert all(torch.equal(o, outs[0]) for o in outs[1:]), (s, split0)
+    with pytest.raises(RuntimeError, match="pope_attention_short"):
+        launch_with_plan((0, 5), q, k, v, design="short", **rel)  # more pieces than query tiles
+
+
+def test_wrappers_pick_the_expected_plans(card):
+    """On this card the wrappers' rule gives chip_smoke.py's plans (split at
+    N = 1025, the crop and portrait crop, kernel 1's square and one-frame
+    rows; whole at every eval-path row); the long kernel's "rows" layout,
+    whose tiles the plan counts, is the launcher's; and a split row through
+    the public wrapper matches the plain version and the unsplit plan's
+    output to its tolerance."""
+    import chip_smoke
+    from pope_tpu_torch.ops.cuda_kernels import launch_with_plan, long_layout, long_plan, short_plan
+
+    for key, (design, B, N, nh, d, hk, wk, s) in chip_smoke.TAIL_ROWS.items():
+        assert attention_design(torch.bfloat16, N, d, hk, wk) == design, key
+        plan = short_plan(B, N, nh) if design == "short" else long_plan(B, N, nh, d, hk, wk)
+        assert plan["s"] == s, (key, plan)
+        if design == "long" and hk:
+            assert long_layout(d, hk, wk)["bias"] == "rows"
+    (q, k, v), _, ref = _long_inputs(card, 1, 6, 1025, 64, 0, 0, 3)
+    before = dict(flash_attention.launches_by_design)
+    out = flash_attention(q, k, v)
+    assert_one_launch_of(flash_attention, before, "long")
+    assert_matches_plain(out, ref)
+    assert_matches_plain(launch_with_plan((30, 1), q, k, v, design="long"), ref)
